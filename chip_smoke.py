@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+1. print the card's name and power limit (nvidia-smi);
+2. build the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
+   (one nvcc per source, in parallel) and print the build time;
+3. hold each kernel against its plain PyTorch version on the card, in f32
+   and bf16, at the serving path's shapes (plus a long flash-attention
+   shape, S=4096 causal and sliding), and time kernel, plain version,
+   one library call and the least time the card could take (bound);
+4. serve full-size qwen2-7b (f32, weights drawn from a seeded generator on
+   the card) through `ServeSession` + `Router` with replicas=1, n1=4,
+   slots=8, max_len=96, prefill_len=32: 24 requests (prompt 24, max_new
+   16) through fail, fail, repair, repair mid-decode (TP 4→3→2→3→4, with
+   preemptions). Every token stream must equal an uninterrupted session's
+   on the same weights; every kernel must have launched on this path; a
+   two-layer full-width model must agree with the plain versions on the
+   CPU on a small input; a decode tick is timed (CUDA events) and profiled
+   (torch.profiler: device time per kernel, idle share);
+5. print the kernels table as one JSON line, then the device line.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
+PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s: f32 CUDA cores, bf16 dense tensor cores
+TOL = {"float32": 3e-5, "bfloat16": 2e-2}        # tests/test_kernels.py::_tol
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` back-to-back launches
+    (CUDA events, after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes, n_ops, dtype_name):
+    t_bytes = n_bytes / MEM_BW
+    t_ops = n_ops / PEAK[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_phase(torch, F, dev):
+    """Phase 3. Returns {name: table row at the main path's shape}."""
+    from repro_torch.core import shard_mapping as sm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.reshard_pack import reshard_pack
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=dev).manual_seed(1234)
+    rows = {}
+
+    def report(name, shape, dt, err, ms, plain, lib, bound):
+        tol = TOL[dt]
+        print(f"  {name:16s} {shape:34s} {dt:8s} max_abs_err {err:.3e} "
+              f"(tol {tol:g})  kernel_ms {ms:.5f}  plain_ms {plain:.5f}  "
+              f"library_ms {'null' if lib is None else f'{lib:.5f}'}  "
+              f"bound_ms {bound[0]:.6f} ({bound[1]})", flush=True)
+        check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
+
+    # ---- rmsnorm: decode rows (8) and prefill rows (32) at d=3584, plus_one
+    for n in (8, 32):
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            d = 3584
+            x = torch.randn((n, d), generator=g, device=dev).to(dt)
+            w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dt)
+            got = rmsnorm(x, w, plus_one=True)
+            torch.cuda.synchronize()
+            want = ref.rmsnorm_ref(x, w, plus_one=True)
+            err = (got.float() - want.float()).abs().max().item()
+            ms = time_ms(lambda: rmsnorm(x, w, plus_one=True), 200)
+            plain = time_ms(lambda: ref.rmsnorm_ref(x, w, plus_one=True), 200)
+            w1 = 1.0 + w
+            lib = time_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6), 200)
+            b = bound_ms((2 * n * d + d) * x.element_size(), 4 * n * d, dn)
+            report("rmsnorm", f"x({n},{d})", dn, err, ms, plain, lib, b)
+            if n == 8 and dt == torch.float32:
+                rows["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                       library_ms=lib, bound_ms=b[0],
+                                       bound_by=b[1])
+
+    # ---- flash attention: prefill (1,28,4,32,128) causal; S=4096 causal/sliding
+    cases = [(32, "causal", 4096), (4096, "causal", 4096),
+             (4096, "sliding", 1024)]
+    for s, kind, window in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            b_, h, kvh, d = 1, 28, 4, 128
+            q = torch.randn((b_, h, s, d), generator=g, device=dev).to(dt)
+            k = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
+            v = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
+            kw = dict(kind=kind, window=window)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            del want
+            reps = 50 if s <= 32 else 5
+            ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
+            plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                            max(1, reps // 5))
+            qp = torch.arange(s, device=dev)
+            mask = qp[None, :] <= qp[:, None]
+            if kind == "sliding":
+                mask &= qp[None, :] > qp[:, None] - window
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=None if kind == "causal" else mask,
+                is_causal=kind == "causal", enable_gqa=True), reps)
+            pairs = int(mask.sum().item())
+            n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
+            bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
+            report("flash_attention", f"q({b_},{h},{s},{d}) kv{kvh} {kind}",
+                   dn, err, ms, plain, lib, bd)
+            if s == 32 and dt == torch.float32:
+                rows["flash_attention"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=bd[0], bound_by=bd[1])
+            del q, k, v, got
+    torch.cuda.empty_cache()
+
+    # ---- reshard_pack: one rank's send-bucket gather of the KV-head reshard
+    # at the TP 4->3 transition, full-size unit rows (2·L·slots·T·hd elems)
+    tables = sm.reshard_tables(sm.sync_layout(4, 4, 4), sm.sync_layout(4, 4, 3), 4)
+    rank = 1
+    elems = 2 * 28 * 8 * 96 * 128
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        src = torch.cat([torch.randn((4, elems), generator=g, device=dev).to(dt),
+                         torch.zeros((1, elems), dtype=dt, device=dev)])
+        idx = torch.as_tensor(tables.send_idx[rank], device=dev)
+        got = reshard_pack(src, idx)
+        torch.cuda.synchronize()
+        want = ref.reshard_pack_ref(src, idx)
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want), f"reshard_pack {dn} is not bit-exact")
+        ms = time_ms(lambda: reshard_pack(src, idx), 20)
+        plain = time_ms(lambda: ref.reshard_pack_ref(src, idx), 20)
+        flat = idx.flatten()
+        lib = time_ms(lambda: torch.index_select(src, 0, flat), 20)
+        row_bytes = elems * src.element_size()
+        n_rows_read = len(set(tables.send_idx[rank].flatten().tolist()))
+        n_bytes = (n_rows_read + idx.numel()) * row_bytes + idx.numel() * 4
+        bd = bound_ms(n_bytes, 0, dn)
+        report("reshard_pack", f"src(5,{elems}) idx{tuple(idx.shape)}", dn,
+               err, ms, plain, lib, bd)
+        if dt == torch.float32:
+            rows["reshard_pack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                        library_ms=lib, bound_ms=bd[0],
+                                        bound_by=bd[1])
+        del src, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reference_phase(torch, dev):
+    """A two-layer model at qwen2-7b's full width on the card against the
+    same parameters on the CPU (plain kernel versions), small input."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b"), n_layers=2)
+    gpu = build_model(cfg)
+    params = gpu.init(torch.Generator(device=dev).manual_seed(7))
+    cpu = build_model(cfg, device="cpu")
+    cparams = _to(params, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 32),
+                         generator=torch.Generator().manual_seed(8))
+    gl, gc = gpu.prefill(params, toks.to(dev), gpu.init_cache(1, 40, torch.float32))
+    cl, cc = cpu.prefill(cparams, toks, cpu.init_cache(1, 40, torch.float32))
+    nxt = torch.tensor([[5]])
+    gd, _ = gpu.decode_step(params, gc, nxt.to(dev), 32)
+    cd, _ = cpu.decode_step(cparams, cc, nxt, 32)
+    errs = [(gl.cpu() - cl).abs().max().item(), (gd.cpu() - cd).abs().max().item()]
+    check(bool(torch.isfinite(gl).all()) and gl.shape == (1, 32, cfg.padded_vocab()),
+          "reference model: non-finite or misshapen logits")
+    print(f"  2-layer full-width qwen2-7b, card vs CPU plain versions: prefill "
+          f"max_abs_err {errs[0]:.3e}, decode {errs[1]:.3e} (tol 1e-4)")
+    check(max(errs) <= 1e-4, f"reference model disagrees: {errs}")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def serve(session, requests, events):
+    """Drive one session: request i arrives at tick i, ``events`` maps tick
+    → event. Returns ({rid: tokens}, ticks, wall seconds)."""
+    import torch
+
+    from repro_torch.serve import Request, Router
+
+    router = Router(session)
+    pending = [Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(requests)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick = 0
+    while pending or router.queue or any(e.n_active for e in session.engines):
+        while pending and pending[0].rid <= tick:
+            router.submit(pending.pop(0))
+        if tick in events:
+            router.apply(events[tick])
+            e = session.engines[0]
+            st = e.last_reshard
+            print(f"  tick {tick:3d}: {type(events[tick]).__name__:13s} -> TP "
+                  f"{e.tp}, capacity {e.capacity}, speed {e.rel_speed:.3f}, "
+                  f"boost {e.power_boost:.2f}, reshard {st['bytes_moved']} B "
+                  f"({st['bytes_moved'] / 2**20:.1f} MiB) in "
+                  f"{st.get('messages', 0)} messages, preemptions so far "
+                  f"{e.stats['preemptions']}", flush=True)
+        router.step()
+        tick += 1
+        check(tick < 2000, "serving did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {r.rid: list(r.generated) for r in router.completed}, tick, wall
+
+
+def serve_phase(torch, dev):
+    """Phase 4. Returns the launch counts of the fail→repair run."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mode
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+    from repro_torch.serve import ServeSession
+
+    cfg = get_arch("qwen2-7b")
+    kw = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
+              policy="ntp_pw")
+    t0 = time.perf_counter()
+    session = ServeSession.create(cfg, seed=0, **kw)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(session.params))
+    print(f"  qwen2-7b full size: {n_par / 1e9:.3f} B params f32 "
+          f"({n_par * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    clean = ServeSession.create(cfg, params=session.params, **kw)
+    check(clean.params is session.params, "sessions must share one weight copy")
+
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(1, cfg.vocab_size, size=24).astype(np.int32)
+                for _ in range(24)]
+    events = {10: FailureEvent(domain=0), 14: FailureEvent(domain=0),
+              40: RecoveryEvent(domain=0), 48: RecoveryEvent(domain=0)}
+
+    mode.reset_launches()
+    got, ticks, wall = serve(session, requests, events)
+    launches = mode.launches()
+    tokens = session.engines[0].stats["tokens"]
+    tps = [t["tp_to"] for t in session.transitions]
+    print(f"  fail->repair run: {len(got)} requests, {tokens} tokens in "
+          f"{ticks} ticks, {wall:.2f} s wall: {tokens / wall:.1f} tokens/s; "
+          f"TP path {tps}; preemptions "
+          f"{session.engines[0].stats['preemptions']}", flush=True)
+    want, cticks, cwall = serve(clean, requests, {})
+    ctokens = clean.engines[0].stats["tokens"]
+    print(f"  uninterrupted run: {len(want)} requests, {ctokens} tokens in "
+          f"{cticks} ticks, {cwall:.2f} s wall: {ctokens / cwall:.1f} tokens/s",
+          flush=True)
+
+    check(tps == [3, 2, 3, 4], f"TP path {tps} != [3, 2, 3, 4]")
+    check(session.engines[0].stats["preemptions"] > 0, "no preemption happened")
+    check(len(got) == 24 and all(len(t) == 16 for t in got.values()),
+          "not every request completed with 16 tokens")
+    diverged = [rid for rid in want if got.get(rid) != want[rid]]
+    check(not diverged, f"token streams diverged through fail->repair: {diverged}")
+    print("  all 24 token streams identical to the uninterrupted run")
+    for t in session.transitions:
+        r = t["reshard"]
+        print(f"  transition TP {t['tp_from']}->{t['tp_to']}: "
+              f"{r['bytes_moved']} bytes moved, {r['moved_units_per_rank']} "
+              f"unit rows through the busiest rank, {r.get('messages', 0)} "
+              f"messages, {t['preempted']} preempted")
+
+    # steady-state decode tick at 8 slots (CUDA events)
+    eng = clean.engines[0]
+    toks = torch.ones(8, dtype=torch.long, device=dev)
+    pos = torch.arange(8, device=dev) + 40
+    tick_ms = time_ms(lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                     toks, pos), 10)
+    floor_ms = n_par * 4 / MEM_BW * 1e3
+    print(f"  decode tick (8 slots, full model): {tick_ms:.3f} ms; weight-read "
+          f"floor {floor_ms:.3f} ms ({n_par * 4 / 1e9:.2f} GB at 3.35 TB/s)")
+    profile_decode(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                         toks, pos))
+    print(f"  kernels {json.dumps(launches)}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched: {launches}")
+    del session, clean, eng
+    return launches
+
+
+def profile_decode(torch, step, ticks=3):
+    """Where a decode tick's time goes: torch.profiler over ``ticks`` steps,
+    device time per kernel name and the device's idle share of the
+    (profiled) window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  profiled decode ticks: {window_ms / ticks:.3f} ms per tick, device "
+          f"busy {busy_ms / ticks:.3f} ms per tick, idle share "
+          f"{1 - busy_ms / window_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        ms = e.self_device_time_total / 1e3 / ticks
+        print(f"    {ms:8.3f} ms/tick  {e.count // ticks:4d} launches/tick  "
+              f"{e.key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+SOURCES = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:44"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:132"),
+    "reshard_pack": ("src/repro_torch/kernels/csrc/reshard_pack.cu",
+                     "src/repro/kernels/reshard_pack.py:47"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    print("phase 2: build kernels", flush=True)
+    secs = build.build_all()
+    print(f"  built {', '.join(build.SOURCES)} in {secs:.1f} s", flush=True)
+    for name, info in build.ptxas_info.items():
+        for line in info.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    print("phase 3: kernels against their plain versions", flush=True)
+    rows = kernel_phase(torch, F, dev)
+
+    print("phase 4: serve full-size qwen2-7b through fail->repair", flush=True)
+    reference_phase(torch, dev)
+    launches = serve_phase(torch, dev)
+
+    table = []
+    for name in ("rmsnorm", "flash_attention", "reshard_pack"):
+        src, replaces = SOURCES[name]
+        table.append(dict(name=name, route="cuda", source=src,
+                          replaces=replaces, launches=launches[name],
+                          **rows[name]))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

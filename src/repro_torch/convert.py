@@ -1,0 +1,58 @@
+"""Parameter conversion from the JAX reference.
+
+`params_from_jax` turns the JAX package's parameter tree (as numpy arrays,
+e.g. ``jax.tree.map(np.asarray, params)``) into the port's parameter dict.
+The JAX tree stacks each layer-pattern entry's blocks on a leading cycle
+axis (``layers`` is a tuple with one stacked block dict per pattern entry,
+``tail`` holds the leftover blocks); the port keeps one block dict per
+layer, in the reference's execution order. Weights keep the ``(in, out)``
+layout, so the two packages compute the same products.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import mode
+
+
+def _to_torch(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """JAX parameter tree of numpy arrays → the port's parameters on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    unknown = set(tree) - {"embed", "final_norm", "lm_head", "layers", "tail"}
+    if unknown:
+        raise ValueError(
+            f"params_from_jax: leaves {sorted(unknown)} belong to blocks the "
+            "port does not run yet"
+        )
+    dev = mode.resolve_device(device)
+    layers = []
+    cycles = tree.get("layers", ())
+    n_cyc = len(next(iter(cycles[0]["ln1"].values()))) if cycles else 0
+    for c in range(n_cyc):
+        for block in cycles:
+            layers.append(_to_torch(_index(block, c), dev))
+    for block in tree.get("tail", ()):
+        layers.append(_to_torch(block, dev))
+    out = {
+        "embed": _to_torch(tree["embed"], dev),
+        "final_norm": _to_torch(tree["final_norm"], dev),
+        "layers": layers,
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = _to_torch(tree["lm_head"], dev)
+    return out
+
+
+def _index(block, c: int):
+    if isinstance(block, dict):
+        return {k: _index(v, c) for k, v in block.items()}
+    return np.asarray(block)[c]

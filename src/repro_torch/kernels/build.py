@@ -1,0 +1,119 @@
+"""Build and load the CUDA kernels (`csrc/*.cu`).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with `ctypes`. The build runs at
+first use, into ``build/`` beside this file (git-ignored); a library is
+named by the hash of its source and flags, so an edited source rebuilds and
+an unchanged one is reused. All missing libraries are compiled at once, one
+``nvcc`` process per source, started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("rmsnorm", "flash_attention", "reshard_pack")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
+#: ptxas report (registers, shared memory, spills) of each library built
+#: by this process.
+ptxas_info: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the CUDA kernels are built from "
+        "source at first use and need the CUDA toolkit"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Sequence[str] = SOURCES) -> float:
+    """Compile every library in ``names`` that is not built yet, in
+    parallel, and load them all. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if n not in _libs and not _lib_path(n).exists()]
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        failed = []
+        for n, (tmp, p) in procs.items():
+            out, _ = p.communicate()
+            ptxas_info[n] = out
+            if p.returncode != 0:
+                failed.append(f"--- nvcc {n}.cu (rc {p.returncode}) ---\n{out}")
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for n in names:
+        if n not in _libs:
+            _libs[n] = ctypes.CDLL(str(_lib_path(n)))
+    return time.perf_counter() - t0
+
+
+def function(lib: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """The C function ``symbol`` of library ``lib`` (building every library
+    on first use), with its argument and return types declared."""
+    key = (lib, symbol)
+    if key not in _fns:
+        if lib not in _libs:
+            build_all()
+        fn = getattr(_libs[lib], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _fns[key] = fn
+    return _fns[key]
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = function(kernel, "kernel_error_string", [ctypes.c_int],
+                       restype=ctypes.c_char_p)
+        raise RuntimeError(
+            f"{kernel}: CUDA launch failed: error {err} "
+            f"({msg(err).decode()})"
+        )
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,66 @@
+"""Device dispatch and launch counters for the hand-written kernels.
+
+The JAX package resolves Pallas interpret-vs-compiled mode here; the port
+has no interpret mode. A kernel wrapper takes its plain PyTorch version
+(`kernels.ref`) only when its tensors lie on the CPU, launches the CUDA
+kernel when they lie on a CUDA device, and raises otherwise: there is no
+override and no fallback.
+
+Each wrapper adds one to its kernel's counter where it launches the kernel
+and nowhere else, so a run can show that a path really went through the
+kernels (`reset_launches` before it, `launches` after it).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
+
+_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def count_launch(kernel: str) -> None:
+    _launches[kernel] += 1
+
+
+def launches() -> Dict[str, int]:
+    """Launches per kernel since the last `reset_launches`."""
+    return dict(_launches)
+
+
+def reset_launches() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
+    """True when every tensor lies on the CPU (run the plain version), False
+    when all lie on one CUDA device (launch the kernel). Raises for mixed
+    devices or any other device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{kernel}: tensors lie on several devices {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type == "cuda":
+        return False
+    raise ValueError(f"{kernel}: no kernel for device {device}")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Raises when CUDA is asked for (or defaulted to) and no card is
+    present — the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to "
+            "run the plain PyTorch versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    return dev

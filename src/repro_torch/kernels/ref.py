@@ -1,0 +1,48 @@
+"""Plain PyTorch versions of the hand-written kernels (port of
+`repro/kernels/ref.py`). The kernel wrappers run these for CPU tensors; the
+tests and `chip_smoke.py` hold the CUDA kernels against them."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 4096,
+                        chunk: int = 8192, softcap: Optional[float] = None):
+    """q: (B,H,S,D); k/v: (B,KVH,S,D)."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    k = k.repeat_interleave(h // kvh, dim=1)
+    v = v.repeat_interleave(h // kvh, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    ok = kp <= qp
+    if kind == "sliding":
+        ok &= kp > qp - window
+    elif kind == "chunked":
+        ok &= (kp // chunk) == (qp // chunk)
+    elif kind == "bidir":
+        ok = torch.ones_like(ok)
+    scores = scores.masked_fill(~ok[None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def rmsnorm_ref(x, w, *, eps: float = 1e-6, plus_one: bool = False):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    w32 = w.float()
+    if plus_one:
+        w32 = 1.0 + w32
+    return (y * w32).to(x.dtype)
+
+
+def reshard_pack_ref(src, send_idx):
+    """src: (U+1, elems) zero-padded; send_idx: (n, s_max)."""
+    return src[send_idx.long()]

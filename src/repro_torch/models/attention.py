@@ -1,0 +1,160 @@
+"""Self-attention with GQA, RoPE, QKV bias, qk-norm, logit softcap and a
+slot-addressed KV cache (port of `repro/models/attention.py`).
+
+Prefill (S > 1) attends the fresh K/V through the hand-written flash
+kernel (`kernels.flash_attention`), which computes exactly the reference's
+`_attend_naive` under `_mask_bias`. Decode (S == 1) stays plain PyTorch
+`_attend_naive` over the cache, as in the reference (a 1×T score row per
+head). In decode every batch row carries its own write position, so one
+call advances a whole pool of serving slots at ragged positions — the
+slot dimension written out where the reference vmaps.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
+
+NEG_INF = -2.0e38  # fp32-safe mask value
+INT32_MAX = 2 ** 31 - 1
+FLASH_KIND = {"attn": "causal", "attn_sw": "sliding",
+              "attn_chunked": "chunked", "attn_bidir": "bidir"}
+
+
+# ---------------------------------------------------------------------------
+# params
+
+def attn_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
+    d, nh, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = gen.device
+    p = {
+        "wq": dense_init(gen, (d, nh * hd), d, dtype),
+        "wk": dense_init(gen, (d, kvh * hd), d, dtype),
+        "wv": dense_init(gen, (d, kvh * hd), d, dtype),
+        "wo": dense_init(gen, (nh * hd, d), nh * hd, dtype),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros(nh * hd, dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(kvh * hd, dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(kvh * hd, dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# masks
+
+def _mask_bias(kind: str, q_pos, k_pos, window: int, chunk: int):
+    """Additive mask bias (..., Sq, Sk) from position vectors."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    if kind == "attn_bidir":
+        ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                        dtype=torch.bool, device=q.device)
+    else:
+        ok = k <= q
+        if kind == "attn_sw":
+            ok &= k > q - window
+        elif kind == "attn_chunked":
+            ok &= (k // chunk) == (q // chunk)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# cores
+
+def _group(q, kvh):
+    """(B,S,nh,hd) -> (B,kvh,qpk,S,hd)."""
+    b, s, nh, hd = q.shape
+    return q.reshape(b, s, kvh, nh // kvh, hd).permute(0, 2, 3, 1, 4)
+
+
+def _attend_naive(q, k, v, bias, cap: Optional[float]):
+    """q: (B,kvh,g,Sq,hd); k/v: (B,Sk,kvh,hd); bias: broadcastable (...,Sq,Sk)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bkgqh,bskh->bkgqs", q.float(), k.float()) * (hd ** -0.5)
+    scores = softcap(scores, cap) + bias
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqs,bskh->bkgqh", probs, v.float())
+
+
+# ---------------------------------------------------------------------------
+# public apply
+
+def attn_apply(
+    cfg: ArchConfig,
+    p: dict,
+    x,
+    *,
+    kind: str,
+    cache: Optional[dict] = None,   # {'k','v'} (B, T, kvh, hd), written in place
+    cache_pos=None,       # prefill: int write offset; decode: int or (B,)
+):
+    """Returns (out, cache). The cache-less forward and prefill (S > 1)
+    run at positions 0..S-1; a one-token step against a cache runs each
+    row at its write position ``cache_pos``."""
+    nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+        k, v = k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, nh, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    decode = cache is not None and s == 1
+    if decode:
+        cache_pos = torch.as_tensor(cache_pos, device=x.device).expand(b)
+        positions = cache_pos[:, None]                       # (B, 1)
+    else:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if not decode:
+        if cache is not None:
+            cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
+            cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
+        # (B,H,S,hd) / (B,KVH,S,hd): GQA resolved inside the kernel
+        out = flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), kind=FLASH_KIND[kind],
+            window=cfg.window, chunk=cfg.chunk_size, softcap=cfg.attn_softcap,
+        ).transpose(1, 2)
+    else:
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, cache_pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, cache_pos] = v[:, 0].to(cache["v"].dtype)
+        w = cache["k"].shape[1]
+        slot = torch.arange(w, device=x.device)
+        k_posm = torch.where(slot[None, :] <= cache_pos[:, None], slot[None, :],
+                             INT32_MAX)                      # (B, T)
+        bias = _mask_bias(kind, positions, k_posm, cfg.window, cfg.chunk_size)
+        out = _attend_naive(_group(q, kvh), cache["k"], cache["v"],
+                            bias[:, None, None], cfg.attn_softcap)
+        out = out.permute(0, 3, 1, 2, 4)                     # (B,S,kvh,g,hd)
+
+    out = out.reshape(b, s, nh * hd).to(x.dtype)
+    return out @ p["wo"], cache
+
+
+def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
+                  dtype, device) -> dict:
+    """Full-length K/V cache of ``n_layers`` attention layers, stacked on a
+    leading layer axis: leaves (n_layers, batch, max_len, kvh, hd)."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

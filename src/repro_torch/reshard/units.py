@@ -1,0 +1,70 @@
+"""Partition-unit specs of serving state (port of the serving half of
+`repro/reshard/units.py`).
+
+A `UnitSpec` says how one leaf of a state tree splits into Algorithm-1
+partition units: ``k`` units along leaf axis ``axis``. This slice serves
+attention caches, whose unit is the GQA KV head (``kv_head``): leaves
+``k``/``v`` of shape (..., T, kvh, hd), head axis -2. The SSD-head and
+rgLRU-block families wait for the recurrent archs' slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+from repro_torch.configs.base import ATTN_KINDS, ArchConfig
+
+
+@dataclass(frozen=True)
+class UnitSpec:
+    """One partition-unit family on one leaf."""
+
+    kind: str
+    k: int            # number of partition units
+    axis: int = 0     # leaf axis carrying the units (negative = from end)
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"UnitSpec needs k >= 1, got {self}")
+
+
+def _kind_state_specs(cfg: ArchConfig, kind: str) -> Dict[str, UnitSpec]:
+    """State-leaf specs of one block kind."""
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"no state units for block kind {kind!r} in the port")
+    kv = UnitSpec("kv_head", cfg.n_kv_heads, axis=-2)
+    return {"k": kv, "v": kv}
+
+
+def arch_unit_counts(cfg: ArchConfig) -> Dict[str, int]:
+    """Partition-unit count per state family present in ``cfg``'s pattern."""
+    out: Dict[str, int] = {}
+    for kind in dict.fromkeys(cfg.layer_pattern):
+        for spec in _kind_state_specs(cfg, kind).values():
+            out[spec.kind] = spec.k
+    return out
+
+
+def serve_unit_count(cfg: ArchConfig) -> int:
+    """The quantization granularity serving slowdown models use: the
+    COARSEST (smallest-k) unit family in the pattern pins the imbalance."""
+    return max(1, min(arch_unit_counts(cfg).values()))
+
+
+def cache_unit_resolver(cfg: ArchConfig) -> Callable[[str], UnitSpec]:
+    """Leaf name → `UnitSpec` for ``cfg``'s cache dict. Unknown names raise:
+    silently skipping a state leaf would strand it at the old layout
+    through a TP transition."""
+    specs: Dict[str, UnitSpec] = {}
+    for kind in dict.fromkeys(cfg.layer_pattern):
+        specs.update(_kind_state_specs(cfg, kind))
+
+    def resolve(name: str) -> UnitSpec:
+        if name not in specs:
+            raise ValueError(
+                f"unknown state leaf {name!r}: no UnitSpec registered for "
+                f"{cfg.arch_id} (have {sorted(specs)})"
+            )
+        return specs[name]
+
+    return resolve

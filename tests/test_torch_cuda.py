@@ -1,0 +1,165 @@
+"""The port's CUDA kernels on the card: each built from `csrc/`, launched at
+the serving path's shapes and others, and held against its plain PyTorch
+version (`repro_torch.kernels.ref`) on the same inputs — f32 at 3e-5, bf16
+at 2e-2 (`tests/test_kernels.py::_tol`), reshard_pack bit-exact. Then a
+small model on the card against the same parameters on the CPU, and a small
+serving session through fail→repair against an uninterrupted one. Every test needs a CUDA card and skips without one; run them on
+the GPU with
+
+  PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, mode, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.reshard_pack import reshard_pack
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    build.build_all()
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype, dev, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(8, 3584), (32, 3584), (7, 100), (256, 512)])
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_rmsnorm_matches_plain(dev, n, d, plus_one, dtype):
+    x = _randn((n, d), dtype, dev, 0)
+    w = _randn((d,), dtype, dev, 1, 0.1)
+    got = rmsnorm(x, w, plus_one=plus_one)
+    torch.cuda.synchronize()
+    want = ref.rmsnorm_ref(x, w, plus_one=plus_one)
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["causal", "sliding", "chunked", "bidir"])
+@pytest.mark.parametrize("b,h,kvh,s,d", [
+    (1, 28, 4, 32, 128),     # the serving path's prefill
+    (2, 4, 2, 200, 64),      # ragged last tile
+    (1, 8, 8, 128, 32),
+    (1, 2, 1, 96, 256),
+])
+def test_flash_attention_matches_plain(dev, b, h, kvh, s, d, kind, dtype):
+    q = _randn((b, h, s, d), dtype, dev, 2)
+    k = _randn((b, kvh, s, d), dtype, dev, 3)
+    v = _randn((b, kvh, s, d), dtype, dev, 4)
+    kw = dict(kind=kind, window=40, chunk=64)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+def test_flash_attention_softcap_matches_plain(dev):
+    q = _randn((1, 4, 128, 64), torch.float32, dev, 5, 4.0)
+    k = _randn((1, 2, 128, 64), torch.float32, dev, 6, 4.0)
+    v = _randn((1, 2, 128, 64), torch.float32, dev, 7)
+    got = flash_attention(q, k, v, softcap=5.0)
+    want = ref.flash_attention_ref(q, k, v, softcap=5.0)
+    assert (got - want).abs().max().item() < 3e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u,elems,n,smax", [(4, 128 * 3, 4, 1), (33, 128, 8, 9),
+                                            (10, 7, 4, 5)])
+def test_reshard_pack_bit_exact(dev, u, elems, n, smax, dtype):
+    src = torch.cat([_randn((u, elems), dtype, dev, 8),
+                     torch.zeros((1, elems), dtype=dtype, device=dev)])
+    g = torch.Generator(device=dev).manual_seed(9)
+    idx = torch.randint(0, u + 1, (n, smax), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = reshard_pack(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.reshard_pack_ref(src, idx))
+    bad = idx.clone()
+    bad[0, 0] = u + 5
+    assert not reshard_pack(src, bad)[0, 0].any()
+
+
+def test_launches_are_counted(dev):
+    mode.reset_launches()
+    x = _randn((8, 64), torch.float32, dev, 10)
+    rmsnorm(x, x[0])
+    q = _randn((1, 2, 64, 64), torch.float32, dev, 11)
+    flash_attention(q, q, q)
+    reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device=dev))
+    assert mode.launches() == dict.fromkeys(mode.KERNELS, 1)
+
+
+def test_model_on_card_matches_cpu(dev):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.transformer import build_model
+
+    cfg = reduced(get_arch("qwen2-7b"))
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=dev)
+    gparams = _to(params, dev)
+    toks = torch.randint(1, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    cl, cc = cpu.prefill(params, toks, cpu.init_cache(2, 24, torch.float32))
+    gl, gc = gpu.prefill(gparams, toks.to(dev), gpu.init_cache(2, 24, torch.float32))
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=1e-4)
+    cur, pos = torch.tensor([3, 5]), torch.tensor([16, 16])
+    cl, _ = cpu.decode_slots(params, cc, cur, pos)
+    gl, _ = gpu.decode_slots(gparams, gc, cur.to(dev), pos.to(dev))
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=1e-4)
+
+
+def test_serving_on_card_through_fail_repair(dev):
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+    from repro_torch.serve import Request, Router, ServeSession
+
+    cfg = ArchConfig(arch_id="cuda-serve", family="dense", citation="test",
+                     n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                     head_dim=32, d_ff=256, vocab_size=256, attn_bias=True)
+    kw = dict(n1=4, slots=8, max_len=48, prefill_len=16, policy="ntp_pw")
+
+    def run(session, events):
+        router = Router(session)
+        rng = np.random.default_rng(0)
+        for i in range(16):
+            router.submit(Request(rid=i, prompt=rng.integers(
+                1, 256, size=10).astype(np.int32), max_new=8))
+        for tick in range(400):
+            if tick in events:
+                router.apply(events[tick])
+            router.step()
+            if not router.queue and session.engines[0].n_active == 0:
+                break
+        return {r.rid: r.generated for r in router.completed}
+
+    mode.reset_launches()
+    s = ServeSession.create(cfg, device=dev, **kw)
+    events = {2: FailureEvent(domain=0), 4: FailureEvent(domain=0),
+              9: RecoveryEvent(domain=0), 11: RecoveryEvent(domain=0)}
+    got = run(s, events)
+    assert all(n > 0 for n in mode.launches().values()), mode.launches()
+    want = run(ServeSession.create(cfg, device=dev, params=s.params, **kw), {})
+    assert len(got) == 16 and got == want
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -1,0 +1,113 @@
+"""The port stands alone and never falls back: importing `repro_torch` loads
+neither JAX nor the JAX package, and a CUDA-only call without a card
+raises instead of running somewhere else."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+PORT_MODULES = [
+    "repro_torch",
+    "repro_torch.convert",
+    "repro_torch.configs",
+    "repro_torch.core.policies",
+    "repro_torch.core.power",
+    "repro_torch.core.shard_mapping",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mode",
+    "repro_torch.kernels.ref",
+    "repro_torch.kernels.reshard_pack",
+    "repro_torch.kernels.rmsnorm",
+    "repro_torch.launch.serve",
+    "repro_torch.models.attention",
+    "repro_torch.models.common",
+    "repro_torch.models.mlp",
+    "repro_torch.models.transformer",
+    "repro_torch.reshard",
+    "repro_torch.reshard.engine",
+    "repro_torch.reshard.planner",
+    "repro_torch.reshard.state",
+    "repro_torch.reshard.units",
+    "repro_torch.runtime",
+    "repro_torch.serve",
+]
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_card(no_card):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.kernels.mode import resolve_device
+    from repro_torch.launch.serve import main
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import ServeSession
+
+    cfg = reduced(get_arch("qwen2-7b"))
+    for call in (
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: Model(cfg),
+        lambda: ServeSession.create(cfg),
+        lambda: params_from_jax({"embed": [[0.0]], "final_norm": {"w": [0.0]}}),
+        lambda: main(["--requests", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.reshard_pack import reshard_pack
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    x = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="rmsnorm: no kernel for device meta"):
+        rmsnorm(x, torch.empty(8, device="meta"))
+    q = torch.empty((1, 2, 16, 32), device="meta")
+    with pytest.raises(ValueError, match="flash_attention: no kernel"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="reshard_pack: no kernel"):
+        reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        rmsnorm(torch.zeros(4, 8), torch.empty(8, device="meta"))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
