@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
    (one nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the serving path's shapes (plus a long flash-attention
-   shape, S=4096 causal and sliding), and time kernel, plain version,
-   one library call and the least time the card could take (bound);
+   shape, S=4096 causal and sliding) and the training path's gradient-bucket
+   shapes, and time kernel, plain version, one library call and the least
+   time the card could take (bound);
 4. serve full-size qwen2-7b (f32, weights drawn from a seeded generator on
    the card) through `ServeSession` + `Router` with replicas=1, n1=4,
    slots=8, max_len=96, prefill_len=32: 24 requests (prompt 24, max_new
@@ -19,8 +20,24 @@ Phases (any failure exits non-zero):
    on the same weights; every kernel must have launched on this path; a
    two-layer full-width model must agree with the plain versions on the
    CPU on a small input; a decode tick is timed (CUDA events) and profiled
-   (torch.profiler: device time per kernel, idle share);
-5. print the kernels table as one JSON line, then the device line.
+   (torch.profiler: device time per kernel, idle share); the served model
+   is then freed;
+5. train the NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups
+   of 7 query heads, head_dim 128, d_ff 18944, vocab 152064; depth cut to
+   4 layers) on 2 emulated DP replicas x TP 4, local batch 4, sequence 256,
+   SGD: steps 0-2 healthy (UNIFORM), a FailureEvent before step 3 (TP
+   (3, 4), NTP), a RecoveryEvent before step 6 (healthy), 9 steps. Two
+   sessions, overlap on and off, run in lockstep with a dense one-copy
+   reference on the card: every step's loss within 1e-4 of the reference
+   and 1e-5 between the sessions, both replicas' canonical params within
+   1e-4 of the reference at the end (1e-4 between the sessions), the
+   transition ledger equal to `expected_transfer`, and bucket_pack,
+   bucket_unpack and reshard_pack launched on this path. Step times (CUDA
+   events), transition time and bytes, peak memory, and a torch.profiler
+   view of one degraded overlapped step are printed;
+6. run the training launcher (`repro_torch.launch.train --ntp --steps 8
+   --fail-at 3 --overlap on`) at its defaults on the card;
+7. print the kernels table as one JSON line, then the device line.
 """
 import json
 import os
@@ -172,7 +189,61 @@ def kernel_phase(torch, F, dev):
                                         bound_by=bd[1])
         del src, got, want
     torch.cuda.empty_cache()
+    bucket_rows(torch, dev, g, rows, report)
     return rows
+
+
+def bucket_rows(torch, dev, g, rows, report):
+    """bucket_pack / bucket_unpack at the training path's bucket shapes:
+    rows = D·n1·buf of the stacked emulated ranks (2 replicas x TP 4 at
+    qwen2-7b widths), one launch per bucket."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
+
+    attn = (3584 * 896, 3584 * 128, 3584 * 128, 896 * 3584)   # wq wk wv wo
+    mlp = (3584 * 128, 128 * 3584)                             # A B
+    cases = [("MLP TP (3,4)", 400, mlp), ("MLP healthy", 296, mlp),
+             ("attn healthy", 8, attn), ("attn TP (3,4)", 16, attn)]
+    for label, n_rows, widths in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            leaves = [torch.randn((n_rows, w), generator=g, device=dev).to(dt)
+                      for w in widths]
+            flat = bucket_pack(leaves)
+            parts = bucket_unpack(flat, widths)
+            torch.cuda.synchronize()
+            want = ref.bucket_pack_ref(leaves)
+            check(torch.equal(flat, want), f"bucket_pack {label} {dn} is not "
+                  "bit-exact")
+            check(all(torch.equal(p, w) for p, w in zip(
+                parts, ref.bucket_unpack_ref(flat, widths))),
+                f"bucket_unpack {label} {dn} is not bit-exact")
+            del want, parts
+            n_bytes = 2 * n_rows * sum(widths) * flat.element_size()
+            bd = bound_ms(n_bytes, 0, dn)
+            shape = f"{n_rows}x{sum(widths)} ({len(widths)} leaves)"
+            timed = {
+                "bucket_pack": (
+                    lambda: bucket_pack(leaves),
+                    lambda: ref.bucket_pack_ref(leaves),
+                    lambda: torch.cat(leaves, dim=1)),
+                "bucket_unpack": (
+                    lambda: bucket_unpack(flat, widths),
+                    lambda: ref.bucket_unpack_ref(flat, widths),
+                    lambda: [t.contiguous() for t in
+                             torch.split(flat, widths, dim=1)]),
+            }
+            for name, (kern, plain_fn, lib_fn) in timed.items():
+                ms = time_ms(kern, 10)
+                plain = time_ms(plain_fn, 10)
+                lib = time_ms(lib_fn, 10)
+                report(name, f"{label} {shape}", dn, 0.0, ms, plain, lib, bd)
+                if label == "MLP TP (3,4)" and dt == torch.float32:
+                    rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                      library_ms=lib, bound_ms=bd[0],
+                                      bound_by=bd[1])
+            del leaves, flat
+            torch.cuda.empty_cache()
 
 
 def reference_phase(torch, dev):
@@ -311,19 +382,249 @@ def serve_phase(torch, dev):
     floor_ms = n_par * 4 / MEM_BW * 1e3
     print(f"  decode tick (8 slots, full model): {tick_ms:.3f} ms; weight-read "
           f"floor {floor_ms:.3f} ms ({n_par * 4 / 1e9:.2f} GB at 3.35 TB/s)")
-    profile_decode(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
-                                                         toks, pos))
+    profile_steps(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                        toks, pos), "decode tick")
     print(f"  kernels {json.dumps(launches)}", flush=True)
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
           f"a kernel of the path never launched: {launches}")
     del session, clean, eng
     return launches
 
 
-def profile_decode(torch, step, ticks=3):
-    """Where a decode tick's time goes: torch.profiler over ``ticks`` steps,
-    device time per kernel name and the device's idle share of the
-    (profiled) window."""
+SERVE_KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
+TRAIN_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
+
+
+def train_phase(torch, dev):
+    """Phase 5. Returns the launch counts of the fail→repair training run."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.optim import sgd
+    from repro_torch.reshard.transition import expected_transfer
+    from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
+
+    cfg = nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
+                            head_dim=128, d_ff=18944, unit_rows=128,
+                            vocab=152064, n_layers=4)
+    lr, lb, seq, steps = 1e-2, 4, 256, 9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    n_par = sum(t.numel() for t in tr.leaves(ref))
+    kw = dict(mode="uniform", local_batch=lb, optimizer=sgd(lr), params=ref,
+              device=dev)
+    sessions = {"on": NTPSession.create(cfg, (2, 4), overlap=True, **kw),
+                "off": NTPSession.create(cfg, (2, 4), overlap=False, **kw)}
+    torch.cuda.synchronize()
+    print(f"  NTP prototype at qwen2-7b widths, 4 layers: {n_par / 1e9:.3f} B "
+          f"canonical params f32; two packed sessions (overlap on/off) and "
+          f"the dense reference on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
+    ref_loss = nt.make_reference_loss(cfg)
+    # packing puts the failed domain (domain 1) into replica 0, so the
+    # repair addresses replica 0
+    events = {3: FailureEvent(step=3, replica=1, n_gpus=1),
+              6: RecoveryEvent(step=6, replica=0, n_gpus=1)}
+    step_ms = {"on": [], "off": []}
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    mode.reset_launches()
+    for i in range(steps):
+        if i in events:
+            for name, s in sessions.items():
+                old = s.plan
+                new, ms = timed(lambda: s.apply(events[i]))
+                st = s.last_transition
+                want = sum(int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f)
+                           for f, m in expected_transfer(cfg, old, new).items())
+                print(f"  step {i}: {type(events[i]).__name__} -> plan "
+                      f"{new.replica_tp} mode {s.mode.value} [{name}]: "
+                      f"transition {ms:.3f} ms, {st.bytes_moved} B moved "
+                      f"({st.bytes_moved / 2**20:.1f} MiB) in {st.messages} "
+                      f"messages, {st.moved_units} units moved, "
+                      f"{st.stayed_units} stayed (expected {want} B)",
+                      flush=True)
+                check(st.bytes_moved == want,
+                      f"transition ledger {st.bytes_moved} != {want}")
+        tokens = pipe._batch_np(i)
+        losses = {}
+        for name, s in sessions.items():
+            m, ms = timed(lambda: s.step(tokens))
+            losses[name] = float(m["loss"])
+            step_ms[name].append(ms)
+        lbs = sessions["on"].local_batches
+        mask = torch.tensor(np.concatenate(
+            [np.arange(lb) < lbs[d] for d in range(2)]), dtype=torch.float32,
+            device=dev)
+        leaves = tr.tree_map(lambda t: t.requires_grad_(True), ref)
+        rl = ref_loss(leaves, torch.as_tensor(tokens, device=dev), mask)
+        grads = torch.autograd.grad(rl, tr.leaves(leaves))
+        ref = tr.tree_map(lambda t: t.detach(), ref)
+        with torch.no_grad():
+            for p, gr in zip(tr.leaves(ref), grads):
+                p.sub_(lr * gr)
+        del grads, leaves
+        rl = float(rl.detach())
+        plan = sessions["on"].plan.replica_tp
+        print(f"  step {i}: plan {plan} loss on {losses['on']:.6f} off "
+              f"{losses['off']:.6f} reference {rl:.6f}; |on-ref| "
+              f"{abs(losses['on'] - rl):.2e} |off-ref| "
+              f"{abs(losses['off'] - rl):.2e} |on-off| "
+              f"{abs(losses['on'] - losses['off']):.2e}; ms on "
+              f"{step_ms['on'][-1]:.1f} off {step_ms['off'][-1]:.1f} "
+              f"(collectives on {sessions['on'].step_fn.collectives}, off "
+              f"{sessions['off'].step_fn.collectives})", flush=True)
+        check(np.isfinite([losses["on"], losses["off"], rl]).all(),
+              "non-finite loss")
+        check(abs(losses["on"] - rl) < 1e-4 and abs(losses["off"] - rl) < 1e-4,
+              f"step {i}: loss off the dense reference")
+        check(abs(losses["on"] - losses["off"]) < 1e-5,
+              f"step {i}: overlap on and off disagree")
+    launches = mode.launches()
+    print(f"  kernels {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel of the training path never launched: {launches}")
+    check([s.plan.replica_tp for s in sessions.values()] == [(4, 4)] * 2,
+          "the run did not end healthy")
+    errs = {}
+    for name, s in sessions.items():
+        for r in range(2):
+            got = s.canonical_params(r)
+            errs[(name, r)] = max(float((a - b).abs().max()) for a, b in
+                                  zip(tr.leaves(got), tr.leaves(ref)))
+            del got
+    on0, off0 = (sessions[n].canonical_params(0) for n in ("on", "off"))
+    d_onoff = max(float((a - b).abs().max())
+                  for a, b in zip(tr.leaves(on0), tr.leaves(off0)))
+    del on0, off0
+    print(f"  canonical params vs the dense reference: "
+          + ", ".join(f"{n} replica {r} {e:.2e}" for (n, r), e in errs.items())
+          + f"; on vs off {d_onoff:.2e} (tol 1e-4)")
+    check(max(errs.values()) < 1e-4 and d_onoff < 1e-4,
+          "canonical params diverged")
+    peak = torch.cuda.max_memory_allocated()
+    phases = {"healthy": range(0, 3), "degraded": range(3, 6),
+              "repaired": range(6, 9)}
+    for ph, idx in phases.items():
+        print(f"  {ph} steps ms: " + "; ".join(
+            f"overlap {n} " + ", ".join(f"{step_ms[n][i]:.1f}" for i in idx)
+            for n in ("off", "on")))
+    print(f"  peak device memory {peak / 1e9:.2f} GB", flush=True)
+
+    # after the checked run (the params move on): step times in turns
+    # (off, on, on, off) with the reference freed, host syncs per step, and
+    # a profile of one step of each session on the degraded plan
+    del ref
+    torch.cuda.empty_cache()
+    tokens = pipe._batch_np(steps)
+    for label, event in (("healthy", None),
+                         ("degraded", FailureEvent(replica=1, n_gpus=1))):
+        for s in sessions.values():
+            if event is not None:
+                s.apply(event)
+            s.step(tokens)                               # warm-up
+        turns = {"off": [], "on": []}
+        churn = {"off": [], "on": []}
+        for name in ("off", "on", "on", "off"):
+            before = torch.cuda.memory_stats()
+            turns[name].append(timed(lambda: sessions[name].step(tokens))[1])
+            churn[name].append(allocator_churn(torch, before))
+        syncs = {n: host_syncs(torch, lambda: s.step(tokens))
+                 for n, s in sessions.items()}
+        print(f"  {label} step in turns (off, on, on, off): ms off "
+              + ", ".join(f"{t:.1f}" for t in turns["off"]) + "; on "
+              + ", ".join(f"{t:.1f}" for t in turns["on"])
+              + f"; host syncs per step off {syncs['off']}, on "
+              f"{syncs['on']}; allocator (cudaMalloc, cudaFree, retries) "
+              f"per step off {churn['off']}, on {churn['on']}; reserved "
+              f"{torch.cuda.memory_reserved() / 1e9:.1f} GB", flush=True)
+    # the degraded gradient sync alone, on one set of pre-sync grads
+    _, grads = sessions["off"].step_fn.grads_fn(sessions["off"].params,
+                                                tokens)
+    sync_ms = {}
+    for name in ("off", "on", "on", "off"):
+        fn = sessions[name].step_fn.sync_fn
+        sync_ms.setdefault(name, []).append(timed(lambda: fn(grads))[1])
+    print("  degraded gradient sync alone (same grads, in turns): "
+          + "; ".join(f"{'bucketed' if n == 'on' else 'per-leaf'} "
+                      f"({sessions[n].step_fn.sync_fn.collectives} "
+                      f"collectives) " + ", ".join(f"{t:.1f}" for t in v)
+                      + " ms" for n, v in sync_ms.items()), flush=True)
+    del grads
+    for name in ("off", "on"):
+        s = sessions[name]
+        profile_steps(torch, lambda: s.step(tokens),
+                      f"degraded step (overlap {name})", ticks=1, top=8)
+    del s, sessions
+    torch.cuda.empty_cache()
+    return launches
+
+
+def host_syncs(torch, fn):
+    """How many times ``fn`` makes the host wait for the device (CUDA sync
+    debug mode warns at each synchronizing call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def allocator_churn(torch, before):
+    """(cudaMalloc calls, cudaFree calls, OOM retries) of the caching
+    allocator since the ``before`` snapshot of `torch.cuda.memory_stats`."""
+    after = torch.cuda.memory_stats()
+    return tuple(after.get(k, 0) - before.get(k, 0) for k in
+                 ("num_device_alloc", "num_device_free", "num_alloc_retries"))
+
+
+def _unit_bytes(cfg, family):
+    """f32 bytes of one partition unit of ``family``, over every layer."""
+    d, qh, h = cfg.d_model, cfg.q_per_kv * cfg.head_dim, cfg.head_dim
+    elems = {"wq": d * qh, "wk": d * h, "wv": d * h, "wo": qh * d,
+             "A": d * cfg.unit_rows, "B": cfg.unit_rows * d}[family]
+    return elems * 4 * cfg.n_layers
+
+
+def launcher_phase():
+    """Phase 6: the training launcher at its defaults on the card."""
+    import numpy as np
+
+    from repro_torch.launch.train import main as train_main
+
+    out = train_main(["--ntp", "--steps", "8", "--fail-at", "3",
+                      "--overlap", "on", "--log-every", "1"])
+    check(len(out["losses"]) == 8 and np.isfinite(out["losses"]).all(),
+          "launcher: non-finite losses")
+    check(out["plan"].replica_tp == (3, 4), f"launcher plan {out['plan']}")
+
+
+def profile_steps(torch, step, label, ticks=3, top=6):
+    """Where a step's time goes: torch.profiler over ``ticks`` steps, device
+    time per kernel name and the device's idle share of the (profiled)
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,13 +638,13 @@ def profile_decode(torch, step, ticks=3):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"  profiled decode ticks: {window_ms / ticks:.3f} ms per tick, device "
-          f"busy {busy_ms / ticks:.3f} ms per tick, idle share "
+    print(f"  profiled {label}s: {window_ms / ticks:.3f} ms per {label}, device "
+          f"busy {busy_ms / ticks:.3f} ms per {label}, idle share "
           f"{1 - busy_ms / window_ms:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / ticks
-        print(f"    {ms:8.3f} ms/tick  {e.count // ticks:4d} launches/tick  "
-              f"{e.key[:90]}")
+        print(f"    {ms:8.3f} ms/{label}  {e.count // ticks:4d} launches/"
+              f"{label}  {e.key[:90]}")
 
 
 def _leaves(tree):
@@ -364,6 +665,10 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:132"),
     "reshard_pack": ("src/repro_torch/kernels/csrc/reshard_pack.cu",
                      "src/repro/kernels/reshard_pack.py:47"),
+    "bucket_pack": ("src/repro_torch/kernels/csrc/bucket.cu",
+                    "src/repro/kernels/bucket.py:73"),
+    "bucket_unpack": ("src/repro_torch/kernels/csrc/bucket.cu",
+                      "src/repro/kernels/bucket.py:95"),
 }
 
 
@@ -402,14 +707,24 @@ def main() -> int:
 
     print("phase 4: serve full-size qwen2-7b through fail->repair", flush=True)
     reference_phase(torch, dev)
-    launches = serve_phase(torch, dev)
+    serve_launches = serve_phase(torch, dev)
+    torch.cuda.empty_cache()
+    print(f"  device memory after freeing the served model "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    print("phase 5: train the NTP prototype at qwen2-7b widths through "
+          "fail->repair", flush=True)
+    train_launches = train_phase(torch, dev)
+
+    print("phase 6: the training launcher", flush=True)
+    launcher_phase()
 
     table = []
-    for name in ("rmsnorm", "flash_attention", "reshard_pack"):
-        src, replaces = SOURCES[name]
+    for name, (src, replaces) in SOURCES.items():
+        n = serve_launches[name] * (name in SERVE_KERNELS) + \
+            train_launches[name] * (name in TRAIN_KERNELS)
         table.append(dict(name=name, route="cuda", source=src,
-                          replaces=replaces, launches=launches[name],
-                          **rows[name]))
+                          replaces=replaces, launches=n, **rows[name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,12 @@
 """Parameter conversion from the JAX reference.
 
+`ntp_params_from_jax` turns the reference's NTP prototype trees (numpy, e.g.
+``jax.tree.map(np.asarray, tree)``: canonical weights from
+`repro.core.ntp_train.init_canonical`, packed trees, or AdamW states) into
+the port's; the two packages share the layouts, so this is a structural
+copy (int32 counters stay int32). Tests use it to feed both packages
+identical parameters.
+
 `params_from_jax` turns the JAX package's parameter tree (as numpy arrays,
 e.g. ``jax.tree.map(np.asarray, params)``) into the port's parameter dict.
 The JAX tree stacks each layer-pattern entry's blocks on a leading cycle
@@ -19,9 +26,20 @@ from repro_torch.kernels import mode
 
 
 def _to_torch(tree, device: torch.device):
+    """Dicts, lists and tuples are containers (the NTP trees keep their
+    layers in a list); every other node is one array."""
     if isinstance(tree, dict):
         return {k: _to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device) for v in tree]
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def ntp_params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """The reference's NTP prototype tree of numpy arrays (canonical or
+    packed params, or an optimizer state with ``m``/``v``/``step``) → the
+    same tree of tensors on ``device`` (CUDA unless ``device="cpu"``)."""
+    return _to_torch(tree, mode.resolve_device(device))
 
 
 def params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:

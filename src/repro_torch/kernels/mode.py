@@ -16,7 +16,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
-KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
+KERNELS = ("rmsnorm", "flash_attention", "reshard_pack", "bucket_pack",
+           "bucket_unpack")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -46,3 +46,28 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6, plus_one: bool = False):
 def reshard_pack_ref(src, send_idx):
     """src: (U+1, elems) zero-padded; send_idx: (n, s_max)."""
     return src[send_idx.long()]
+
+
+def bucket_pack_ref(leaves):
+    """Column concat of same-row leaves — the per-leaf column-slice copy of
+    the Pallas body (`repro/kernels/bucket.py::_pack_kernel`)."""
+    leaves = tuple(leaves)
+    if len(leaves) == 1:
+        return leaves[0]
+    rows = leaves[0].shape[0]
+    out = leaves[0].new_empty((rows, sum(x.shape[1] for x in leaves)))
+    off = 0
+    for x in leaves:
+        out[:, off:off + x.shape[1]] = x
+        off += x.shape[1]
+    return out
+
+
+def bucket_unpack_ref(flat, widths):
+    """Static column slices of a bucket, each copied into its own tensor
+    (`_unpack_kernel`)."""
+    out, off = [], 0
+    for w in widths:
+        out.append(flat[:, off:off + w].clone())
+        off += w
+    return tuple(out)

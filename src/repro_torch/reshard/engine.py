@@ -6,12 +6,17 @@ The send-bucket gather of every rank runs the hand-written
 `kernels.reshard_pack` kernel on the card (its plain version on the CPU);
 the all-to-all is the host-unrolled transpose ``recv_r[j] = send_j[r]``;
 stays and the receive scatter are plain tensor indexing, as in the
-reference.
+reference. The tables' index tensors are uploaded once per (tables,
+device) and kept (`device_tables`), and the scatter uses integer indices,
+so a reshard issues no host-to-device copy and no data-dependent shape:
+nothing in it makes the host wait for the stream (the overlapped gradient
+sync issues reshards while the backward is still running).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import shard_mapping as sm
@@ -39,6 +44,27 @@ def gather_send_buckets(xp, send_idx):
     ).reshape(n, n, s_max, *rest)
 
 
+def device_tables(tables: sm.ReshardTables, device) -> Dict:
+    """The index tensors of ``tables`` on ``device``: send (n, n, s_max)
+    int32, stay (n, buf) int64, and per rank the flat receive positions
+    that land (``recv_src``) with their destination slots (``recv_dst``).
+    Built at the first call and kept on the (immutable) tables object."""
+    cache = tables.__dict__.setdefault("_on_device", {})
+    key = str(torch.device(device))
+    if key not in cache:
+        n = tables.n
+        recv = tables.recv_idx.reshape(n, -1)
+        land = [np.nonzero(recv[r] != tables.pad)[0] for r in range(n)]
+        cache[key] = {
+            "send": torch.as_tensor(tables.send_idx, device=device),
+            "stay": torch.as_tensor(tables.stay_idx, device=device).long(),
+            "recv_src": [torch.as_tensor(p, device=device) for p in land],
+            "recv_dst": [torch.as_tensor(recv[r][p], device=device).long()
+                         for r, p in enumerate(land)],
+        }
+    return cache[key]
+
+
 def reshard_ranks(x, tables: sm.ReshardTables):
     """One layout change on a rank-buffer stack ``x`` (n, buf, *rest):
     gather send buckets → tiled all-to-all (host-unrolled transpose:
@@ -47,22 +73,16 @@ def reshard_ranks(x, tables: sm.ReshardTables):
     n, buf = x.shape[:2]
     if buf != tables.buf:
         raise ValueError(f"buffer of {buf} slots, tables expect {tables.buf}")
-    dev = x.device
+    t = device_tables(tables, x.device)
     xp = zero_pad_slot(x, axis=1)
-    send = gather_send_buckets(
-        xp, torch.as_tensor(tables.send_idx, device=dev)
-    )
+    send = gather_send_buckets(xp, t["send"])
     recv = send.transpose(0, 1)                  # recv_r[j] = send_j[r]
 
-    stay = torch.as_tensor(tables.stay_idx, device=dev).long()
-    out = torch.stack([xp[r][stay[r]] for r in range(n)])
+    out = torch.stack([xp[r][t["stay"][r]] for r in range(n)])
     flat_recv = recv.reshape(n, n * tables.s_max, *x.shape[2:])
-    recv_slots = tables.recv_idx.reshape(n, -1)
     for r in range(n):
-        keep = recv_slots[r] != tables.pad      # pad (== buf) drops
-        if keep.any():
-            out[r][torch.as_tensor(recv_slots[r][keep], device=dev).long()] = \
-                flat_recv[r][torch.as_tensor(keep, device=dev)]
+        if len(t["recv_src"][r]):               # pad (== buf) drops
+            out[r][t["recv_dst"][r]] = flat_recv[r][t["recv_src"][r]]
     return out
 
 

@@ -1,11 +1,13 @@
-"""Partition-unit specs of serving state (port of the serving half of
-`repro/reshard/units.py`).
+"""Partition-unit specs (port of `repro/reshard/units.py`).
 
 A `UnitSpec` says how one leaf of a state tree splits into Algorithm-1
-partition units: ``k`` units along leaf axis ``axis``. This slice serves
-attention caches, whose unit is the GQA KV head (``kv_head``): leaves
-``k``/``v`` of shape (..., T, kvh, hd), head axis -2. The SSD-head and
-rgLRU-block families wait for the recurrent archs' slices.
+partition units: ``k`` units along leaf axis ``axis``. Training weights are
+already unit-buffered when they reach the engine, so their specs carry only
+``kind``/``k``: the GQA kv-group (``kv_group``) of the attention weights and
+the 128-row block (``rows128``) of the dense MLP (`ntp_unit_specs`). Served
+attention caches split by GQA KV head (``kv_head``): leaves ``k``/``v`` of
+shape (..., T, kvh, hd), head axis -2. The MoE expert, SSD-head and
+rgLRU-block families wait for their slices.
 """
 from __future__ import annotations
 
@@ -26,6 +28,16 @@ class UnitSpec:
     def __post_init__(self):
         if self.k < 1:
             raise ValueError(f"UnitSpec needs k >= 1, got {self}")
+
+
+def ntp_unit_specs(cfg) -> Dict[str, UnitSpec]:
+    """Leaf-name → UnitSpec for the NTP prototype's packed param/opt trees
+    (``cfg``: `core.ntp_train.NTPModelConfig`, duck-typed to avoid an import
+    cycle; it has no MoE, so the MLP unit is the row block). Leaves not
+    named here are replicated (norms, embed, head)."""
+    attn = UnitSpec("kv_group", cfg.n_kv_groups)
+    mlp = UnitSpec("rows128", cfg.k_ff)
+    return {"wq": attn, "wk": attn, "wv": attn, "wo": attn, "A": mlp, "B": mlp}
 
 
 def _kind_state_specs(cfg: ArchConfig, kind: str) -> Dict[str, UnitSpec]:

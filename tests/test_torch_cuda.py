@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, mode, ref
+from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.reshard_pack import reshard_pack
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -100,6 +101,7 @@ def test_launches_are_counted(dev):
     q = _randn((1, 2, 64, 64), torch.float32, dev, 11)
     flash_attention(q, q, q)
     reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device=dev))
+    bucket_unpack(bucket_pack([x, x]), (64, 64))
     assert mode.launches() == dict.fromkeys(mode.KERNELS, 1)
 
 
@@ -152,9 +154,72 @@ def test_serving_on_card_through_fail_repair(dev):
     events = {2: FailureEvent(domain=0), 4: FailureEvent(domain=0),
               9: RecoveryEvent(domain=0), 11: RecoveryEvent(domain=0)}
     got = run(s, events)
-    assert all(n > 0 for n in mode.launches().values()), mode.launches()
+    serving = ("rmsnorm", "flash_attention", "reshard_pack")
+    assert all(mode.launches()[k] > 0 for k in serving), mode.launches()
     want = run(ServeSession.create(cfg, device=dev, params=s.params, **kw), {})
     assert len(got) == 16 and got == want
+
+
+def _unaligned(rows, w, dtype, dev, seed):
+    """A contiguous (rows, w) tensor whose data pointer is one element past
+    a 16-byte boundary, so the kernel must take narrower words."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn((rows * w + 1,), generator=g, device=dev).to(dtype)
+    return base[1:].view(rows, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("rows,widths", [
+    (8, (3584 * 896, 3584 * 128, 3584 * 128, 896 * 3584)),  # attn bucket
+    (296, (3584 * 128, 128 * 3584)),                         # MLP bucket
+    (16, (128, 256, 384)),
+    (7, (1, 3, 5)),                                          # ragged
+    (33, (129, 7, 64, 1)),
+    (70000, (3, 5)),                                         # rows > 65535
+    (4, (3,) * 130),                                         # > 128 leaves
+])
+def test_bucket_pack_unpack_bit_exact(dev, rows, widths, dtype):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    leaves = [torch.randint(0, 120, (rows, w), generator=g, device=dev)
+              .to(dtype) if not dtype.is_floating_point else
+              torch.randn((rows, w), generator=g, device=dev).to(dtype)
+              for w in widths]
+    mode.reset_launches()
+    flat = bucket_pack(leaves)
+    parts = bucket_unpack(flat, widths)
+    torch.cuda.synchronize()
+    groups = -(-len(widths) // 128)
+    assert mode.launches()["bucket_pack"] == groups
+    assert mode.launches()["bucket_unpack"] == groups
+    assert flat.dtype == dtype and flat.shape == (rows, sum(widths))
+    assert torch.equal(flat, ref.bucket_pack_ref(leaves))
+    for p, want, leaf in zip(parts, ref.bucket_unpack_ref(flat, widths),
+                             leaves):
+        assert torch.equal(p, want) and torch.equal(p, leaf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_unaligned_pointers(dev, dtype):
+    leaves = [_unaligned(5, w, dtype, dev, w) for w in (128, 64, 200)]
+    flat = bucket_pack(leaves)
+    assert torch.equal(flat, ref.bucket_pack_ref(leaves))
+    outs = [_unaligned(5, w, dtype, dev, 0) for w in (128, 64, 200)]
+    from repro_torch.kernels import bucket as bk
+
+    bk._launch(False, outs, flat, "bucket_unpack")
+    torch.cuda.synchronize()
+    for o, leaf in zip(outs, leaves):
+        assert torch.equal(o, leaf)
+
+
+def test_bucket_single_leaf_passes_through(dev):
+    x = _randn((8, 128), torch.float32, dev, 12)
+    mode.reset_launches()
+    assert bucket_pack([x]) is x
+    assert bucket_unpack(x, (128,))[0] is x
+    assert mode.launches()["bucket_pack"] == 0
+    assert mode.launches()["bucket_unpack"] == 0
 
 
 def _to(tree, dev):

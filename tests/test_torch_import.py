@@ -14,9 +14,18 @@ PORT_MODULES = [
     "repro_torch",
     "repro_torch.convert",
     "repro_torch.configs",
+    "repro_torch.configs.shapes",
+    "repro_torch.core.nonuniform",
+    "repro_torch.core.ntp_train",
+    "repro_torch.core.overlap",
     "repro_torch.core.policies",
     "repro_torch.core.power",
+    "repro_torch.core.reshard",
+    "repro_torch.core.resource_manager",
     "repro_torch.core.shard_mapping",
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.kernels.bucket",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mode",
@@ -24,17 +33,27 @@ PORT_MODULES = [
     "repro_torch.kernels.reshard_pack",
     "repro_torch.kernels.rmsnorm",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.common",
     "repro_torch.models.mlp",
     "repro_torch.models.transformer",
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.optim.base",
+    "repro_torch.optim.schedule",
     "repro_torch.reshard",
     "repro_torch.reshard.engine",
     "repro_torch.reshard.planner",
     "repro_torch.reshard.state",
+    "repro_torch.reshard.transition",
+    "repro_torch.reshard.twin",
     "repro_torch.reshard.units",
     "repro_torch.runtime",
+    "repro_torch.runtime.events",
+    "repro_torch.runtime.session",
     "repro_torch.serve",
+    "repro_torch.tree",
 ]
 
 
@@ -70,7 +89,12 @@ def test_entry_points_raise_without_card(no_card):
     from repro_torch.models.transformer import Model
     from repro_torch.serve import ServeSession
 
+    from repro_torch.core.ntp_train import NTPModelConfig, init_canonical
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.runtime import NTPSession
+
     cfg = reduced(get_arch("qwen2-7b"))
+    ntp = NTPModelConfig(n_layers=1)
     for call in (
         lambda: resolve_device(None),
         lambda: resolve_device("cuda"),
@@ -78,6 +102,9 @@ def test_entry_points_raise_without_card(no_card):
         lambda: ServeSession.create(cfg),
         lambda: params_from_jax({"embed": [[0.0]], "final_norm": {"w": [0.0]}}),
         lambda: main(["--requests", "1"]),
+        lambda: train_main(["--ntp", "--steps", "1"]),
+        lambda: NTPSession.create(ntp),
+        lambda: init_canonical(ntp),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -85,6 +112,7 @@ def test_entry_points_raise_without_card(no_card):
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.reshard_pack import reshard_pack
     from repro_torch.kernels.rmsnorm import rmsnorm
@@ -97,6 +125,10 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="reshard_pack: no kernel"):
         reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="bucket_pack: no kernel"):
+        bucket_pack([x, x])
+    with pytest.raises(ValueError, match="bucket_unpack: no kernel"):
+        bucket_unpack(x, (4, 4))
     with pytest.raises(ValueError, match="several devices"):
         rmsnorm(torch.zeros(4, 8), torch.empty(8, device="meta"))
 

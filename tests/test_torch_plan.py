@@ -130,6 +130,10 @@ def test_health_ledger_matches_reference():
         tev.resolve_serving_domain(tev.FailureEvent(domain=0, stage=1), 3)
     with pytest.raises(ValueError, match="exactly one of"):
         tev.FailureEvent()
-    with pytest.raises(ValueError, match="replica-addressed"):
-        th.apply(tev.FailureEvent(replica=0))
+    # a replica-addressed event lands on the replica's worst domain under
+    # the current packing, as the reference's training ledger resolves it
+    for replica in range(3):
+        ev = dict(replica=replica, n_gpus=1)
+        assert th.apply(tev.FailureEvent(**ev)).failed == \
+            jh.apply(jev.FailureEvent(**ev)).failed
     assert tev.event_kind(tev.RecoveryEvent(domain=0)) == "repair"
