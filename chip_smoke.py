@@ -8,10 +8,14 @@ Phases (any failure exits non-zero):
 2. build the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
    (one nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the serving path's shapes (plus a long flash-attention
-   shape, S=4096 causal and sliding) and the training path's gradient-bucket
-   shapes, and time kernel, plain version, one library call and the least
-   time the card could take (bound);
+   and bf16, at the serving paths' shapes (qwen2-7b's and mamba2-780m's
+   norm rows, KV-head and SSD-head reshard rows, plus a long
+   flash-attention shape, S=4096 causal and sliding), the training path's
+   gradient-bucket shapes and, for ssd_scan (f32, 5e-4), the reference's
+   test shapes and the Mamba-2 prefill shape (4 x 48 heads, S=2048, hp 64, ds 128, chunk
+   256; the final state also against the model's plain `_ssd_chunked`),
+   and time kernel, plain version, one library call where one exists and
+   the least time the card could take (bound);
 4. serve full-size qwen2-7b (f32, weights drawn from a seeded generator on
    the card) through `ServeSession` + `Router` with replicas=1, n1=4,
    slots=8, max_len=96, prefill_len=32: 24 requests (prompt 24, max_new
@@ -22,7 +26,23 @@ Phases (any failure exits non-zero):
    CPU on a small input; a decode tick is timed (CUDA events) and profiled
    (torch.profiler: device time per kernel, idle share); the served model
    is then freed;
-5. train the NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups
+5. full-size mamba2-780m (48 layers, f32, seeded weights on the card): a
+   two-layer full-width model against the CPU's plain versions on a
+   512-token prompt (5e-4, the reference's tolerance between the chunked
+   and the sequential scan); a batched prefill of 4 x 2048 tokens through
+   `Model.prefill` (48 counted ssd_scan launches) and 32 greedy decode
+   steps; the prefill's last logits and h cache against the same prompts
+   fed token by token through the recurrent path (each within 1e-3 of its
+   largest magnitude); layer 0's scan on the prefill's inputs, the kernel
+   and the reference's plain `_ssd_chunked` each against the sequential
+   recurrence, as the yardstick of the chunked form's f32 error; prefill
+   and decode timed and profiled, peak memory; then the same serving run
+   as phase 4 (24 of 24
+   token streams identical through TP 4→3→2→3→4, reshard_pack launched on
+   the ssm_head reshards, bytes equal to moved heads x head bytes), and
+   the launcher twin `repro_torch.launch.serve_decode --arch mamba2-780m
+   --full --batch 4 --prompt-len 2048 --new 32`;
+6. train the NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups
    of 7 query heads, head_dim 128, d_ff 18944, vocab 152064; depth cut to
    4 layers) on 2 emulated DP replicas x TP 4, local batch 4, sequence 256,
    SGD: steps 0-2 healthy (UNIFORM), a FailureEvent before step 3 (TP
@@ -35,9 +55,11 @@ Phases (any failure exits non-zero):
    bucket_unpack and reshard_pack launched on this path. Step times (CUDA
    events), transition time and bytes, peak memory, and a torch.profiler
    view of one degraded overlapped step are printed;
-6. run the training launcher (`repro_torch.launch.train --ntp --steps 8
+7. run the training launcher (`repro_torch.launch.train --ntp --steps 8
    --fail-at 3 --overlap on`) at its defaults on the card;
-7. print the kernels table as one JSON line, then the device line.
+8. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2 and training paths, each counted from zero just before
+   it), then the device line.
 """
 import json
 import os
@@ -85,36 +107,44 @@ def kernel_phase(torch, F, dev):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.reshard_pack import reshard_pack
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.reshard import planner
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
 
-    def report(name, shape, dt, err, ms, plain, lib, bound):
-        tol = TOL[dt]
+    def report(name, shape, dt, err, ms, plain, lib, bound, tol=None):
+        tol = TOL[dt] if tol is None else tol
         print(f"  {name:16s} {shape:34s} {dt:8s} max_abs_err {err:.3e} "
               f"(tol {tol:g})  kernel_ms {ms:.5f}  plain_ms {plain:.5f}  "
               f"library_ms {'null' if lib is None else f'{lib:.5f}'}  "
               f"bound_ms {bound[0]:.6f} ({bound[1]})", flush=True)
         check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
 
-    # ---- rmsnorm: decode rows (8) and prefill rows (32) at d=3584, plus_one
-    for n in (8, 32):
+    # ---- rmsnorm: qwen2-7b's decode (8) and prefill (32) rows at d=3584
+    # with 1+w; Mamba-2's gated norm (d_inner 3072, w) and its ln1 /
+    # final_norm (d_model 1536, 1+w) at the rows of a token-by-token
+    # admission step (1), a decode tick (8) and the 4 x 2048 prefill (8192)
+    cases = [(n, 3584, True) for n in (8, 32)] + [
+        (n, d, p1) for d, p1 in ((3072, False), (1536, True))
+        for n in (1, 8, 8192)]
+    for n, d, plus_one in cases:
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
-            d = 3584
             x = torch.randn((n, d), generator=g, device=dev).to(dt)
             w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dt)
-            got = rmsnorm(x, w, plus_one=True)
+            got = rmsnorm(x, w, plus_one=plus_one)
             torch.cuda.synchronize()
-            want = ref.rmsnorm_ref(x, w, plus_one=True)
+            want = ref.rmsnorm_ref(x, w, plus_one=plus_one)
             err = (got.float() - want.float()).abs().max().item()
-            ms = time_ms(lambda: rmsnorm(x, w, plus_one=True), 200)
-            plain = time_ms(lambda: ref.rmsnorm_ref(x, w, plus_one=True), 200)
-            w1 = 1.0 + w
+            ms = time_ms(lambda: rmsnorm(x, w, plus_one=plus_one), 200)
+            plain = time_ms(lambda: ref.rmsnorm_ref(x, w, plus_one=plus_one),
+                            200)
+            w1 = 1.0 + w if plus_one else w
             lib = time_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6), 200)
             b = bound_ms((2 * n * d + d) * x.element_size(), 4 * n * d, dn)
-            report("rmsnorm", f"x({n},{d})", dn, err, ms, plain, lib, b)
-            if n == 8 and dt == torch.float32:
+            report("rmsnorm", f"x({n},{d}) {'1+w' if plus_one else 'w'}", dn,
+                   err, ms, plain, lib, b)
+            if (n, d) == (8, 3584) and dt == torch.float32:
                 rows["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        library_ms=lib, bound_ms=b[0],
                                        bound_by=b[1])
@@ -158,38 +188,53 @@ def kernel_phase(torch, F, dev):
             del q, k, v, got
     torch.cuda.empty_cache()
 
-    # ---- reshard_pack: one rank's send-bucket gather of the KV-head reshard
-    # at the TP 4->3 transition, full-size unit rows (2·L·slots·T·hd elems)
-    tables = sm.reshard_tables(sm.sync_layout(4, 4, 4), sm.sync_layout(4, 4, 3), 4)
-    rank = 1
-    elems = 2 * 28 * 8 * 96 * 128
-    for dt in (torch.float32, torch.bfloat16):
-        dn = str(dt).split(".")[1]
-        src = torch.cat([torch.randn((4, elems), generator=g, device=dev).to(dt),
-                         torch.zeros((1, elems), dtype=dt, device=dev)])
-        idx = torch.as_tensor(tables.send_idx[rank], device=dev)
-        got = reshard_pack(src, idx)
-        torch.cuda.synchronize()
-        want = ref.reshard_pack_ref(src, idx)
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.equal(got, want), f"reshard_pack {dn} is not bit-exact")
-        ms = time_ms(lambda: reshard_pack(src, idx), 20)
-        plain = time_ms(lambda: ref.reshard_pack_ref(src, idx), 20)
-        flat = idx.flatten()
-        lib = time_ms(lambda: torch.index_select(src, 0, flat), 20)
-        row_bytes = elems * src.element_size()
-        n_rows_read = len(set(tables.send_idx[rank].flatten().tolist()))
-        n_bytes = (n_rows_read + idx.numel()) * row_bytes + idx.numel() * 4
-        bd = bound_ms(n_bytes, 0, dn)
-        report("reshard_pack", f"src(5,{elems}) idx{tuple(idx.shape)}", dn,
-               err, ms, plain, lib, bd)
-        if dt == torch.float32:
-            rows["reshard_pack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                        library_ms=lib, bound_ms=bd[0],
-                                        bound_by=bd[1])
-        del src, got, want
-    torch.cuda.empty_cache()
+    # ---- reshard_pack: one rank's send-bucket gather at the TP 4->3
+    # transition, full-size unit rows: qwen2-7b's KV-head reshard (one unit
+    # row = 2·L·slots·T·hd elems) and mamba2-780m's ssm_head reshard of h
+    # and conv, fused (one unit row = one SSD head's L·slots·hp·ds h and
+    # hp·L·slots·(K-1) conv elems), from the rank that sends the most rows
+    nh = 48
+    ssm_plan = planner.transition_plan(planner.sync_key(nh, 4, 4),
+                                       planner.sync_key(nh, 4, 3), nh, nh)
+    cases = [("kv_head", sm.reshard_tables(sm.sync_layout(4, 4, 4),
+                                           sm.sync_layout(4, 4, 3), 4), 4,
+              2 * 28 * 8 * 96 * 128, (torch.float32, torch.bfloat16)),
+             ("ssm_head", ssm_plan.tables, nh,
+              48 * 8 * 64 * 128 + 64 * 48 * 8 * 3, (torch.float32,))]
+    for label, tables, units, elems, dtypes in cases:
+        rank = max(range(tables.n), key=lambda r: int(
+            (tables.send_idx[r] != tables.pad).sum()))
+        for dt in dtypes:
+            dn = str(dt).split(".")[1]
+            src = torch.cat([
+                torch.randn((units, elems), generator=g, device=dev).to(dt),
+                torch.zeros((1, elems), dtype=dt, device=dev)])
+            idx = torch.as_tensor(tables.send_idx[rank], device=dev)
+            got = reshard_pack(src, idx)
+            torch.cuda.synchronize()
+            want = ref.reshard_pack_ref(src, idx)
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want),
+                  f"reshard_pack {label} {dn} is not bit-exact")
+            ms = time_ms(lambda: reshard_pack(src, idx), 20)
+            plain = time_ms(lambda: ref.reshard_pack_ref(src, idx), 20)
+            flat = idx.flatten()
+            lib = time_ms(lambda: torch.index_select(src, 0, flat), 20)
+            row_bytes = elems * src.element_size()
+            n_rows_read = len(set(tables.send_idx[rank].flatten().tolist()))
+            n_bytes = (n_rows_read + idx.numel()) * row_bytes + idx.numel() * 4
+            bd = bound_ms(n_bytes, 0, dn)
+            report("reshard_pack",
+                   f"{label} src({units + 1},{elems}) idx{tuple(idx.shape)}",
+                   dn, err, ms, plain, lib, bd)
+            if label == "kv_head" and dt == torch.float32:
+                rows["reshard_pack"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=bd[0], bound_by=bd[1])
+            del src, got, want
+        torch.cuda.empty_cache()
     bucket_rows(torch, dev, g, rows, report)
+    ssd_rows(torch, dev, g, rows, report)
     return rows
 
 
@@ -244,6 +289,75 @@ def bucket_rows(torch, dev, g, rows, report):
                                       bound_by=bd[1])
             del leaves, flat
             torch.cuda.empty_cache()
+
+
+SSD_TOL = 5e-4     # tests/test_kernels.py::test_ssd_scan
+
+
+def ssd_rows(torch, dev, g, rows, report):
+    """ssd_scan at the reference's test shapes and at the prefill shape of
+    the Mamba-2 path (batch 4 x 48 heads, S=2048, hp 64, ds 128, chunk 256,
+    B/C shared by a batch row's heads as the model passes them): y against
+    the sequential plain version, the final state against the model's plain
+    `_ssd_chunked` on the same card tensors, both within 5e-4."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import _ssd_chunked
+
+    cases = [(2, 64, 16, 32, 16, 2, 1), (3, 128, 16, 32, 32, 3, 1),
+             (1, 256, 64, 128, 64, 1, 1), (4, 2048, 64, 128, 256, 4, 48)]
+    for b, s, hp, ds, chunk, groups, nh in cases:
+        bh = b * nh
+        x = torch.randn((bh, s, hp), generator=g, device=dev)
+        dt = 0.01 + 0.19 * torch.rand((bh, s), generator=g, device=dev)
+        heads = bh if nh == 1 else nh        # one A per row, or per head
+        a = -(0.5 + 1.5 * torch.rand((heads,), generator=g, device=dev))
+        A = a.repeat(bh // heads)
+        B = 0.3 * torch.randn((groups, s, ds), generator=g, device=dev)
+        C = 0.3 * torch.randn((groups, s, ds), generator=g, device=dev)
+        y, h = ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=True)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_ref(x, dt, A, B, C)
+        err = (y - want).abs().max().item()
+        del want
+        # the model-path formulation on (b, S, nh, ·) views of the same rows
+        # (one call per row where every row has its own A)
+        z = torch.zeros((b, nh, hp, ds), device=dev)
+        if nh == 1:
+            wh = torch.cat([_ssd_chunked(
+                x[r:r + 1, :, None], dt[r:r + 1, :, None], a[r:r + 1],
+                B[r:r + 1], C[r:r + 1], z[r:r + 1], chunk)[1]
+                for r in range(b)])
+        else:
+            wh = _ssd_chunked(x.reshape(b, nh, s, hp).permute(0, 2, 1, 3),
+                              dt.reshape(b, nh, s).permute(0, 2, 1), a, B, C,
+                              z, chunk)[1]
+        wh = wh.reshape(bh, hp, ds)
+        err_h = (h - wh).abs().max().item()
+        del wh
+        print(f"  ssd_scan final state vs _ssd_chunked: max_abs_err "
+              f"{err_h:.3e} (tol {SSD_TOL:g})")
+        check(err_h <= SSD_TOL, f"ssd_scan final state off by {err_h}")
+        ms = time_ms(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                      final_state=True), 10)
+        plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, A, B, C,
+                                                 final_state=True), 1)
+        # per (row, chunk): C·Bᵀ and its product with x over the L(L+1)/2
+        # causal pairs, the carried term C·h and the state update
+        L, nc = min(chunk, s), s // min(chunk, s)
+        n_ops = bh * nc * (L * (L + 1) * (ds + hp) + 4 * L * hp * ds)
+        n_bytes = 4 * (2 * bh * s * hp + bh * s + bh + 2 * groups * s * ds
+                       + bh * hp * ds)
+        bd = bound_ms(n_bytes, n_ops, "float32")
+        shape = f"x({bh},{s},{hp}) B/C({groups},{s},{ds}) L={L}"
+        report("ssd_scan", shape, "float32", err, ms, plain, None, bd,
+               tol=SSD_TOL)
+        if s == 2048:
+            rows["ssd_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    library_ms=None, bound_ms=bd[0],
+                                    bound_by=bd[1])
+        del x, dt, A, B, C, y, h
+    torch.cuda.empty_cache()
 
 
 def reference_phase(torch, dev):
@@ -391,8 +505,251 @@ def serve_phase(torch, dev):
     return launches
 
 
+def mamba_reference_phase(torch, dev):
+    """A two-layer Mamba-2 at mamba2-780m's full width on the card against
+    the same parameters on the CPU (plain kernel versions: the sequential
+    SSD recurrence), on one 512-token prompt, then one decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), n_layers=2)
+    gpu = build_model(cfg)
+    params = gpu.init(torch.Generator(device=dev).manual_seed(7))
+    cpu = build_model(cfg, device="cpu")
+    cparams = _to(params, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 512),
+                         generator=torch.Generator().manual_seed(8))
+    gl, gc = gpu.prefill(params, toks.to(dev), gpu.init_cache(1, 8, torch.float32))
+    cl, cc = cpu.prefill(cparams, toks, cpu.init_cache(1, 8, torch.float32))
+    errs = {"prefill logits": (gl.cpu() - cl).abs().max().item()}
+    for name in ("h", "conv"):
+        errs[f"cache {name}"] = (gc[name].cpu() - cc[name]).abs().max().item()
+    nxt = torch.tensor([[5]])
+    gd, _ = gpu.decode_step(params, gc, nxt.to(dev), 512)
+    cd, _ = cpu.decode_step(cparams, cc, nxt, 512)
+    errs["decode logits"] = (gd.cpu() - cd).abs().max().item()
+    check(bool(torch.isfinite(gl).all()) and gl.shape == (1, 512, cfg.padded_vocab()),
+          "reference Mamba-2: non-finite or misshapen logits")
+    # the card's prefill runs the chunked scan, the CPU's plain version the
+    # sequential recurrence: the reference holds those two to 5e-4
+    print("  2-layer full-width mamba2-780m, card vs CPU plain versions: "
+          + ", ".join(f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
+          + f" (tol {SSD_TOL:g}); max |logit| {cl.abs().max().item():.3f}, "
+          f"max |h| {cc['h'].abs().max().item():.3f}")
+    check(max(errs.values()) <= SSD_TOL, f"reference Mamba-2 disagrees: {errs}")
+
+
+def scan_yardstick(torch, cfg, model, params, prompts):
+    """Layer 0's SSD scan on the prefill's own inputs: the kernel and the
+    reference model's chunked formulation (`_ssd_chunked`), each against
+    the sequential recurrence (`ssd_scan_ref`), in y and the final state.
+    It measures what the chunked form itself gives up in f32: its decays
+    subtract cumulative sums of dt·A that reach ~1e3 within a 256-step
+    chunk. The kernel must be no further off than twice the chunked form
+    (or 5e-4)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import norm_apply
+
+    lp = params["layers"][0]
+    x = norm_apply(cfg, lp["ln1"], model._embed(params, prompts))
+    _, xh, dt, A, B, C, _ = ssm.scan_inputs(cfg, lp["mixer"], x)
+    b, s, nh, hp = xh.shape
+    L = cfg.ssm.chunk
+    rows = (xh.permute(0, 2, 1, 3).reshape(b * nh, s, hp),
+            dt.permute(0, 2, 1).reshape(b * nh, s), A.repeat(b), B, C)
+    ys, hs = ref.ssd_scan_ref(*rows, final_state=True)
+    yk, hk = ssd_scan(*rows, chunk=L, final_state=True)
+    yc, hc = ssm._ssd_chunked(xh, dt, A, B, C,
+                              xh.new_zeros((b, nh, hp, B.shape[-1])), L)
+    yc = yc.permute(0, 2, 1, 3).reshape(b * nh, s, hp)
+    hc = hc.reshape(hs.shape)
+    errs = {name: ((y - ys).abs().max().item(), (h - hs).abs().max().item())
+            for name, y, h in (("kernel", yk, hk), ("_ssd_chunked", yc, hc))}
+    print(f"  (b) layer 0's scan on the prefill's inputs (|dt·A| up to "
+          f"{(dt * A).abs().max().item():.2f} per step; max |y| "
+          f"{ys.abs().max().item():.3f}, max |h| {hs.abs().max().item():.3f}) "
+          "against the sequential recurrence: " + "; ".join(
+              f"{n} y max_abs_err {ey:.3e}, h {eh:.3e}"
+              for n, (ey, eh) in errs.items()), flush=True)
+    for i, what in enumerate(("y", "h")):
+        ek, ec = errs["kernel"][i], errs["_ssd_chunked"][i]
+        check(ek <= max(SSD_TOL, 2 * ec),
+              f"layer-0 scan: kernel {what} off by {ek}, chunked form {ec}")
+
+
+def mamba_phase(torch, dev):
+    """Phase 5: mamba2-780m at full size (48 layers, f32, seeded weights on
+    the card). (a) a batched prefill of 4 x 2048 tokens through
+    `Model.prefill` (one ssd_scan per layer) and 32 greedy decode steps;
+    (b) the prefill's last logits and h cache against the same prompts fed
+    token by token through the recurrent path on the card; (c) two layers
+    on the card against the CPU (`mamba_reference_phase`); (d) serving
+    through fail->fail->repair->repair against an uninterrupted session;
+    (e) times, profiles and peak memory. Returns the launch counts of (a)
+    and (d), each counted from zero just before it."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mode
+    from repro_torch.models.transformer import build_model
+    from repro_torch.reshard import planner
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+    from repro_torch.serve import ServeSession
+
+    mamba_reference_phase(torch, dev)
+    cfg = get_arch("mamba2-780m")
+    b, s, new = 4, 2048, 32
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_par = sum(t.numel() for t in _leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    cache = model.init_cache(b, s + new, torch.float32)
+    torch.cuda.synchronize()
+    print(f"  mamba2-780m full size: {n_par / 1e9:.4f} B params f32 "
+          f"({n_par * 4 / 1e9:.2f} GB) on the card; cache h "
+          f"{cache['h'].numel() * 4 / 1e6:.1f} MB, conv "
+          f"{cache['conv'].numel() * 4 / 1e6:.1f} MB", flush=True)
+
+    # (a) the main path: batched prefill, then greedy decode
+    mode.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = mode.launches()
+    last = logits[:, -1].clone()
+    h_pre = cache["h"].clone()
+    del logits
+    tok = torch.argmax(last[:, :cfg.vocab_size], -1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(new):
+        lg, cache = model.decode_step(params, cache, tok, s + i)
+        tok = torch.argmax(lg[:, 0, :cfg.vocab_size], -1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    run = mode.launches()
+    check(launches["ssd_scan"] == cfg.n_layers,
+          f"prefill launched ssd_scan {launches['ssd_scan']} times, not "
+          f"{cfg.n_layers}")
+    check(run["ssd_scan"] == cfg.n_layers, "decode launched ssd_scan")
+    check(bool(torch.isfinite(lg).all()), "decode: non-finite logits")
+    print(f"  (a) prefill {b}x{s}: {prefill_s * 1e3:.1f} ms, "
+          f"{b * s / prefill_s:.1f} tokens/s; {new} greedy decode steps: "
+          f"{decode_s / new * 1e3:.2f} ms per step ({b * new / decode_s:.1f} "
+          f"tokens/s); kernels {json.dumps(run)}", flush=True)
+
+    # (b) the same prompts token by token through the recurrent update
+    rc = model.init_cache(b, s, torch.float32)
+    lr, rc = model.prefill(params, prompts[:, :1], rc)
+    for t in range(1, s):
+        lr, rc = model.decode_step(params, rc, prompts[:, t:t + 1], t)
+    ref_l, ref_h = lr[:, 0], rc["h"]
+    del rc, lr
+    l_max, h_max = ref_l.abs().max().item(), ref_h.abs().max().item()
+    err_l = (last - ref_l).abs().max().item()
+    err_h = (h_pre - ref_h).abs().max().item()
+    print(f"  (b) prefill vs token by token ({s} recurrent steps): last "
+          f"logits max_abs_err {err_l:.3e} (max |logit| {l_max:.3f}), h "
+          f"max_abs_err {err_h:.3e} (max |h| {h_max:.3f}); tol 1e-3 x max |.|",
+          flush=True)
+    check(err_l <= 1e-3 * l_max, f"prefill logits off the recurrent path: {err_l}")
+    check(err_h <= 1e-3 * h_max, f"prefill h off the recurrent path: {err_h}")
+    del ref_l, ref_h, h_pre
+    scan_yardstick(torch, cfg, model, params, prompts)
+    torch.cuda.empty_cache()
+
+    # (e) times and where they go
+    profile_steps(torch, lambda: model.prefill(params, prompts, cache),
+                  "prefill", ticks=1, top=8)
+    tok1 = torch.ones((b, 1), dtype=torch.long, device=dev)
+    step_ms = time_ms(lambda: model.decode_step(params, cache, tok1, s), 10)
+    print(f"  decode step (batch {b}, CUDA events): {step_ms:.3f} ms; "
+          f"weight-read floor {n_par * 4 / MEM_BW * 1e3:.3f} ms")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del cache, model, prompts, last
+
+    # (d) serving through fail->fail->repair->repair
+    kw = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
+              policy="ntp_pw")
+    session = ServeSession.create(cfg, params=params, **kw)
+    clean = ServeSession.create(cfg, params=params, **kw)
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(1, cfg.vocab_size, size=24).astype(np.int32)
+                for _ in range(24)]
+    events = {10: FailureEvent(domain=0), 14: FailureEvent(domain=0),
+              40: RecoveryEvent(domain=0), 48: RecoveryEvent(domain=0)}
+    mode.reset_launches()
+    got, ticks, wall = serve(session, requests, events)
+    served = mode.launches()
+    tokens = session.engines[0].stats["tokens"]
+    tps = [t["tp_to"] for t in session.transitions]
+    print(f"  (d) fail->repair run: {len(got)} requests, {tokens} tokens in "
+          f"{ticks} ticks, {wall:.2f} s wall: {tokens / wall:.1f} tokens/s; "
+          f"TP path {tps}; preemptions "
+          f"{session.engines[0].stats['preemptions']}; kernels "
+          f"{json.dumps(served)}", flush=True)
+    want, cticks, cwall = serve(clean, requests, {})
+    ctokens = clean.engines[0].stats["tokens"]
+    print(f"  uninterrupted run: {ctokens} tokens in {cticks} ticks, "
+          f"{cwall:.2f} s wall: {ctokens / cwall:.1f} tokens/s", flush=True)
+    check(tps == [3, 2, 3, 4], f"TP path {tps} != [3, 2, 3, 4]")
+    check(session.engines[0].stats["preemptions"] > 0, "no preemption happened")
+    check(len(got) == 24 and all(len(t) == 16 for t in got.values()),
+          "not every request completed with 16 tokens")
+    diverged = [rid for rid in want if got.get(rid) != want[rid]]
+    check(not diverged, f"token streams diverged through fail->repair: {diverged}")
+    print("  all 24 token streams identical to the uninterrupted run")
+    check(served["reshard_pack"] > 0, "the ssm_head reshards ran no reshard_pack")
+    # ledger: moved SSD heads x the bytes of one head's h and conv channels
+    ssm = cfg.ssm
+    nh = ssm.n_heads(cfg.d_model)
+    head_bytes = 4 * cfg.n_layers * kw["slots"] * ssm.head_dim * (
+        ssm.d_state + ssm.d_conv - 1)
+    for t in session.transitions:
+        r = t["reshard"]
+        plan = planner.transition_plan(planner.sync_key(nh, 4, t["tp_from"]),
+                                       planner.sync_key(nh, 4, t["tp_to"]),
+                                       nh, nh)
+        print(f"  transition TP {t['tp_from']}->{t['tp_to']}: "
+              f"{r['bytes_moved']} bytes moved ({plan.n_moved} SSD heads x "
+              f"{head_bytes} B), {r['moved_units_per_rank']} unit rows "
+              f"through the busiest rank, {r.get('messages', 0)} messages, "
+              f"{t['preempted']} preempted")
+        check(r["bytes_moved"] == plan.n_moved * head_bytes,
+              f"ssm_head ledger {r['bytes_moved']} != {plan.n_moved * head_bytes}")
+    eng = clean.engines[0]
+    toks = torch.ones(8, dtype=torch.long, device=dev)
+    pos = torch.arange(8, device=dev) + 40
+    tick_ms = time_ms(lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                     toks, pos), 10)
+    print(f"  decode tick (8 slots, full model, CUDA events): {tick_ms:.3f} ms")
+    profile_steps(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                        toks, pos), "decode tick")
+    del session, clean, eng, params
+    torch.cuda.empty_cache()
+    return {k: run[k] + served[k] for k in run}
+
+
+def mamba_launcher_phase():
+    """(f) the launcher twin at the prefill shape."""
+    from repro_torch.launch.serve_decode import main as decode_main
+
+    out = decode_main(["--arch", "mamba2-780m", "--full", "--batch", "4",
+                       "--prompt-len", "2048", "--new", "32"])
+    check(out["tokens"].shape == (4, 32), "launcher: wrong token shape")
+
+
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
 TRAIN_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
+MAMBA_KERNELS = ("rmsnorm", "reshard_pack", "ssd_scan")
 
 
 def train_phase(torch, dev):
@@ -669,6 +1026,8 @@ SOURCES = {
                     "src/repro/kernels/bucket.py:73"),
     "bucket_unpack": ("src/repro_torch/kernels/csrc/bucket.cu",
                       "src/repro/kernels/bucket.py:95"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:89"),
 }
 
 
@@ -712,17 +1071,26 @@ def main() -> int:
     print(f"  device memory after freeing the served model "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
-    print("phase 5: train the NTP prototype at qwen2-7b widths through "
+    print("phase 5: full-size mamba2-780m: batched prefill through ssd_scan, "
+          "serving through fail->repair", flush=True)
+    mamba_launches = mamba_phase(torch, dev)
+    check(all(mamba_launches[k] > 0 for k in MAMBA_KERNELS),
+          f"a kernel of the Mamba-2 path never launched: {mamba_launches}")
+    mamba_launcher_phase()
+    torch.cuda.empty_cache()
+
+    print("phase 6: train the NTP prototype at qwen2-7b widths through "
           "fail->repair", flush=True)
     train_launches = train_phase(torch, dev)
 
-    print("phase 6: the training launcher", flush=True)
+    print("phase 7: the training launcher", flush=True)
     launcher_phase()
 
+    paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
+             (mamba_launches, MAMBA_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
-        n = serve_launches[name] * (name in SERVE_KERNELS) + \
-            train_launches[name] * (name in TRAIN_KERNELS)
+        n = sum(counts[name] for counts, kernels in paths if name in kernels)
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=replaces, launches=n, **rows[name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
 """Config registry of the port: importing this package registers the archs
-the port serves so far."""
+the port serves so far (qwen2-7b, mamba2-780m)."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     EncoderSpec,
@@ -11,6 +11,6 @@ from repro_torch.configs.base import (  # noqa: F401
     reduced,
 )
 
-from repro_torch.configs import qwen2_7b  # noqa: F401,E402
+from repro_torch.configs import mamba2_780m, qwen2_7b  # noqa: F401,E402
 
 ARCH_IDS = tuple(all_archs().keys())

@@ -5,9 +5,10 @@ Port of the Pallas TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`: blockwise
 online-softmax attention with causal / sliding / chunked / bidir masks,
 optional logit softcap, and GQA (query head h reads KV head h // (H/KVH)
-without repeating KV). ``block_q``/``block_k`` are the TPU kernel's tiling
-arguments; they are validated as the JAX function validates them (the
-CUDA kernel tiles by 64 and masks the ragged edge itself).
+without repeating KV). The CUDA kernel tiles by 64 and masks the ragged
+edge itself, so it takes any S; ``block_q``/``block_k``, the TPU kernel's
+tiling arguments, are checked only when a caller passes them, as the JAX
+function checks them.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def flash_attention(
     window: int = 4096,
     chunk: int = 8192,
     softcap: Optional[float] = None,
-    block_q: int = 512,
-    block_k: int = 512,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
     """q: (B, H, S, D); k/v: (B, KVH, S, D) with H % KVH == 0.
     Returns (B, H, S, D) in q.dtype."""
@@ -53,8 +54,8 @@ def flash_attention(
         raise ValueError(f"flash_attention: unknown mask kind {kind!r}")
     if chunk < 1:
         raise ValueError(f"flash_attention: chunk={chunk} must be >= 1")
-    bq = min(block_q, s)
-    bk = min(block_k, s)
+    bq = s if block_q is None else min(block_q, s)
+    bk = s if block_k is None else min(block_k, s)
     if s % bq != 0:
         raise ValueError(
             f"flash_attention: sequence length s={s} is not divisible by the "

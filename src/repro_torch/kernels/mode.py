@@ -17,7 +17,7 @@ from typing import Dict, Optional, Union
 import torch
 
 KERNELS = ("rmsnorm", "flash_attention", "reshard_pack", "bucket_pack",
-           "bucket_unpack")
+           "bucket_unpack", "ssd_scan")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -43,6 +43,27 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6, plus_one: bool = False):
     return (y * w32).to(x.dtype)
 
 
+def ssd_scan_ref(x, dt, A, B, C, *, final_state: bool = False):
+    """Sequential SSD recurrence (exact), from a zero state, in f32.
+    x: (BH,S,hp); dt: (BH,S); A: (BH,); B/C: (BH,S,ds), or (b,S,ds) shared
+    by BH/b consecutive rows (row bh reads B[bh // (BH/b)]). Returns y
+    (BH,S,hp), and the final state (BH,hp,ds) when ``final_state``."""
+    x, dt, A = x.float(), dt.float(), A.float()
+    bh, s, hp = x.shape
+    rep = bh // B.shape[0]
+    B = B.float().repeat_interleave(rep, dim=0)
+    C = C.float().repeat_interleave(rep, dim=0)
+    h = x.new_zeros((bh, hp, B.shape[-1]))
+    ys = []
+    for t in range(s):
+        h = torch.exp(dt[:, t] * A)[:, None, None] * h + (
+            dt[:, t, None, None] * torch.einsum("bp,bs->bps", x[:, t], B[:, t])
+        )
+        ys.append(torch.einsum("bps,bs->bp", h, C[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((bh, 0, hp))
+    return (y, h) if final_state else y
+
+
 def reshard_pack_ref(src, send_idx):
     """src: (U+1, elems) zero-padded; send_idx: (n, s_max)."""
     return src[send_idx.long()]

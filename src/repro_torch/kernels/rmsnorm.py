@@ -2,13 +2,15 @@
 
 Port of the Pallas TPU kernel `repro/kernels/rmsnorm.py::rmsnorm`: row-wise
 ``x·rsqrt(mean(x²)+eps)·w`` (``(1+w)`` when ``plus_one``), computed in f32
-and returned in ``x.dtype``. ``block_rows`` is the TPU kernel's row-block
-argument; it is validated as the JAX function validates it (the CUDA
-kernel runs one block per row).
+and returned in ``x.dtype``. The CUDA kernel runs one block per row, so
+it takes any row count; ``block_rows``, the TPU kernel's row-block
+argument, is checked only when a caller passes it, as the JAX function
+checks it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -21,7 +23,7 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6, plus_one: bool = False,
-            block_rows: int = 256):
+            block_rows: Optional[int] = None):
     """x: (N, d); w: (d,). Returns (N, d) in x.dtype."""
     if x.ndim != 2 or w.shape != (x.shape[1],):
         raise ValueError(
@@ -29,7 +31,7 @@ def rmsnorm(x, w, *, eps: float = 1e-6, plus_one: bool = False,
             f"and {tuple(w.shape)}"
         )
     n, d = x.shape
-    br = min(block_rows, n)
+    br = n if block_rows is None else min(block_rows, n)
     if br < 1 or n % br != 0:
         raise ValueError(
             f"rmsnorm: row count n={n} is not divisible by the row-block "

@@ -6,8 +6,13 @@ Examples:
   # full-size qwen2-7b (f32, random seeded weights) on one H100
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --full
 
+  # full-size mamba2-780m: SSD-head state resharded through fail→repair
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --full
+
   # smoke scale on the CPU, with the plain versions of the kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --device cpu --requests 8
 
 Trace replay (``--trace``, ``--trace-mix`` and the flags that shape it),
 telemetry and the Pallas compile switch wait for their slices.
@@ -29,7 +34,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--tp", type=int, default=4,
                     help="scale-up domain width (ranks per replica)")
     ap.add_argument("--slots", type=int, default=8,
-                    help="KV-cache slots per replica (continuous batching)")
+                    help="cache slots per replica (continuous batching)")
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--prefill-len", type=int, default=32)
     ap.add_argument("--requests", type=int, default=60)

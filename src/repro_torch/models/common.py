@@ -23,6 +23,12 @@ def rms_norm(x, weight, eps: float, *, plus_one: bool = False):
     return (y * w).to(dt)
 
 
+def softplus(x):
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (logaddexp(x, 0)),
+    with no large-x cut-off."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def act_fn(name: str):
     if name == "silu":
         return F.silu

@@ -1,13 +1,15 @@
-"""ShardedState: the sharded form of a per-request state dict (the KV cache)
-over one scale-up domain, with live TP-transition resharding (port of
-`repro/reshard/state.py`).
+"""ShardedState: the sharded form of a per-request state dict (the KV cache,
+or the Mamba-2 h/conv state) over one scale-up domain, with live
+TP-transition resharding (port of `repro/reshard/state.py`).
 
 Each leaf's partition axis is split into its family's units, placed by the
 planner's degree layouts (``sync_key(k, n1, tp)`` — contiguously balanced
 over the first ``tp`` live ranks), and a TP change moves units between
 ranks with the static-table all-to-all of `reshard.engine`, fused per unit
 family (one message per (src, dst) rank pair for all leaves sharing a
-plan). The ranks are emulated on one device, as in the reference.
+plan). Replicated tails (the conv state's B/C columns) ride along dense:
+they exist on every rank and never move. The ranks are emulated on one
+device, as in the reference.
 """
 from __future__ import annotations
 
@@ -48,26 +50,41 @@ def _norm_axis(spec: UnitSpec, ndim: int) -> int:
 
 
 def shard_state_leaf(dense, spec: UnitSpec, layout: sm.Layout, buf: int):
-    """Dense leaf → (n1, buf, *other) rank buffers (pad slots exact zeros):
-    the ``spec.axis`` units move to the front and are placed by
-    ``layout``."""
+    """Dense leaf → ((n1, buf, [unit,] *other) rank buffers, dense tail).
+
+    The ``spec.axis`` slice ``[0, k·unit)`` moves into per-rank unit
+    buffers (pad slots exact zeros), placed by ``layout``; the replicated
+    ``tail`` channels stay dense (None without a tail). The unit channel
+    dim is kept only when ``unit > 1``."""
     ax = _norm_axis(spec, dense.ndim)
-    if dense.shape[ax] != spec.k:
+    span = spec.k * spec.unit
+    if dense.shape[ax] != span + spec.tail:
         raise ValueError(f"leaf {tuple(dense.shape)} axis {ax} is not {spec}")
-    xp = engine.zero_pad_slot(dense.movedim(ax, 0), axis=0)  # index k → zeros
+    tail = dense.narrow(ax, span, spec.tail).clone() if spec.tail else None
+    x = dense.narrow(ax, 0, span).movedim(ax, 0)     # (k·unit, *other)
+    if spec.unit > 1:
+        x = x.reshape(spec.k, spec.unit, *x.shape[1:])
+    xp = engine.zero_pad_slot(x, axis=0)             # index k → zeros
     slots = widened_slots(layout, buf)
     idx = torch.as_tensor(np.where(slots >= 0, slots, spec.k),
                           device=dense.device)
-    return xp[idx]
+    return xp[idx], tail
 
 
-def gather_state_leaf(sharded, spec: UnitSpec, layout: sm.Layout, ndim: int):
+def gather_state_leaf(sharded, tail, spec: UnitSpec, layout: sm.Layout,
+                      ndim: int):
     """Inverse of `shard_state_leaf`: only live (rank, slot) pairs are read
     — pad contents never leak into the dense view."""
     dev = sharded.device
     x = sharded[torch.as_tensor(layout.assignment, device=dev),
                 torch.as_tensor(layout.local_slot, device=dev)]
-    return x.movedim(0, _norm_axis(spec, ndim)).contiguous()
+    if spec.unit > 1:
+        x = x.reshape(spec.k * spec.unit, *x.shape[2:])
+    ax = _norm_axis(spec, ndim)
+    out = x.movedim(0, ax)
+    if tail is not None:
+        out = torch.cat([out, tail], dim=ax)
+    return out.contiguous()
 
 
 class ShardedState:
@@ -87,11 +104,12 @@ class ShardedState:
         self._names = list(tree)
         self._specs: List[UnitSpec] = [resolver(n) for n in self._names]
         self._ndims = [tree[n].ndim for n in self._names]
-        self._bufs = [
-            shard_state_leaf(tree[n], spec, self._layout(spec, self._tp),
-                             spec.k)
-            for n, spec in zip(self._names, self._specs)
-        ]
+        self._bufs, self._tails = [], []
+        for n, spec in zip(self._names, self._specs):
+            b, t = shard_state_leaf(tree[n], spec,
+                                    self._layout(spec, self._tp), spec.k)
+            self._bufs.append(b)
+            self._tails.append(t)
         self.last_reshard: Dict[str, Any] = {}
 
     def _layout(self, spec: UnitSpec, tp: int) -> sm.Layout:
@@ -111,9 +129,9 @@ class ShardedState:
     def gather(self) -> Dict[str, torch.Tensor]:
         """Dense state dict view for the decode step."""
         return {
-            n: gather_state_leaf(b, spec, self._layout(spec, self._tp), nd)
-            for n, b, spec, nd in zip(
-                self._names, self._bufs, self._specs, self._ndims
+            n: gather_state_leaf(b, t, spec, self._layout(spec, self._tp), nd)
+            for n, b, t, spec, nd in zip(
+                self._names, self._bufs, self._tails, self._specs, self._ndims
             )
         }
 

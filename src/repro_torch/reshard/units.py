@@ -4,10 +4,15 @@ A `UnitSpec` says how one leaf of a state tree splits into Algorithm-1
 partition units: ``k`` units along leaf axis ``axis``. Training weights are
 already unit-buffered when they reach the engine, so their specs carry only
 ``kind``/``k``: the GQA kv-group (``kv_group``) of the attention weights and
-the 128-row block (``rows128``) of the dense MLP (`ntp_unit_specs`). Served
-attention caches split by GQA KV head (``kv_head``): leaves ``k``/``v`` of
-shape (..., T, kvh, hd), head axis -2. The MoE expert, SSD-head and
-rgLRU-block families wait for their slices.
+the 128-row block (``rows128``) of the dense MLP (`ntp_unit_specs`).
+Serving state trees are dense, so their specs also carry the leaf
+geometry: ``unit`` channels per unit along ``axis`` and a replicated
+``tail`` that never moves. Served attention caches split by GQA KV head
+(``kv_head``): leaves ``k``/``v`` of shape (..., T, kvh, hd), head axis -2.
+Mamba-2 state splits by SSD head (``ssm_head``): ``h`` (..., nh, hp, ds)
+on axis -3, and ``conv`` (..., K-1, di + 2·ds) on axis -1 in blocks of hp
+channels, with its B/C columns a replicated tail of 2·ds. The MoE expert
+and rgLRU-block families wait for their slices.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ class UnitSpec:
     kind: str
     k: int            # number of partition units
     axis: int = 0     # leaf axis carrying the units (negative = from end)
+    unit: int = 1     # channels per unit along that axis
+    tail: int = 0     # trailing replicated channels (never resharded)
 
     def __post_init__(self):
         if self.k < 1:
@@ -42,10 +49,18 @@ def ntp_unit_specs(cfg) -> Dict[str, UnitSpec]:
 
 def _kind_state_specs(cfg: ArchConfig, kind: str) -> Dict[str, UnitSpec]:
     """State-leaf specs of one block kind."""
-    if kind not in ATTN_KINDS:
-        raise ValueError(f"no state units for block kind {kind!r} in the port")
-    kv = UnitSpec("kv_head", cfg.n_kv_heads, axis=-2)
-    return {"k": kv, "v": kv}
+    if kind in ATTN_KINDS:
+        kv = UnitSpec("kv_head", cfg.n_kv_heads, axis=-2)
+        return {"k": kv, "v": kv}
+    if kind == "ssm":
+        s = cfg.ssm
+        nh = s.n_heads(cfg.d_model)
+        return {
+            "h": UnitSpec("ssm_head", nh, axis=-3),
+            "conv": UnitSpec("ssm_head", nh, axis=-1, unit=s.head_dim,
+                             tail=2 * s.d_state),
+        }
+    raise ValueError(f"no state units for block kind {kind!r} in the port")
 
 
 def arch_unit_counts(cfg: ArchConfig) -> Dict[str, int]:

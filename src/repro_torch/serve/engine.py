@@ -1,13 +1,18 @@
 """Continuous-batching serve engine for ONE NTP replica (port of
 `repro/serve/engine.py`).
 
-A fixed pool of KV-cache slots, each holding one in-flight request at its
+A fixed pool of cache slots, each holding one in-flight request at its
 own position; `Model.decode_slots` advances every slot in one batched
 step. On a TP transition the cache is resharded mid-decode through
-`reshard.ShardedState`: KV heads move between the replica's (emulated)
-ranks through the hand-written `reshard_pack` send-bucket kernel, and
-decoding continues on the dense view (shard ∘ gather is the bit-exact
-identity).
+`reshard.ShardedState`: KV heads (attention) or SSD heads (Mamba-2 h and
+conv state) move between the replica's (emulated) ranks through the
+hand-written `reshard_pack` send-bucket kernel, and decoding continues on
+the dense view (shard ∘ gather is the bit-exact identity).
+
+Attention requests are admitted by one padded prefill. Recurrent state is
+cumulative, so a padded prefill would fold pad tokens into it: recurrent
+archs are admitted token by token, a length-1 prefill followed by
+teacher-forced one-token decode steps, as in the reference.
 
 A replica at TP ``t < n1`` decodes slower by the head-quantized
 `stage_slowdown`, modelled as a token-bucket ``rel_speed``; its KV memory
@@ -31,6 +36,23 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import build_model
 from repro_torch.reshard.state import ShardedState
 from repro_torch.reshard.units import cache_unit_resolver
+
+# the reference's serveable block kinds; the port's model narrows them
+# further (`models.transformer.validate_model_cfg`)
+DECODER_KINDS = ("attn", "attn_sw", "attn_chunked", "ssm", "rglru")
+RECURRENT_KINDS = ("ssm", "rglru")
+
+
+def validate_serve_cfg(cfg: ArchConfig) -> set:
+    """Reject configs the serve engine cannot run, before any model is
+    built. Returns the set of block kinds in the pattern."""
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    if not kinds <= set(DECODER_KINDS):
+        raise ValueError(
+            f"serve engine supports kinds {DECODER_KINDS}; "
+            f"{cfg.arch_id} has kinds {sorted(kinds)}"
+        )
+    return kinds
 
 
 @dataclass
@@ -80,11 +102,13 @@ class ServeEngine:
         dtype=torch.float32,
         model=None,                     # share one Model across replicas
     ):
+        kinds = validate_serve_cfg(cfg)
         if prefill_len > max_len:
             raise ValueError(
                 f"prefill_len={prefill_len} exceeds max_len={max_len}: a "
                 "request could never decode past its own prefill"
             )
+        self._recurrent = bool(kinds & set(RECURRENT_KINDS))
         self.cfg = cfg
         # building the model validates the config (`validate_model_cfg`)
         self.model = model if model is not None else build_model(cfg)
@@ -143,7 +167,9 @@ class ServeEngine:
 
     @property
     def cache(self) -> Dict[str, torch.Tensor]:
-        """The dense slot-stacked KV cache (leaves (L, slots, T, kvh, hd))."""
+        """The dense slot-stacked cache (leaves (L, slots, ...): k/v
+        (L, slots, T, kvh, hd), or h (L, slots, nh, hp, ds) and conv
+        (L, slots, K-1, di+2ds))."""
         return self._cache
 
     # ---------------------------------------------------------------- admit
@@ -167,26 +193,21 @@ class ServeEngine:
             )
 
         cache1 = self.model.init_cache(1, self.max_len, self._dtype)
-        p = self.prefill_len
-        padded = np.zeros(p, np.int64)
-        head = toks[: min(n, p)]
-        padded[: len(head)] = head
-        logits, cache1 = self.model.prefill(
-            self.params, self._tokens(padded[None]), cache1
-        )
-        if n <= p:
-            last_logits = logits[0, n - 1]
-            pos = n
-        else:
-            # resumed request longer than one prefill: feed the overflow
-            # teacher-forced through the decode path (preemption only)
-            pos = p
-            for t in toks[p:]:
+        if self._recurrent:
+            # the prompt token by token: a length-1 prefill, then
+            # teacher-forced one-token decode steps
+            logits, cache1 = self.model.prefill(
+                self.params, self._tokens(toks[:1][None]), cache1
+            )
+            last_logits, pos = logits[0, 0], 1
+            for t in toks[1:]:
                 last, cache1 = self.model.decode_step(
                     self.params, cache1, self._tokens([[t]]), pos
                 )
                 pos += 1
-            last_logits = last[0, 0]
+                last_logits = last[0, 0]
+        else:
+            last_logits, pos, cache1 = self._prefill_padded(toks, cache1)
         first = int(torch.argmax(last_logits[: self.cfg.vocab_size]))
 
         for name, leaf in self._cache.items():
@@ -199,6 +220,28 @@ class ServeEngine:
         self._req[req.rid] = req
         self.stats["prefills"] += 1
         return True
+
+    def _prefill_padded(self, toks, cache1):
+        """Attention admission: one prefill of the first ``prefill_len``
+        tokens (zero-padded), the overflow of a resumed request fed
+        teacher-forced through the decode path. Returns (logits of the last
+        prompt token, next write position, cache)."""
+        n, p = len(toks), self.prefill_len
+        padded = np.zeros(p, np.int64)
+        head = toks[: min(n, p)]
+        padded[: len(head)] = head
+        logits, cache1 = self.model.prefill(
+            self.params, self._tokens(padded[None]), cache1
+        )
+        if n <= p:
+            return logits[0, n - 1], n, cache1
+        pos = p
+        for t in toks[p:]:
+            last, cache1 = self.model.decode_step(
+                self.params, cache1, self._tokens([[t]]), pos
+            )
+            pos += 1
+        return last[0, 0], pos, cache1
 
     # ----------------------------------------------------------------- tick
 
@@ -264,7 +307,7 @@ class ServeEngine:
                                  "moved_units_per_rank": 0, "bytes_moved": 0}
         elif new_tp != self._tp:
             # the physical move: shard into the OLD rank layout, run the
-            # KV-head all-to-all, keep the new dense view
+            # KV-head / SSD-head all-to-all, keep the new dense view
             state = ShardedState(self._cache, self._unit_resolver, self.n1,
                                  tp=self._tp)
             st = state.apply_tp(new_tp)

@@ -6,8 +6,9 @@ and the fault-tolerance policy deciding what a degraded replica does:
 
 * ``drop``   — any failure kills the whole replica (in-flight requests
   preempted, cache lost) until its domain is fully repaired.
-* ``ntp``    — the replica keeps serving at reduced TP: its KV cache is
-  resharded in place (`reshard.ShardedState`), decode slowed by the
+* ``ntp``    — the replica keeps serving at reduced TP: its cache (KV
+  heads, or Mamba-2 SSD heads) is resharded in place
+  (`reshard.ShardedState`), decode slowed by the
   unit-quantized `stage_slowdown`, slot pool shrunk ∝ surviving ranks.
 * ``ntp_pw`` — NTP plus the paper's §3.2 power boost
   (`policies.boosted_operating_point`).
@@ -31,7 +32,7 @@ from repro_torch.reshard.units import serve_unit_count
 from repro_torch.runtime.events import (
     ClusterHealth, LifecycleEvent, RecoveryEvent, resolve_serving_domain,
 )
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, validate_serve_cfg
 from repro_torch.serve.router import SERVE_GEOM, replica_serve_speed
 
 SERVE_POLICIES = ("drop", "ntp", "ntp_pw")
@@ -66,13 +67,15 @@ class ServeSession:
         on the session's device (CUDA unless ``device="cpu"``)."""
         if policy not in SERVE_POLICIES:
             raise ValueError(f"policy {policy!r} not in {SERVE_POLICIES}")
+        validate_serve_cfg(cfg)
         model = build_model(cfg, device=device)   # validates cfg
         self = object.__new__(cls)
         self._cfg = cfg
         self._policy = policy
         self._power = power_model
         # decode quantizes at the model's COARSEST partition-unit family
-        # (KV heads), with the analytic model's decode-time FLOP split
+        # (KV heads / SSD heads), with the analytic model's decode-time
+        # FLOP split
         self._geom = geom or _replace(
             SERVE_GEOM, n_heads=serve_unit_count(cfg), local_batch=slots
         )

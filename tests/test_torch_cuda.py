@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card: each built from `csrc/`, launched at
 the serving path's shapes and others, and held against its plain PyTorch
 version (`repro_torch.kernels.ref`) on the same inputs — f32 at 3e-5, bf16
-at 2e-2 (`tests/test_kernels.py::_tol`), reshard_pack bit-exact. Then a
-small model on the card against the same parameters on the CPU, and a small
-serving session through fail→repair against an uninterrupted one. Every test needs a CUDA card and skips without one; run them on
+at 2e-2 (`tests/test_kernels.py::_tol`), ssd_scan at the reference's 5e-4,
+reshard_pack and the buckets bit-exact. Then small models (qwen2-7b and
+mamba2-780m reduced) on the card against the same parameters on the CPU,
+and small serving sessions through fail→repair against uninterrupted
+ones. Every test needs a CUDA card and skips without one; run them on
 the GPU with
 
   PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -17,6 +19,7 @@ from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.reshard_pack import reshard_pack
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +105,7 @@ def test_launches_are_counted(dev):
     flash_attention(q, q, q)
     reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device=dev))
     bucket_unpack(bucket_pack([x, x]), (64, 64))
+    ssd_scan(x[None], x[:1, :8], x[0, :1].abs().neg(), x[None], x[None])
     assert mode.launches() == dict.fromkeys(mode.KERNELS, 1)
 
 
@@ -228,3 +232,109 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _ssd_inputs(bh, s, hp, ds, dev, seed, groups=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda shape: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+    n = lambda shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    grp = bh if groups is None else groups
+    return (n((bh, s, hp)), 0.01 + 0.19 * u((bh, s)), -(0.5 + 1.5 * u((bh,))),
+            0.3 * n((grp, s, ds)), 0.3 * n((grp, s, ds)))
+
+
+@pytest.mark.parametrize("bh,s,hp,ds,chunk,groups", [
+    (2, 64, 16, 32, 16, None),       # tests/test_kernels.py's shapes
+    (3, 128, 16, 32, 32, None),
+    (1, 256, 64, 128, 64, None),
+    (16, 64, 64, 32, 32, 2),         # reduced mamba2, B/C shared by 8 heads
+    (8, 256, 64, 128, 256, 2),       # S == chunk, full widths
+    (4, 1024, 64, 128, 256, 1),      # several chunks of 256
+    (300, 128, 64, 128, 64, 3),      # more rows than the 132 SMs
+    (6, 96, 64, 128, 96, 2),         # chunk not a multiple of the 64-row tile
+    (2, 1, 64, 128, 256, None),      # a one-token call
+])
+def test_ssd_scan_matches_plain(dev, bh, s, hp, ds, chunk, groups):
+    x, dt, A, B, C = _ssd_inputs(bh, s, hp, ds, dev, bh + s, groups)
+    mode.reset_launches()
+    y, h = ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=True)
+    torch.cuda.synchronize()
+    assert mode.launches()["ssd_scan"] == 1
+    want_y, want_h = ref.ssd_scan_ref(x, dt, A, B, C, final_state=True)
+    assert y.shape == (bh, s, hp) and h.shape == (bh, hp, ds)
+    assert (y - want_y).abs().max().item() < 5e-4
+    assert (h - want_h).abs().max().item() < 5e-4
+
+
+def test_ssd_scan_final_state_matches_model_chunked(dev):
+    """The final state against the model's plain `_ssd_chunked` on the same
+    card tensors (B/C shared by the heads of a batch row)."""
+    from repro_torch.models.ssm import _ssd_chunked
+
+    b, nh, s, hp, ds = 2, 6, 512, 64, 128
+    x, dt, A, B, C = _ssd_inputs(b * nh, s, hp, ds, dev, 21, groups=b)
+    A = A[:nh]
+    y, h = ssd_scan(x, dt, A.repeat(b), B, C, chunk=256, final_state=True)
+    wy, wh = _ssd_chunked(x.reshape(b, nh, s, hp).permute(0, 2, 1, 3),
+                          dt.reshape(b, nh, s).permute(0, 2, 1), A, B, C,
+                          torch.zeros((b, nh, hp, ds), device=dev), 256)
+    assert (y.reshape(b, nh, s, hp).permute(0, 2, 1, 3) - wy).abs().max() < 5e-4
+    assert (h.reshape(b, nh, hp, ds) - wh).abs().max().item() < 5e-4
+
+
+def test_mamba2_on_card_matches_cpu(dev):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.transformer import build_model
+
+    cfg = reduced(get_arch("mamba2-780m"))
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=dev)
+    gparams = _to(params, dev)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    mode.reset_launches()
+    cl, cc = cpu.prefill(params, toks, cpu.init_cache(2, 8, torch.float32))
+    gl, gc = gpu.prefill(gparams, toks.to(dev), gpu.init_cache(2, 8, torch.float32))
+    assert mode.launches()["ssd_scan"] == cfg.n_layers
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=1e-4)
+    for name in ("h", "conv"):
+        np.testing.assert_allclose(gc[name].cpu().numpy(), cc[name].numpy(),
+                                   atol=1e-4)
+    cur, pos = torch.tensor([3, 5]), torch.tensor([64, 64])
+    cl, _ = cpu.decode_slots(params, cc, cur, pos)
+    gl, _ = gpu.decode_slots(gparams, gc, cur.to(dev), pos.to(dev))
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=1e-4)
+
+
+def test_mamba2_serving_on_card_through_fail_repair(dev):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+    from repro_torch.serve import Request, Router, ServeSession
+
+    cfg = reduced(get_arch("mamba2-780m"))
+    kw = dict(n1=4, slots=8, max_len=48, prefill_len=16, policy="ntp_pw")
+
+    def run(session, events):
+        router = Router(session)
+        rng = np.random.default_rng(0)
+        for i in range(16):
+            router.submit(Request(rid=i, prompt=rng.integers(
+                1, cfg.vocab_size, size=10).astype(np.int32), max_new=8))
+        for tick in range(400):
+            if tick in events:
+                router.apply(events[tick])
+            router.step()
+            if not router.queue and session.engines[0].n_active == 0:
+                break
+        return {r.rid: r.generated for r in router.completed}
+
+    mode.reset_launches()
+    s = ServeSession.create(cfg, device=dev, **kw)
+    events = {2: FailureEvent(domain=0), 4: FailureEvent(domain=0),
+              9: RecoveryEvent(domain=0), 11: RecoveryEvent(domain=0)}
+    got = run(s, events)
+    assert mode.launches()["reshard_pack"] > 0
+    assert mode.launches()["rmsnorm"] > 0
+    want = run(ServeSession.create(cfg, device=dev, params=s.params, **kw), {})
+    assert len(got) == 16 and got == want

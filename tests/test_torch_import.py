@@ -32,11 +32,14 @@ PORT_MODULES = [
     "repro_torch.kernels.ref",
     "repro_torch.kernels.reshard_pack",
     "repro_torch.kernels.rmsnorm",
+    "repro_torch.kernels.ssd_scan",
     "repro_torch.launch.serve",
+    "repro_torch.launch.serve_decode",
     "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.common",
     "repro_torch.models.mlp",
+    "repro_torch.models.ssm",
     "repro_torch.models.transformer",
     "repro_torch.optim",
     "repro_torch.optim.adamw",
@@ -86,6 +89,7 @@ def test_entry_points_raise_without_card(no_card):
     from repro_torch.convert import params_from_jax
     from repro_torch.kernels.mode import resolve_device
     from repro_torch.launch.serve import main
+    from repro_torch.launch.serve_decode import main as decode_main
     from repro_torch.models.transformer import Model
     from repro_torch.serve import ServeSession
 
@@ -102,6 +106,7 @@ def test_entry_points_raise_without_card(no_card):
         lambda: ServeSession.create(cfg),
         lambda: params_from_jax({"embed": [[0.0]], "final_norm": {"w": [0.0]}}),
         lambda: main(["--requests", "1"]),
+        lambda: decode_main([]),
         lambda: train_main(["--ntp", "--steps", "1"]),
         lambda: NTPSession.create(ntp),
         lambda: init_canonical(ntp),
@@ -116,6 +121,7 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.reshard_pack import reshard_pack
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="rmsnorm: no kernel for device meta"):
@@ -129,6 +135,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         bucket_pack([x, x])
     with pytest.raises(ValueError, match="bucket_unpack: no kernel"):
         bucket_unpack(x, (4, 4))
+    with pytest.raises(ValueError, match="ssd_scan: no kernel"):
+        ssd_scan(x[None], x[:1, :4], x[0, :1], x[None], x[None])
     with pytest.raises(ValueError, match="several devices"):
         rmsnorm(torch.zeros(4, 8), torch.empty(8, device="meta"))
 

@@ -148,6 +148,18 @@ def test_flash_attention_rejects_indivisible_blocks():
         flash_attention(q, k, k, block_q=48, block_k=32)
 
 
+def test_default_tiling_takes_any_extent():
+    """The tiling arguments default to the whole extent: any row count and
+    any S (here neither divides the Pallas defaults 256 / 512)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+    w = torch.ones(8)
+    assert torch.equal(rmsnorm(x, w), tref.rmsnorm_ref(x, w))
+    q = torch.from_numpy(rng.normal(size=(1, 2, 600, 16)).astype(np.float32))
+    assert torch.equal(flash_attention(q, q, q),
+                       tref.flash_attention_ref(q, q, q))
+
+
 def test_flash_attention_rejects_bad_arguments():
     q = torch.zeros(1, 3, 16, 16)
     with pytest.raises(ValueError, match="H % KVH"):

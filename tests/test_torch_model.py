@@ -43,7 +43,7 @@ def models():
 
 
 def test_configs_match_reference():
-    for arch in ("qwen2-7b",):
+    for arch in ("qwen2-7b", "mamba2-780m"):
         for conv in (lambda c: c, None):
             j, t = jget_arch(arch), get_arch(arch)
             if conv is None:
@@ -156,8 +156,28 @@ def test_init_is_seeded_and_scaled():
     assert not a["final_norm"]["w"].any()
 
 
+def test_prefill_takes_any_length_and_batch(models):
+    """Fault found in the port: the `rmsnorm` and `flash_attention`
+    wrappers defaulted to the Pallas kernels' ``block_rows=256`` /
+    ``block_q``/``block_k=512`` and so refused a prefill of 3x100 tokens
+    (300 norm rows) or of S=600, where the reference model (plain jnp) runs
+    any shape. The CUDA kernels tile any row count and S themselves; the
+    wrappers' tiling arguments now default to the whole extent."""
+    jcfg, jmodel, jparams, tcfg, tmodel, tparams = models
+    rng = np.random.default_rng(6)
+    for b, s in ((3, 100), (1, 600)):
+        toks = rng.integers(1, tcfg.vocab_size, size=(b, s)).astype(np.int32)
+        jl, _ = jmodel.prefill(jparams, jnp.asarray(toks),
+                               jmodel.init_cache(b, s, jnp.float32))
+        tl, _ = tmodel.prefill(tparams, torch.from_numpy(toks).long(),
+                               tmodel.init_cache(b, s, torch.float32))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+
+
 def test_model_rejects_unported_archs():
+    # a griffin-style pattern: rgLRU blocks mixed with sliding-window
+    # attention wait for their slice
     tcfg = dataclasses.replace(reduced(get_arch("qwen2-7b")),
-                               layer_pattern=("attn_sw", "attn"))
+                               layer_pattern=("rglru", "rglru", "attn_sw"))
     with pytest.raises(ValueError, match="full-attention decoders"):
         build_model(tcfg, device="cpu")
