@@ -7,15 +7,21 @@ Phases (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
    (one nvcc per source, in parallel) and print the build time;
-3. hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the serving paths' shapes (qwen2-7b's and mamba2-780m's
-   norm rows, KV-head and SSD-head reshard rows, plus a long
-   flash-attention shape, S=4096 causal and sliding), the training path's
-   gradient-bucket shapes and, for ssd_scan (f32, 5e-4), the reference's
-   test shapes and the Mamba-2 prefill shape (4 x 48 heads, S=2048, hp 64, ds 128, chunk
-   256; the final state also against the model's plain `_ssd_chunked`),
-   and time kernel, plain version, one library call where one exists and
-   the least time the card could take (bound);
+3. time the host's cost of each step of one rmsnorm wrapper call, on the
+   previous release's launch path and on this one; hold each kernel
+   against its plain PyTorch version on the card, in f32 and bf16, at the
+   serving paths' shapes (qwen2-7b's and mamba2-780m's norm rows, KV-head
+   and SSD-head reshard rows, plus a long flash-attention shape, S=4096
+   causal and sliding), the training path's gradient-bucket shapes and
+   largest reshard (one layer's MLP bucket), and, for ssd_scan (f32,
+   5e-4), the reference's test shapes and the Mamba-2 prefill shape (4 x
+   48 heads, S=2048, hp 64, ds 128, chunk 256; the final state also against
+   the model's plain `_ssd_chunked`); time kernel, plain version, one
+   library call where one exists and the least time the card could take
+   (bound). rmsnorm and reshard_pack are timed in turns with their library
+   calls (F.rms_norm; src[idx] and index_select), 5 rounds, medians: the
+   call ms (back-to-back wrapper calls) and the device ms (the same calls
+   in a CUDA graph, replayed);
 4. serve full-size qwen2-7b (f32, weights drawn from a seeded generator on
    the card) through `ServeSession` + `Router` with replicas=1, n1=4,
    slots=8, max_len=96, prefill_len=32: 24 requests (prompt 24, max_new
@@ -54,15 +60,18 @@ Phases (any failure exits non-zero):
    transition ledger equal to `expected_transfer`, and bucket_pack,
    bucket_unpack and reshard_pack launched on this path. Step times (CUDA
    events), transition time and bytes, peak memory, and a torch.profiler
-   view of one degraded overlapped step are printed;
+   view of one degraded step of each session, with the reshard_pack
+   calls it made by shape, are printed;
 7. run the training launcher (`repro_torch.launch.train --ntp --steps 8
    --fail-at 3 --overlap on`) at its defaults on the card;
 8. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2 and training paths, each counted from zero just before
    it), then the device line.
 """
+import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -102,12 +111,9 @@ def bound_ms(n_bytes, n_ops, dtype_name):
 
 def kernel_phase(torch, F, dev):
     """Phase 3. Returns {name: table row at the main path's shape}."""
-    from repro_torch.core import shard_mapping as sm
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.reshard_pack import reshard_pack
     from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.reshard import planner
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
@@ -119,6 +125,8 @@ def kernel_phase(torch, F, dev):
               f"library_ms {'null' if lib is None else f'{lib:.5f}'}  "
               f"bound_ms {bound[0]:.6f} ({bound[1]})", flush=True)
         check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
+
+    host_cost(torch, dev, g)
 
     # ---- rmsnorm: qwen2-7b's decode (8) and prefill (32) rows at d=3584
     # with 1+w; Mamba-2's gated norm (d_inner 3072, w) and its ln1 /
@@ -136,18 +144,17 @@ def kernel_phase(torch, F, dev):
             torch.cuda.synchronize()
             want = ref.rmsnorm_ref(x, w, plus_one=plus_one)
             err = (got.float() - want.float()).abs().max().item()
-            ms = time_ms(lambda: rmsnorm(x, w, plus_one=plus_one), 200)
             plain = time_ms(lambda: ref.rmsnorm_ref(x, w, plus_one=plus_one),
                             200)
             w1 = 1.0 + w if plus_one else w
-            lib = time_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6), 200)
+            t = in_turns(torch, lambda: rmsnorm(x, w, plus_one=plus_one),
+                         {"F.rms_norm": lambda: F.rms_norm(x, (d,), w1, 1e-6)},
+                         reps=200, calls=20)
             b = bound_ms((2 * n * d + d) * x.element_size(), 4 * n * d, dn)
-            report("rmsnorm", f"x({n},{d}) {'1+w' if plus_one else 'w'}", dn,
-                   err, ms, plain, lib, b)
+            report_turns("rmsnorm", f"x({n},{d}) {'1+w' if plus_one else 'w'}",
+                         dn, err, TOL[dn], t, plain, b)
             if (n, d) == (8, 3584) and dt == torch.float32:
-                rows["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                       library_ms=lib, bound_ms=b[0],
-                                       bound_by=b[1])
+                rows["rmsnorm"] = table_row(err, t, plain, b)
 
     # ---- flash attention: prefill (1,28,4,32,128) causal; S=4096 causal/sliding
     cases = [(32, "causal", 4096), (4096, "causal", 4096),
@@ -188,54 +195,299 @@ def kernel_phase(torch, F, dev):
             del q, k, v, got
     torch.cuda.empty_cache()
 
-    # ---- reshard_pack: one rank's send-bucket gather at the TP 4->3
-    # transition, full-size unit rows: qwen2-7b's KV-head reshard (one unit
-    # row = 2·L·slots·T·hd elems) and mamba2-780m's ssm_head reshard of h
-    # and conv, fused (one unit row = one SSD head's L·slots·hp·ds h and
-    # hp·L·slots·(K-1) conv elems), from the rank that sends the most rows
-    nh = 48
-    ssm_plan = planner.transition_plan(planner.sync_key(nh, 4, 4),
-                                       planner.sync_key(nh, 4, 3), nh, nh)
-    cases = [("kv_head", sm.reshard_tables(sm.sync_layout(4, 4, 4),
-                                           sm.sync_layout(4, 4, 3), 4), 4,
-              2 * 28 * 8 * 96 * 128, (torch.float32, torch.bfloat16)),
-             ("ssm_head", ssm_plan.tables, nh,
-              48 * 8 * 64 * 128 + 64 * 48 * 8 * 3, (torch.float32,))]
-    for label, tables, units, elems, dtypes in cases:
-        rank = max(range(tables.n), key=lambda r: int(
-            (tables.send_idx[r] != tables.pad).sum()))
-        for dt in dtypes:
-            dn = str(dt).split(".")[1]
-            src = torch.cat([
-                torch.randn((units, elems), generator=g, device=dev).to(dt),
-                torch.zeros((1, elems), dtype=dt, device=dev)])
-            idx = torch.as_tensor(tables.send_idx[rank], device=dev)
-            got = reshard_pack(src, idx)
-            torch.cuda.synchronize()
-            want = ref.reshard_pack_ref(src, idx)
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.equal(got, want),
-                  f"reshard_pack {label} {dn} is not bit-exact")
-            ms = time_ms(lambda: reshard_pack(src, idx), 20)
-            plain = time_ms(lambda: ref.reshard_pack_ref(src, idx), 20)
-            flat = idx.flatten()
-            lib = time_ms(lambda: torch.index_select(src, 0, flat), 20)
-            row_bytes = elems * src.element_size()
-            n_rows_read = len(set(tables.send_idx[rank].flatten().tolist()))
-            n_bytes = (n_rows_read + idx.numel()) * row_bytes + idx.numel() * 4
-            bd = bound_ms(n_bytes, 0, dn)
-            report("reshard_pack",
-                   f"{label} src({units + 1},{elems}) idx{tuple(idx.shape)}",
-                   dn, err, ms, plain, lib, bd)
-            if label == "kv_head" and dt == torch.float32:
-                rows["reshard_pack"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=bd[0], bound_by=bd[1])
-            del src, got, want
-        torch.cuda.empty_cache()
+    reshard_rows(torch, dev, g, rows)
     bucket_rows(torch, dev, g, rows, report)
     ssd_rows(torch, dev, g, rows, report)
     return rows
+
+
+def reshard_rows(torch, dev, g, rows):
+    """reshard_pack at the TP 4->3 transition with full-size unit rows:
+    qwen2-7b's KV-head reshard (one unit row = 2·L·slots·T·hd elems),
+    mamba2-780m's ssm_head reshard of h and conv, fused (one unit row = one
+    SSD head's L·slots·hp·ds h and hp·L·slots·(K-1) conv elems), and the
+    training path's largest call: the degraded replica's pre-sync reshard
+    of one layer's MLP gradient bucket (A and B, 2 x 3584·128 elems per
+    unit) under the (3, 4) plan, 4 ranks x 51 unit rows. Each runs as the
+    main path runs it, one launch over every rank of the replica
+    (`reshard_pack_ranks`), and the two serving ones also as the one-rank
+    call from the rank that sends the most rows. Bit-exact against the
+    plain version; timed in turns against advanced indexing (`src[idx]`,
+    the plain version's own call, with the index already int64) and
+    `index_select` (flat indices precomputed)."""
+    from repro_torch.core import nonuniform as nu
+    from repro_torch.core import shard_mapping as sm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.reshard_pack import reshard_pack, reshard_pack_ranks
+    from repro_torch.reshard import planner
+
+    nh = 48
+    ssm_plan = planner.transition_plan(planner.sync_key(nh, 4, 4),
+                                       planner.sync_key(nh, 4, 3), nh, nh)
+    train = nu.weight_plan(18944 // 128, nu.FailurePlan(4, (3, 4))).pre.replica(1)
+    cases = [("kv_head", sm.reshard_tables(sm.sync_layout(4, 4, 4),
+                                           sm.sync_layout(4, 4, 3), 4),
+              2 * 28 * 8 * 96 * 128, (torch.float32, torch.bfloat16), True),
+             ("ssm_head", ssm_plan.tables,
+              48 * 8 * 64 * 128 + 64 * 48 * 8 * 3, (torch.float32,), True),
+             ("train MLP bucket", train, 2 * 3584 * 128, (torch.float32,),
+              False)]
+    for label, tables, elems, dtypes, one_rank in cases:
+        n, up1 = tables.n, tables.buf + 1
+        send = tables.send_idx
+        rank = max(range(n), key=lambda r: int((send[r] != tables.pad).sum()))
+        for dt in dtypes:
+            dn = str(dt).split(".")[1]
+            xp = torch.randn((n, up1, elems), generator=g, device=dev).to(dt)
+            xp[:, -1] = 0
+            idx = torch.as_tensor(send, device=dev)
+            row_bytes = elems * xp.element_size()
+            calls = [(f"{label} all {n} ranks", xp, idx, reshard_pack_ranks,
+                      ref.reshard_pack_ranks_ref, range(n))]
+            if one_rank:
+                calls.append((f"{label} rank {rank}", xp[rank], idx[rank],
+                              reshard_pack, ref.reshard_pack_ref, [rank]))
+            for name, src, ix, kern, plain_fn, ranks in calls:
+                got = kern(src, ix)
+                torch.cuda.synchronize()
+                want = plain_fn(src, ix)
+                check(torch.equal(got, want),
+                      f"reshard_pack {name} {dn} is not bit-exact")
+                del got, want
+                plain = time_ms(lambda: plain_fn(src, ix), 10)
+                lidx = ix.long()
+                if src.ndim == 3:
+                    rk = torch.arange(n, device=dev)[:, None, None]
+                    flat = (lidx + rk * up1).flatten()
+                    index = lambda: src[rk, lidx]            # noqa: E731
+                    select = lambda: torch.index_select(     # noqa: E731
+                        src.view(-1, elems), 0, flat).view(*ix.shape, elems)
+                else:
+                    flat = lidx.flatten()
+                    index = lambda: src[lidx]                # noqa: E731
+                    select = lambda: torch.index_select(     # noqa: E731
+                        src, 0, flat).view(*ix.shape, elems)
+                t = in_turns(torch, lambda: kern(src, ix),
+                             {"src[idx]": index, "index_select": select},
+                             reps=10, calls=4)
+                n_read = sum(len({int(u) for u in send[r].flatten()
+                                  if u != tables.pad}) for r in ranks)
+                bd = bound_ms((n_read + ix.numel()) * row_bytes
+                              + ix.numel() * 4, 0, dn)
+                report_turns("reshard_pack",
+                             f"{name} src{tuple(src.shape)} idx{tuple(ix.shape)}",
+                             dn, 0.0, 0.0, t, plain, bd)
+                if label == "kv_head" and src.ndim == 3 and dt == torch.float32:
+                    rows["reshard_pack"] = table_row(0.0, t, plain, bd)
+                torch.cuda.empty_cache()
+            del xp, idx, calls, src, ix
+            torch.cuda.empty_cache()
+
+
+def host_cost(torch, dev, g):
+    """Host microseconds of each step of one `rmsnorm` wrapper call at the
+    qwen2-7b decode shape (x (8, 3584) f32, 1+w), on the launch path of the
+    previous release (`old`: a set of devices per call, `torch.cuda.device`
+    entered and left, a `torch.cuda.Stream` built for its handle, the
+    launch arguments converted per call, the library called through
+    `ctypes.CDLL`, which releases and retakes the GIL) and on this one
+    (`new`: integer device indices, the device entered only when it is not
+    current, the raw stream handle, the fixed arguments passed by the
+    address of a cached struct, `ctypes.PyDLL`). Both launch the same
+    kernel through the same 6-argument C function (the old one took 9
+    arguments). Each step runs 1000 times back to back on the host clock,
+    less the cost of an empty call; medians of 5."""
+    import ctypes
+
+    from repro_torch.kernels import build, mode
+    from repro_torch.kernels import rmsnorm as rm
+
+    x = torch.randn((8, 3584), generator=g, device=dev)
+    w = torch.randn((3584,), generator=g, device=dev) * 0.1
+    y = torch.empty_like(x)
+    idx = x.get_device()
+    new_fn = build.function("rmsnorm", "rmsnorm_launch", rm._ARGS)
+    old_fn = ctypes.CDLL(str(build._lib_path("rmsnorm"))).rmsnorm_launch
+    old_fn.argtypes, old_fn.restype = rm._ARGS, ctypes.c_int
+    key = (x.dtype, w.dtype, 3584, True, 1e-6, True)
+    params = rm._addresses.get(key) or rm._params_address(key)
+    old_params = rm.Params(3584, 1e-6, 1, 0, *rm.launch_config(3584, 4, True))
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    xp, wp, yp = x.data_ptr(), w.data_ptr(), y.data_ptr()
+
+    def old_on_cpu(*tensors):
+        devices = {t.device for t in tensors}
+        if len(devices) != 1:
+            raise ValueError("several devices")
+        return devices.pop().type == "cpu"
+
+    def old_check(err):
+        if err != 0:
+            raise RuntimeError(err)
+
+    def new_check():
+        err = 0
+        if err:
+            build.fail(err, "rmsnorm")
+
+    def old_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    def old_launch():
+        return old_fn(xp, wp, yp, 8, ctypes.addressof(old_params), stream)
+
+    def old_rmsnorm(x, w, *, eps=1e-6, plus_one=False, block_rows=None):
+        if x.ndim != 2 or w.shape != (x.shape[1],):
+            raise ValueError("shape")
+        n, d = x.shape
+        br = n if block_rows is None else min(block_rows, n)
+        if br < 1 or n % br != 0:
+            raise ValueError("rows")
+        if old_on_cpu(x, w):
+            raise ValueError("cpu")
+        if x.dtype not in rm._DTYPES or w.dtype != x.dtype:
+            raise ValueError("dtype")
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("contiguous")
+        y = torch.empty_like(x)
+        p = rm.Params(d, eps, int(plus_one), rm._DTYPES[x.dtype],
+                      *rm.launch_config(d, x.element_size(), True))
+        with torch.cuda.device(x.device):
+            err = old_fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n,
+                         ctypes.addressof(p),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+        old_check(err)
+        mode.count_launch("rmsnorm")
+        return y
+
+    def checks():
+        return (x.ndim != 2 or w.shape != (x.shape[1],), x.shape,
+                x.is_contiguous() and w.is_contiguous())
+
+    steps = [
+        ("shape checks", checks, checks),
+        ("device check", lambda: old_on_cpu(x, w),
+         lambda: mode.on_cpu(x, w, kernel="rmsnorm")),
+        ("empty_like", lambda: torch.empty_like(x), lambda: torch.empty_like(x)),
+        ("launch arguments", lambda: (
+            x.dtype not in rm._DTYPES, x.data_ptr(), w.data_ptr(),
+            y.data_ptr(), rm.Params(3584, 1e-6, 1, 0, 4, 256, 4)),
+         lambda: (x.data_ptr(), w.data_ptr(), y.data_ptr(), rm._addresses.get(
+             (x.dtype, w.dtype, 3584, True, 1e-6,
+              (x.data_ptr() | w.data_ptr()) % 16 == 0)))),
+        ("device context", old_context,
+         lambda: torch._C._cuda_getDevice() == x.get_device()),
+        ("stream handle", lambda: torch.cuda.current_stream(x.device).cuda_stream,
+         lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        ("ctypes launch", old_launch,
+         lambda: new_fn(xp, wp, yp, 8, params, stream)),
+        ("error check", lambda: old_check(0), new_check),
+        ("launch counter", lambda: mode.count_launch("rmsnorm"),
+         lambda: mode.count_launch("rmsnorm")),
+        ("whole call", lambda: old_rmsnorm(x, w, plus_one=True),
+         lambda: rm.rmsnorm(x, w, plus_one=True)),
+    ]
+
+    def us(f, reps=1000):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / reps * 1e6
+
+    empty = min(us(lambda: None) for _ in range(3))
+    print(f"  rmsnorm host cost per call, x(8,3584) f32 1+w (us, median of 5, "
+          f"less {empty:.3f} us of an empty call; old -> new):", flush=True)
+    total = {"old": 0.0, "new": 0.0}
+    for name, old, new in steps:
+        t = {}
+        for label, f in (("old", old), ("new", new)):
+            t[label] = statistics.median(us(f) for _ in range(5)) - empty
+            if name != "whole call":
+                total[label] += t[label]
+        print(f"    {name:18s} {t['old']:7.3f} -> {t['new']:7.3f}")
+    print(f"    {'sum of the steps':18s} {total['old']:7.3f} -> "
+          f"{total['new']:7.3f}", flush=True)
+
+
+def in_turns(torch, kern, libs, reps, calls, rounds=5):
+    """Median call ms and device ms of the kernel wrapper ``kern`` and of
+    each yardstick in ``libs`` (name -> fn), timed in turns: every round
+    runs the yardsticks, the kernel twice, then the yardsticks in reverse
+    order, ``rounds`` rounds. Call ms: `time_ms` over ``reps`` back-to-back
+    calls, the wrapper's host path included; device ms: ``calls`` calls
+    captured in one CUDA graph, replayed 3 times (CUDA events), per call.
+    Returns {name: (call ms, device ms)} with the kernel under "kernel"."""
+    fns = {"kernel": kern, **libs}
+    graphs = {k: capture(torch, f, calls) for k, f in fns.items()}
+    order = [*libs, "kernel", "kernel", *reversed(list(libs))]
+    call = {k: [] for k in fns}
+    device = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in order:
+            call[k].append(time_ms(fns[k], reps))
+            device[k].append(replay_ms(torch, graphs[k], calls))
+    del graphs
+    return {k: (statistics.median(call[k]), statistics.median(device[k]))
+            for k in fns}
+
+
+def capture(torch, fn, calls):
+    """``calls`` calls of ``fn`` captured in one CUDA graph (after a warm-up
+    call on a side stream, as `torch.cuda.graph` asks)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(torch, graph, calls, replays=3):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def report_turns(name, shape, dt, err, tol, t, plain, bound):
+    """One phase-3 line of a kernel timed in turns: its call and device ms
+    beside each yardstick's, the plain version's ms and the bound, and
+    whether the kernel's median call ms is at most the fastest
+    yardstick's."""
+    kc, kd = t["kernel"]
+    libs = {k: v for k, v in t.items() if k != "kernel"}
+    best = min(c for c, _ in libs.values())
+    print(f"  {name:16s} {shape:44s} {dt:8s} max_abs_err {err:.3e} "
+          f"(tol {tol:g})  call_ms {kc:.5f} device_ms {kd:.5f}  "
+          + "  ".join(f"{k} call_ms {c:.5f} device_ms {d:.5f}"
+                      for k, (c, d) in libs.items())
+          + f"  plain_ms {plain:.5f}  bound_ms {bound[0]:.6f} ({bound[1]}, "
+          f"{bound[0] / kd:.0%} of it on the device)  call <= library: "
+          f"{'yes' if kc <= best else 'NO'}", flush=True)
+    check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
+
+
+def table_row(err, t, plain, bound):
+    """The kernels-table entry of a kernel timed in turns: its median call
+    ms, and the fastest yardstick's as the library time."""
+    return dict(max_abs_err=err, ms=t["kernel"][0], plain_ms=plain,
+                library_ms=min(c for k, (c, _) in t.items() if k != "kernel"),
+                bound_ms=bound[0], bound_by=bound[1])
 
 
 def bucket_rows(torch, dev, g, rows, report):
@@ -581,6 +833,25 @@ def scan_yardstick(torch, cfg, model, params, prompts):
               f"layer-0 scan: kernel {what} off by {ek}, chunked form {ec}")
 
 
+def decode_graph(torch, model, params, cache, tok):
+    """One `decode_step` of ``model`` on ``cache`` reading the token buffer
+    ``tok``, captured as a CUDA graph (after a warm-up step on a side
+    stream); ``cache`` is restored to its state before the warm-up. Returns
+    (graph, the graph's logits tensor)."""
+    saved = {k: v.clone() for k, v in cache.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.decode_step(params, cache, tok, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = model.decode_step(params, cache, tok, 1)
+    for k, v in saved.items():
+        cache[k].copy_(v)
+    return graph, logits
+
+
 def mamba_phase(torch, dev):
     """Phase 5: mamba2-780m at full size (48 layers, f32, seeded weights on
     the card). (a) a batched prefill of 4 x 2048 tokens through
@@ -645,13 +916,19 @@ def mamba_phase(torch, dev):
           f"{decode_s / new * 1e3:.2f} ms per step ({b * new / decode_s:.1f} "
           f"tokens/s); kernels {json.dumps(run)}", flush=True)
 
-    # (b) the same prompts token by token through the recurrent update
+    # (b) the same prompts token by token through the recurrent update: the
+    # decode step replayed as one CUDA graph (an SSM layer's decode does not
+    # read the position, so one capture serves every step; the graph runs
+    # the same kernels and only removes the host's ~2,000 launches a step)
     rc = model.init_cache(b, s, torch.float32)
     lr, rc = model.prefill(params, prompts[:, :1], rc)
+    tok = prompts[:, 1:2].clone()
+    graph, lr = decode_graph(torch, model, params, rc, tok)
     for t in range(1, s):
-        lr, rc = model.decode_step(params, rc, prompts[:, t:t + 1], t)
-    ref_l, ref_h = lr[:, 0], rc["h"]
-    del rc, lr
+        tok.copy_(prompts[:, t:t + 1])
+        graph.replay()
+    ref_l, ref_h = lr[:, 0].clone(), rc["h"].clone()
+    del rc, lr, graph
     l_max, h_max = ref_l.abs().max().item(), ref_h.abs().max().item()
     err_l = (last - ref_l).abs().max().item()
     err_h = (h_pre - ref_h).abs().max().item()
@@ -925,11 +1202,48 @@ def train_phase(torch, dev):
     del grads
     for name in ("off", "on"):
         s = sessions[name]
-        profile_steps(torch, lambda: s.step(tokens),
-                      f"degraded step (overlap {name})", ticks=1, top=8)
+        packs = []
+        with record_packs(packs):
+            profile_steps(torch, lambda: s.step(tokens),
+                          f"degraded step (overlap {name})", ticks=1, top=8,
+                          also="pack_kernel")
+        shapes = {}
+        for key in packs:
+            shapes[key] = shapes.get(key, 0) + 1
+        print(f"    reshard_pack launches in this step: {len(packs)}; by "
+              "(xp, send_idx, dtype), most bytes written first: " + "; ".join(
+                  f"{xp} {ix} {dn} x{c}" for (xp, ix, dn), c in sorted(
+                      shapes.items(), key=lambda kv: -kv[1] * _written(kv[0]))),
+              flush=True)
     del s, sessions
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def record_packs(calls):
+    """Record (xp shape, send_idx shape, dtype) of every `reshard_pack_ranks`
+    call the reshard engine makes inside the block."""
+    from repro_torch.reshard import engine
+
+    real = engine.reshard_pack_ranks
+
+    def recorded(xp, send_idx):
+        calls.append((tuple(xp.shape), tuple(send_idx.shape),
+                      str(xp.dtype).split(".")[1]))
+        return real(xp, send_idx)
+
+    engine.reshard_pack_ranks = recorded
+    try:
+        yield
+    finally:
+        engine.reshard_pack_ranks = real
+
+
+def _written(key):
+    """Elements one `reshard_pack_ranks` call of shape ``key`` writes."""
+    (_, _, elems), ix, _ = key
+    return elems * ix[0] * ix[1] * ix[2]
 
 
 def host_syncs(torch, fn):
@@ -978,10 +1292,11 @@ def launcher_phase():
     check(out["plan"].replica_tp == (3, 4), f"launcher plan {out['plan']}")
 
 
-def profile_steps(torch, step, label, ticks=3, top=6):
+def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
-    window."""
+    window; the ``top`` kernels by device time, and any kernel whose name
+    holds ``also``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -998,7 +1313,9 @@ def profile_steps(torch, step, label, ticks=3, top=6):
     print(f"  profiled {label}s: {window_ms / ticks:.3f} ms per {label}, device "
           f"busy {busy_ms / ticks:.3f} ms per {label}, idle share "
           f"{1 - busy_ms / window_ms:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top] + [e for e in ranked[top:]
+                             if also is not None and also in e.key]:
         ms = e.self_device_time_total / 1e3 / ticks
         print(f"    {ms:8.3f} ms/{label}  {e.count // ticks:4d} launches/"
               f"{label}  {e.key[:90]}")

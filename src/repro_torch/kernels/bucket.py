@@ -26,30 +26,27 @@ from repro_torch.kernels import build, mode, ref
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_void_p]
+_LAUNCH = build.Launcher("bucket", "bucket_copy_launch", _ARGS)
 
 
 def _launch(pack: bool, leaves: Sequence[torch.Tensor], flat: torch.Tensor,
             kernel: str) -> None:
     """One `bucket_copy_launch` per group of at most `kMaxLeaves` leaves;
     each group's first column is folded into the flat pointer."""
-    fn = build.function("bucket", "bucket_copy_launch", _ARGS)
     max_leaves = build.function("bucket", "bucket_max_leaves", [])()
     rows = flat.shape[0]
     pitch = flat.shape[1] * flat.element_size()
     col = 0
-    with torch.cuda.device(flat.device):
-        stream = build.stream_ptr(flat)
-        for lo in range(0, len(leaves), max_leaves):
-            group = leaves[lo:lo + max_leaves]
-            n = len(group)
-            ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in group])
-            widths = (ctypes.c_longlong * n)(
-                *[t.shape[1] * t.element_size() for t in group])
-            err = fn(int(pack), ptrs, widths, n, flat.data_ptr() + col,
-                     rows, pitch, stream)
-            build.check(err, "bucket")
-            mode.count_launch(kernel)
-            col += sum(widths)
+    for lo in range(0, len(leaves), max_leaves):
+        group = leaves[lo:lo + max_leaves]
+        n = len(group)
+        ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in group])
+        widths = (ctypes.c_longlong * n)(
+            *[t.shape[1] * t.element_size() for t in group])
+        _LAUNCH(flat.get_device(), int(pack), ptrs, widths, n,
+                flat.data_ptr() + col, rows, pitch)
+        mode.count_launch(kernel)
+        col += sum(widths)
 
 
 def bucket_pack(leaves: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.PyDLL] = {}
 _fns: Dict[tuple, object] = {}
 #: ptxas report (registers, shared memory, spills) of each library built
 #: by this process.
@@ -84,7 +84,7 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     for n in names:
         if n not in _libs:
-            _libs[n] = ctypes.CDLL(str(_lib_path(n)))
+            _libs[n] = ctypes.PyDLL(str(_lib_path(n)))
     return time.perf_counter() - t0
 
 
@@ -103,17 +103,43 @@ def function(lib: str, symbol: str, argtypes: Sequence,
     return _fns[key]
 
 
-def check(err: int, kernel: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
-    if err != 0:
-        msg = function(kernel, "kernel_error_string", [ctypes.c_int],
-                       restype=ctypes.c_char_p)
-        raise RuntimeError(
-            f"{kernel}: CUDA launch failed: error {err} "
-            f"({msg(err).decode()})"
-        )
+def fail(err: int, lib: str) -> None:
+    """Raise for the CUDA error code a launch of library ``lib`` returned."""
+    msg = function(lib, "kernel_error_string", [ctypes.c_int],
+                   restype=ctypes.c_char_p)
+    raise RuntimeError(
+        f"{lib}: CUDA launch failed: error {err} ({msg(err).decode()})"
+    )
 
 
-def stream_ptr(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+class Launcher:
+    """The C launcher ``symbol`` of library ``lib``, resolved (every
+    library built) at its first call. ``launcher(device, *args)`` calls
+    ``symbol(*args, stream)`` on PyTorch's current stream of CUDA device
+    ``device`` and raises on the error code it returns (its
+    ``cudaGetLastError`` after the launch).
+
+    On the decode paths the host's cost of this call is most of a small
+    kernel's time, so it takes the raw stream handle without building a
+    `torch.cuda.Stream` (as Triton's launcher does), makes ``device``
+    current only when it is not already, and the libraries are loaded with
+    `ctypes.PyDLL`, whose calls keep the GIL instead of releasing and
+    retaking it around a launch that takes microseconds."""
+
+    __slots__ = ("lib", "symbol", "argtypes", "fn")
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence):
+        self.lib, self.symbol, self.argtypes = lib, symbol, argtypes
+        self.fn = None
+
+    def __call__(self, device: int, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = function(self.lib, self.symbol, self.argtypes)
+        if torch._C._cuda_getDevice() == device:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+        if err:
+            fail(err, self.lib)

@@ -25,6 +25,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
          + [ctypes.c_void_p])
+_LAUNCH = build.Launcher("flash_attention", "flash_attention_launch", _ARGS)
 
 
 def flash_attention(
@@ -84,13 +85,9 @@ def flash_attention(
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     out = torch.empty_like(q)
-    fn = build.function("flash_attention", "flash_attention_launch", _ARGS)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, kvh, s, d, d ** -0.5, KINDS[kind], window, chunk,
-                 0.0 if softcap is None else float(softcap),
-                 int(softcap is not None), _DTYPES[q.dtype],
-                 build.stream_ptr(q))
-    build.check(err, "flash_attention")
+    _LAUNCH(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, kvh, s, d, d ** -0.5, KINDS[kind], window,
+            chunk, 0.0 if softcap is None else float(softcap),
+            int(softcap is not None), _DTYPES[q.dtype])
     mode.count_launch("flash_attention")
     return out

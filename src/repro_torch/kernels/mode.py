@@ -39,15 +39,22 @@ def reset_launches() -> None:
 def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
     """True when every tensor lies on the CPU (run the plain version), False
     when all lie on one CUDA device (launch the kernel). Raises for mixed
-    devices or any other device type."""
+    devices or any other device type. The common case, every tensor on one
+    CUDA device, reads only integer device indices (it runs on every
+    launch)."""
+    index = tensors[0].get_device()
+    if index >= 0:
+        for t in tensors:
+            if t.get_device() != index or not t.is_cuda:
+                break
+        else:
+            return False
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: tensors lie on several devices {devices}")
     device = devices.pop()
     if device.type == "cpu":
         return True
-    if device.type == "cuda":
-        return False
     raise ValueError(f"{kernel}: no kernel for device {device}")
 
 

@@ -69,6 +69,13 @@ def reshard_pack_ref(src, send_idx):
     return src[send_idx.long()]
 
 
+def reshard_pack_ranks_ref(xp, send_idx):
+    """xp: (R, U+1, elems) zero-padded; send_idx: (R, n, s_max) → (R, n,
+    s_max, elems), rank r gathering from xp[r]: one advanced index."""
+    ranks = torch.arange(xp.shape[0], device=xp.device)[:, None, None]
+    return xp[ranks, send_idx.long()]
+
+
 def bucket_pack_ref(leaves):
     """Column concat of same-row leaves — the per-leaf column-slice copy of
     the Pallas body (`repro/kernels/bucket.py::_pack_kernel`)."""

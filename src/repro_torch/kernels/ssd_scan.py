@@ -19,6 +19,7 @@ from repro_torch.kernels import build, mode, ref
 
 SMEM_LIMIT = 232_448      # bytes of shared memory one H100 block can use
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_LAUNCH = build.Launcher("ssd_scan", "ssd_scan_launch", _ARGS)
 
 
 def _f32(t):
@@ -69,11 +70,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, final_state: bool = False):
     x, dt, A, B, C = (_f32(t) for t in (x, dt, A, B, C))
     y = torch.empty((bh, s, hp), dtype=torch.float32, device=x.device)
     h = torch.empty((bh, hp, ds), dtype=torch.float32, device=x.device)
-    fn = build.function("ssd_scan", "ssd_scan_launch", _ARGS)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), h.data_ptr(), bh, s, L, hp, ds,
-                 bh // B.shape[0], build.stream_ptr(x))
-    build.check(err, "ssd_scan")
+    _LAUNCH(x.get_device(), x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), y.data_ptr(), h.data_ptr(), bh, s, L,
+            hp, ds, bh // B.shape[0])
     mode.count_launch("ssd_scan")
     return (y, h) if final_state else y

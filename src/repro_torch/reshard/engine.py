@@ -2,8 +2,9 @@
 gather → all-to-all → scatter, with the replica's ranks emulated on one
 device (port of `repro/reshard/engine.py`).
 
-The send-bucket gather of every rank runs the hand-written
-`kernels.reshard_pack` kernel on the card (its plain version on the CPU);
+The send-bucket gather of all ranks is one launch of the hand-written
+`kernels.reshard_pack` kernel on the card (`reshard_pack_ranks`, which
+writes the stacked send buffer; its plain version on the CPU);
 the all-to-all is the host-unrolled transpose ``recv_r[j] = send_j[r]``;
 stays and the receive scatter are plain tensor indexing, as in the
 reference. The tables' index tensors are uploaded once per (tables,
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import shard_mapping as sm
-from repro_torch.kernels.reshard_pack import reshard_pack
+from repro_torch.kernels.reshard_pack import reshard_pack_ranks
 
 
 def zero_pad_slot(x, axis: int = 0):
@@ -32,16 +33,13 @@ def zero_pad_slot(x, axis: int = 0):
 
 
 def gather_send_buckets(xp, send_idx):
-    """Per-rank send-bucket gather: ``xp`` (n, buf+1, *rest) zero-padded
-    buffers, ``send_idx`` (n, n, s_max) int32 on xp's device →
-    (n, n, s_max, *rest); one `reshard_pack` launch per rank."""
+    """Send-bucket gather of every rank: ``xp`` (n, buf+1, *rest)
+    zero-padded buffers, ``send_idx`` (n, n, s_max) int32 on xp's device →
+    the stacked send buffer (n, n, s_max, *rest); one `reshard_pack`
+    launch for all n ranks."""
     n, bufp1 = xp.shape[:2]
-    rest = xp.shape[2:]
-    s_max = send_idx.shape[-1]
-    flat = xp.reshape(n, bufp1, -1)
-    return torch.stack(
-        [reshard_pack(flat[r], send_idx[r]) for r in range(n)]
-    ).reshape(n, n, s_max, *rest)
+    return reshard_pack_ranks(xp.reshape(n, bufp1, -1), send_idx).reshape(
+        *send_idx.shape, *xp.shape[2:])
 
 
 def device_tables(tables: sm.ReshardTables, device) -> Dict:

@@ -17,8 +17,8 @@ import torch
 from repro_torch.kernels import build, mode, ref
 from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.reshard_pack import reshard_pack
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.reshard_pack import reshard_pack, reshard_pack_ranks
+from repro_torch.kernels.rmsnorm import launch_config, rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +50,42 @@ def test_rmsnorm_matches_plain(dev, n, d, plus_one, dtype):
     want = ref.rmsnorm_ref(x, w, plus_one=plus_one)
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [
+    (n, d) for n in (1, 7, 8192) for d in (100, 1536, 3072, 3584, 16384)
+] + [(1, 70000), (7, 70000)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_paths_match_plain(dev, n, d, offset, dtype):
+    """Every path of the kernel: 16-byte words in registers, the scalar
+    path (d not a multiple of the word, or x one element past a 16-byte
+    boundary), and the loop path (d 70000: too wide for registers). In bf16
+    the kernel and the plain version may round one f32 product to
+    neighbouring bf16 values (their sums of squares run in other orders),
+    one ulp apart: 0.031 for |y| in [4, 8), past the 2e-2 tolerance, and
+    among 10^8 outputs some reach there. So bf16 is held to 2e-2 or one
+    bf16 ulp of the plain value, whichever is larger."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    base = torch.randn((n * d + offset,), generator=g, device=dev).to(dtype)
+    x = base[offset:].view(n, d)
+    w = _randn((d,), dtype, dev, 13, 0.1)
+    aligned = offset == 0 and d % (16 // x.element_size()) == 0
+    cfg = launch_config(d, x.element_size(), aligned)
+    assert (cfg.vec > 1) == aligned
+    for plus_one in (False, True):
+        mode.reset_launches()
+        got = rmsnorm(x, w, plus_one=plus_one)
+        torch.cuda.synchronize()
+        assert mode.launches()["rmsnorm"] == 1
+        want = ref.rmsnorm_ref(x, w, plus_one=plus_one)
+        assert got.dtype == dtype and got.shape == (n, d)
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            ulp = torch.ldexp(torch.ones_like(err),
+                              torch.frexp(want.float()).exponent - 8)
+            err = torch.where(err <= ulp, torch.zeros_like(err), err)
+        assert err.max().item() < TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -95,6 +131,72 @@ def test_reshard_pack_bit_exact(dev, u, elems, n, smax, dtype):
     bad = idx.clone()
     bad[0, 0] = u + 5
     assert not reshard_pack(src, bad)[0, 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks,u,elems,n,smax", [
+    (4, 4, 128 * 3, 4, 1),          # the kv_head table's shape
+    (4, 50, 256, 4, 13),            # the training MLP table's shape
+    (3, 9, 7, 3, 5),                # rows of odd bytes: narrow words
+    (2, 5, 128, 4, 9000),           # n·s_max = 36,000 per rank, 72,000 rows
+    (1, 33, 128, 8, 9),
+])
+def test_reshard_pack_ranks_bit_exact(dev, ranks, u, elems, n, smax, dtype):
+    xp = _randn((ranks, u + 1, elems), dtype, dev, 14)
+    xp[:, -1] = 0
+    g = torch.Generator(device=dev).manual_seed(15)
+    idx = torch.randint(0, u + 1, (ranks, n, smax), generator=g, device=dev,
+                        dtype=torch.int32)
+    mode.reset_launches()
+    got = reshard_pack_ranks(xp, idx)
+    torch.cuda.synchronize()
+    assert mode.launches()["reshard_pack"] == 1
+    assert got.shape == (ranks, n, smax, elems)
+    assert torch.equal(got, ref.reshard_pack_ranks_ref(xp, idx))
+    assert torch.equal(got, xp[torch.arange(ranks, device=dev)[:, None, None],
+                                idx.long()])
+    for r in range(ranks):
+        assert torch.equal(got[r], reshard_pack(xp[r], idx[r]))
+    # out-of-range indices, below and above [0, U], give zero rows
+    bad = idx.clone()
+    bad[0, 0, 0], bad[-1, -1, -1] = -3, u + 7
+    out = reshard_pack_ranks(xp, bad)
+    assert not out[0, 0, 0].any() and not out[-1, -1, -1].any()
+    keep = torch.ones_like(bad, dtype=torch.bool)
+    keep[0, 0, 0] = keep[-1, -1, -1] = False
+    assert torch.equal(out[keep], got[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reshard_pack_unaligned_pointers(dev, dtype):
+    """xp one element past a 16-byte boundary: the kernel takes narrower
+    words and stays bit-exact."""
+    ranks, u, elems = 3, 6, 128
+    g = torch.Generator(device=dev).manual_seed(16)
+    base = torch.randn((ranks * (u + 1) * elems + 1,), generator=g,
+                       device=dev).to(dtype)
+    xp = base[1:].view(ranks, u + 1, elems)
+    xp[:, -1] = 0
+    idx = torch.randint(0, u + 1, (ranks, ranks, 4), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = reshard_pack_ranks(xp, idx)
+    assert torch.equal(got, ref.reshard_pack_ranks_ref(xp, idx))
+    assert torch.equal(reshard_pack(xp[1], idx[1]), got[1])
+
+
+def test_reshard_route_one_launch_per_call(dev):
+    """`reshard_ranks` gathers every rank's send buckets in one launch, and
+    gives the plain route's result."""
+    from repro_torch.core import shard_mapping as sm
+    from repro_torch.reshard import engine
+
+    _, _, pre, _ = sm.plan(28, 4, 3)
+    x = _randn((4, pre.buf, 2, 64), torch.float32, dev, 17)
+    mode.reset_launches()
+    got = engine.reshard_ranks(x, pre)
+    torch.cuda.synchronize()
+    assert mode.launches()["reshard_pack"] == 1
+    assert torch.equal(got.cpu(), engine.reshard_ranks(x.cpu(), pre))
 
 
 def test_launches_are_counted(dev):
