@@ -11,17 +11,22 @@ Phases (any failure exits non-zero):
    previous release's launch path and on this one; hold each kernel
    against its plain PyTorch version on the card, in f32 and bf16, at the
    serving paths' shapes (qwen2-7b's and mamba2-780m's norm rows, KV-head
-   and SSD-head reshard rows, plus a long flash-attention shape, S=4096
-   causal and sliding), the training path's gradient-bucket shapes and
-   largest reshard (one layer's MLP bucket), and, for ssd_scan (f32,
+   and SSD-head reshard rows), the training path's gradient-bucket shapes
+   and largest reshard (one layer's MLP bucket), and, for ssd_scan (f32,
    5e-4), the reference's test shapes and the Mamba-2 prefill shape (4 x
    48 heads, S=2048, hp 64, ds 128, chunk 256; the final state also against
    the model's plain `_ssd_chunked`); time kernel, plain version, one
    library call where one exists and the least time the card could take
-   (bound). rmsnorm and reshard_pack are timed in turns with their library
-   calls (F.rms_norm; src[idx] and index_select), 5 rounds, medians: the
-   call ms (back-to-back wrapper calls) and the device ms (the same calls
-   in a CUDA graph, replayed);
+   (bound). rmsnorm, flash_attention, reshard_pack, bucket_pack and
+   bucket_unpack are timed in turns with their library calls (F.rms_norm;
+   F.scaled_dot_product_attention; src[idx] and index_select; torch.cat;
+   split + .contiguous()), 5 rounds, medians: the call ms (back-to-back
+   wrapper calls) and the device ms (the same calls in a CUDA graph,
+   replayed); ssd_scan's device ms comes from a CUDA graph too.
+   flash_attention is timed at the serving prefill (q (1,28,32,128), kv 4,
+   causal) and at S=4096 causal and sliding 1024, f32 and bf16, then held
+   at a ragged S=100 for every head_dim (32, 64, 128, 256) x mask kind,
+   and with a softcap (sliding, 50) for every head_dim, in f32 and bf16;
 4. serve full-size qwen2-7b (f32, weights drawn from a seeded generator on
    the card) through `ServeSession` + `Router` with replicas=1, n1=4,
    slots=8, max_len=96, prefill_len=32: 24 requests (prompt 24, max_new
@@ -112,7 +117,6 @@ def bound_ms(n_bytes, n_ops, dtype_name):
 def kernel_phase(torch, F, dev):
     """Phase 3. Returns {name: table row at the main path's shape}."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -156,10 +160,30 @@ def kernel_phase(torch, F, dev):
             if (n, d) == (8, 3584) and dt == torch.float32:
                 rows["rmsnorm"] = table_row(err, t, plain, b)
 
-    # ---- flash attention: prefill (1,28,4,32,128) causal; S=4096 causal/sliding
-    cases = [(32, "causal", 4096), (4096, "causal", 4096),
-             (4096, "sliding", 1024)]
-    for s, kind, window in cases:
+    flash_rows(torch, F, dev, g, rows)
+    torch.cuda.empty_cache()
+
+    reshard_rows(torch, dev, g, rows)
+    bucket_rows(torch, dev, g, rows)
+    ssd_rows(torch, dev, g, rows, report)
+    return rows
+
+
+def flash_rows(torch, F, dev, g, rows):
+    """flash_attention at qwen2-7b's heads (q (1,28,S,128), k/v (1,4,S,128)):
+    the serving path's prefill (S=32, causal) and a long prompt (S=4096,
+    causal and sliding 1024), f32 and bf16, timed in turns with
+    `F.scaled_dot_product_attention` (GQA by `enable_gqa`; the sliding mask
+    passed as a boolean mask); then correctness-only rows at a ragged S=100
+    for every head_dim x mask kind (window 40, chunk 48), and a
+    gemma2-style softcap row (sliding, softcap 50) for every head_dim, each
+    in f32 and bf16 against the plain version at the reference's
+    tolerances."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    for s, kind, window in ((32, "causal", 4096), (4096, "causal", 4096),
+                            (4096, "sliding", 1024)):
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
             b_, h, kvh, d = 1, 28, 4, 128
@@ -171,34 +195,53 @@ def kernel_phase(torch, F, dev):
             torch.cuda.synchronize()
             want = ref.flash_attention_ref(q, k, v, **kw)
             err = (got.float() - want.float()).abs().max().item()
-            del want
-            reps = 50 if s <= 32 else 5
-            ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
+            del want, got
+            short = s <= 32
             plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
-                            max(1, reps // 5))
+                            10 if short else 1)
             qp = torch.arange(s, device=dev)
             mask = qp[None, :] <= qp[:, None]
             if kind == "sliding":
                 mask &= qp[None, :] > qp[:, None] - window
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=None if kind == "causal" else mask,
-                is_causal=kind == "causal", enable_gqa=True), reps)
+            attn_mask = None if kind == "causal" else mask
+            t = in_turns(torch, lambda: flash_attention(q, k, v, **kw),
+                         {"SDPA": lambda: F.scaled_dot_product_attention(
+                             q, k, v, attn_mask=attn_mask,
+                             is_causal=kind == "causal", enable_gqa=True)},
+                         reps=50 if short else 5, calls=20 if short else 3)
             pairs = int(mask.sum().item())
             n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
             bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
-            report("flash_attention", f"q({b_},{h},{s},{d}) kv{kvh} {kind}",
-                   dn, err, ms, plain, lib, bd)
+            report_turns("flash_attention",
+                         f"q({b_},{h},{s},{d}) kv{kvh} {kind}", dn, err,
+                         TOL[dn], t, plain, bd)
             if s == 32 and dt == torch.float32:
-                rows["flash_attention"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=bd[0], bound_by=bd[1])
-            del q, k, v, got
-    torch.cuda.empty_cache()
+                rows["flash_attention"] = table_row(err, t, plain, bd)
+            del q, k, v, mask, attn_mask
+            torch.cuda.empty_cache()
 
-    reshard_rows(torch, dev, g, rows)
-    bucket_rows(torch, dev, g, rows, report)
-    ssd_rows(torch, dev, g, rows, report)
-    return rows
+    s, window, chunk = 100, 40, 48
+    cases = [(d, kind, None) for d in (32, 64, 128, 256)
+             for kind in ("causal", "sliding", "chunked", "bidir")]
+    cases += [(d, "sliding", 50.0) for d in (32, 64, 128, 256)]
+    for d, kind, cap in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            h, kvh = (28, 4) if d == 128 else (8, 2)
+            sc = 4.0 if cap else 1.0
+            q = (torch.randn((2, h, s, d), generator=g, device=dev) * sc).to(dt)
+            k = (torch.randn((2, kvh, s, d), generator=g, device=dev) * sc).to(dt)
+            v = torch.randn((2, kvh, s, d), generator=g, device=dev).to(dt)
+            kw = dict(kind=kind, window=window, chunk=chunk, softcap=cap)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.flash_attention_ref(q, k, v, **kw)
+                   .float()).abs().max().item()
+            print(f"  flash_attention  q(2,{h},{s},{d}) kv{kvh} {kind:8s} "
+                  f"softcap {cap}  {dn:8s} max_abs_err {err:.3e} "
+                  f"(tol {TOL[dn]:g})", flush=True)
+            check(err <= TOL[dn], f"flash_attention d={d} {kind} softcap "
+                  f"{cap} {dn}: max_abs_err {err} > {TOL[dn]}")
 
 
 def reshard_rows(torch, dev, g, rows):
@@ -477,7 +520,8 @@ def report_turns(name, shape, dt, err, tol, t, plain, bound):
           + "  ".join(f"{k} call_ms {c:.5f} device_ms {d:.5f}"
                       for k, (c, d) in libs.items())
           + f"  plain_ms {plain:.5f}  bound_ms {bound[0]:.6f} ({bound[1]}, "
-          f"{bound[0] / kd:.0%} of it on the device)  call <= library: "
+          f"{bound[0] / kd:.0%} of it on the device)  call / library "
+          f"{kc / best:.3f}  call <= library: "
           f"{'yes' if kc <= best else 'NO'}", flush=True)
     check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
 
@@ -490,10 +534,12 @@ def table_row(err, t, plain, bound):
                 bound_ms=bound[0], bound_by=bound[1])
 
 
-def bucket_rows(torch, dev, g, rows, report):
+def bucket_rows(torch, dev, g, rows):
     """bucket_pack / bucket_unpack at the training path's bucket shapes:
     rows = D·n1·buf of the stacked emulated ranks (2 replicas x TP 4 at
-    qwen2-7b widths), one launch per bucket."""
+    qwen2-7b widths), one launch per bucket; bit-exact against the plain
+    versions, timed in turns with `torch.cat` and `split` + `.contiguous()`
+    (call ms and device ms)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
 
@@ -523,22 +569,23 @@ def bucket_rows(torch, dev, g, rows, report):
                 "bucket_pack": (
                     lambda: bucket_pack(leaves),
                     lambda: ref.bucket_pack_ref(leaves),
-                    lambda: torch.cat(leaves, dim=1)),
+                    {"torch.cat": lambda: torch.cat(leaves, dim=1)}),
                 "bucket_unpack": (
                     lambda: bucket_unpack(flat, widths),
                     lambda: ref.bucket_unpack_ref(flat, widths),
-                    lambda: [t.contiguous() for t in
-                             torch.split(flat, widths, dim=1)]),
+                    {"split+contiguous": lambda: [
+                        t.contiguous()
+                        for t in torch.split(flat, widths, dim=1)]}),
             }
-            for name, (kern, plain_fn, lib_fn) in timed.items():
-                ms = time_ms(kern, 10)
+            for name, (kern, plain_fn, libs) in timed.items():
                 plain = time_ms(plain_fn, 10)
-                lib = time_ms(lib_fn, 10)
-                report(name, f"{label} {shape}", dn, 0.0, ms, plain, lib, bd)
+                t = in_turns(torch, kern, libs, reps=10,
+                             calls=2 if n_rows > 16 else 8)
+                report_turns(name, f"{label} {shape}", dn, 0.0, 0.0, t,
+                             plain, bd)
                 if label == "MLP TP (3,4)" and dt == torch.float32:
-                    rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                                      library_ms=lib, bound_ms=bd[0],
-                                      bound_by=bd[1])
+                    rows[name] = table_row(0.0, t, plain, bd)
+                torch.cuda.empty_cache()
             del leaves, flat
             torch.cuda.empty_cache()
 
@@ -604,6 +651,14 @@ def ssd_rows(torch, dev, g, rows, report):
         shape = f"x({bh},{s},{hp}) B/C({groups},{s},{ds}) L={L}"
         report("ssd_scan", shape, "float32", err, ms, plain, None, bd,
                tol=SSD_TOL)
+        graph = capture(torch, lambda: ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                                final_state=True), 4)
+        dev_ms = statistics.median(replay_ms(torch, graph, 4)
+                                   for _ in range(5))
+        del graph
+        print(f"  ssd_scan         {shape:34s} device_ms {dev_ms:.5f} (4 calls "
+              f"in a CUDA graph, median of 5 replays of 3; "
+              f"{bd[0] / dev_ms:.0%} of the bound)", flush=True)
         if s == 2048:
             rows["ssd_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                     library_ms=None, bound_ms=bd[0],

@@ -5,10 +5,17 @@ Port of the Pallas TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`: blockwise
 online-softmax attention with causal / sliding / chunked / bidir masks,
 optional logit softcap, and GQA (query head h reads KV head h // (H/KVH)
-without repeating KV). The CUDA kernel tiles by 64 and masks the ragged
-edge itself, so it takes any S; ``block_q``/``block_k``, the TPU kernel's
-tiling arguments, are checked only when a caller passes them, as the JAX
-function checks them.
+without repeating KV). The CUDA kernel packs the G = H/KVH query heads of
+a KV head into one block's rows, position-major (row r is position r // G
+of head r % G), in q tiles of the rows `tiling` gives, loops over K/V
+tiles and masks the ragged edges itself, so it takes any S;
+``block_q``/``block_k``, the TPU kernel's tiling arguments, are checked
+only when a caller passes them, as the JAX function checks them. bf16
+runs on the tensor cores (P rounded to bf16 before P·V), f32 exactly on
+the CUDA cores.
+
+`tiling`, `tile_dead`, `tile_full` and `live_tiles` mirror the kernel's
+blocking and tile predicates on the host, for the tests.
 """
 from __future__ import annotations
 
@@ -26,6 +33,65 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
          + [ctypes.c_void_p])
 _LAUNCH = build.Launcher("flash_attention", "flash_attention_launch", _ARGS)
+
+SMS = 132   # streaming multiprocessors of an H100
+
+
+def tiling(b: int, h: int, kvh: int, s: int, d: int, bf16: bool):
+    """(rows of a q tile, keys of a K/V tile, m16 row tiles a warp) the
+    kernel launches with, as its ``launch_d`` chooses: f32 takes 64-row
+    tiles; bf16 takes 128-row tiles (two m16 tiles a warp) when that still
+    gives every SM two blocks and d < 256, else 64-row ones. K/V tiles are
+    64 keys, 32 at d = 256."""
+    bk = 32 if d == 256 else 64
+    if not bf16:
+        return 64, bk, 1
+    mt = 2 if d != 256 and b * kvh * ((h // kvh) * s // 128) >= 2 * SMS else 1
+    return 64 * mt, bk, mt
+
+
+def tile_dead(kind, window, chunk, q_lo, q_hi, k_lo, k_hi) -> bool:
+    """True when no (q, k) with q in [q_lo, q_hi], k in [k_lo, k_hi] is
+    allowed (the kernel's ``tile_dead``)."""
+    if kind == "bidir":
+        return False
+    if k_lo > q_hi:
+        return True
+    if kind == "sliding" and k_hi <= q_lo - window:
+        return True
+    if kind == "chunked" and k_hi // chunk < q_lo // chunk:
+        return True
+    return False
+
+
+def tile_full(kind, window, chunk, q_lo, q_hi, k_lo, k_hi) -> bool:
+    """True when every such pair is allowed (the kernel's ``tile_full``)."""
+    if kind == "bidir":
+        return True
+    if k_hi > q_lo:
+        return False
+    if kind == "sliding":
+        return k_lo > q_hi - window
+    if kind == "chunked":
+        return k_lo // chunk == q_hi // chunk
+    return True
+
+
+def live_tiles(kind, window, chunk, q_lo, q_hi, s, bk):
+    """The k tiles [kt0, kt1) a q tile over positions [q_lo, q_hi] visits:
+    dead tiles trimmed from both ends, as the kernel's ``block_tile``."""
+    nk = -(-s // bk)
+
+    def dead(kt):
+        return tile_dead(kind, window, chunk, q_lo, q_hi, kt * bk,
+                         min(kt * bk + bk, s) - 1)
+
+    kt0, kt1 = 0, nk
+    while kt0 < kt1 and dead(kt0):
+        kt0 += 1
+    while kt1 > kt0 and dead(kt1 - 1):
+        kt1 -= 1
+    return kt0, kt1
 
 
 def flash_attention(

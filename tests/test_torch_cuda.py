@@ -95,25 +95,62 @@ def test_rmsnorm_paths_match_plain(dev, n, d, offset, dtype):
     (2, 4, 2, 200, 64),      # ragged last tile
     (1, 8, 8, 128, 32),
     (1, 2, 1, 96, 256),
+    # a ragged S > 64 for each D (the last K/V tile and q tile part-filled)
+    (1, 4, 2, 100, 32),
+    (1, 6, 3, 77, 128),
+    (1, 2, 1, 130, 256),
+    (1, 14, 2, 65, 64),
+    # GQA 7:1 at a long S (heads packed into a block's rows, dead tiles)
+    (1, 28, 4, 4096, 128),
 ])
 def test_flash_attention_matches_plain(dev, b, h, kvh, s, d, kind, dtype):
     q = _randn((b, h, s, d), dtype, dev, 2)
     k = _randn((b, kvh, s, d), dtype, dev, 3)
     v = _randn((b, kvh, s, d), dtype, dev, 4)
-    kw = dict(kind=kind, window=40, chunk=64)
+    kw = dict(kind=kind, window=40 if s < 1024 else 1024,
+              chunk=64 if s < 1024 else 1536)
+    mode.reset_launches()
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert mode.launches()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["causal", "sliding", "chunked", "bidir"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_attention_softcap_matches_plain(dev, d, kind, dtype):
+    """Scores scaled up so that the softcap (gemma2's) bites."""
+    q = _randn((1, 4, 128 + d // 32, d), dtype, dev, 5, 4.0)
+    k = _randn((1, 2, 128 + d // 32, d), dtype, dev, 6, 4.0)
+    v = _randn((1, 2, 128 + d // 32, d), dtype, dev, 7)
+    kw = dict(kind=kind, window=50, chunk=48, softcap=5.0)
+    got = flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
 
 
-def test_flash_attention_softcap_matches_plain(dev):
-    q = _randn((1, 4, 128, 64), torch.float32, dev, 5, 4.0)
-    k = _randn((1, 2, 128, 64), torch.float32, dev, 6, 4.0)
-    v = _randn((1, 2, 128, 64), torch.float32, dev, 7)
-    got = flash_attention(q, k, v, softcap=5.0)
-    want = ref.flash_attention_ref(q, k, v, softcap=5.0)
-    assert (got - want).abs().max().item() < 3e-5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_second_device(dtype):
+    """The kernel's shared-memory attribute belongs to a device: a launch on
+    cuda:1 after one on cuda:0 must run too (D = 128 needs more than the
+    default 48 KB)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    build.build_all()
+    outs = []
+    for dev in (torch.device("cuda:0"), torch.device("cuda:1")):
+        q = _randn((1, 8, 96, 128), dtype, dev, 2)
+        k = _randn((1, 2, 96, 128), dtype, dev, 3)
+        v = _randn((1, 2, 96, 128), dtype, dev, 4)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize(dev)
+        want = ref.flash_attention_ref(q, k, v)
+        assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+        outs.append(got.cpu())
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
