@@ -13,12 +13,17 @@ Phases (any failure exits non-zero):
    serving paths' shapes (qwen2-7b's and mamba2-780m's norm rows, KV-head
    and SSD-head reshard rows), the training path's gradient-bucket shapes
    and largest reshard (one layer's MLP bucket), and, for ssd_scan (f32,
-   5e-4), the reference's test shapes and the Mamba-2 prefill shape (4 x
-   48 heads, S=2048, hp 64, ds 128, chunk 256; the final state also against
-   the model's plain `_ssd_chunked`); time kernel, plain version, one
-   library call where one exists and the least time the card could take
-   (bound). rmsnorm, flash_attention, reshard_pack, bucket_pack and
-   bucket_unpack are timed in turns with their library calls (F.rms_norm;
+   5e-4), the reference's test shapes, a ragged shape (hp 6, ds 12), d_state
+   256 at chunk 256 and the Mamba-2 prefill shape (4 x 48 heads, S=2048,
+   hp 64, ds 128, chunk 256; the final state also against the model's plain
+   `_ssd_chunked`; the four CUDA kernels a call issues, each with its device
+   ms); time kernel, plain version, one library call where one exists and
+   the least time the card could take (bound; for ssd_scan C·Bᵀ counted
+   once per B/C row). The bucket rows open with the host µs of one
+   bucket_pack / bucket_unpack call (`python3 chip_smoke.py
+   --bucket-host-cost-against DIR` times it beside the wrappers of the
+   checkout at DIR, in turns, and exits). rmsnorm, flash_attention,
+   reshard_pack, bucket_pack and bucket_unpack are timed in turns with their library calls (F.rms_norm;
    F.scaled_dot_product_attention; src[idx] and index_select; torch.cat;
    split + .contiguous()), 5 rounds, medians: the call ms (back-to-back
    wrapper calls) and the device ms (the same calls in a CUDA graph,
@@ -432,29 +437,33 @@ def host_cost(torch, dev, g):
          lambda: rm.rmsnorm(x, w, plus_one=True)),
     ]
 
-    def us(f, reps=1000):
-        f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            f()
-        t = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return t / reps * 1e6
-
-    empty = min(us(lambda: None) for _ in range(3))
+    empty = min(host_us(torch, lambda: None) for _ in range(3))
     print(f"  rmsnorm host cost per call, x(8,3584) f32 1+w (us, median of 5, "
           f"less {empty:.3f} us of an empty call; old -> new):", flush=True)
     total = {"old": 0.0, "new": 0.0}
     for name, old, new in steps:
         t = {}
         for label, f in (("old", old), ("new", new)):
-            t[label] = statistics.median(us(f) for _ in range(5)) - empty
+            t[label] = statistics.median(host_us(torch, f)
+                                         for _ in range(5)) - empty
             if name != "whole call":
                 total[label] += t[label]
         print(f"    {name:18s} {t['old']:7.3f} -> {t['new']:7.3f}")
     print(f"    {'sum of the steps':18s} {total['old']:7.3f} -> "
           f"{total['new']:7.3f}", flush=True)
+
+
+def host_us(torch, f, reps=1000):
+    """Host microseconds of one call of ``f``: ``reps`` calls back to back
+    on the host clock, after one warm-up call and a synchronize."""
+    f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        f()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def in_turns(torch, kern, libs, reps, calls, rounds=5):
@@ -534,6 +543,41 @@ def table_row(err, t, plain, bound):
                 bound_ms=bound[0], bound_by=bound[1])
 
 
+def bucket_host_cost(torch, dev, g, before=None):
+    """Host microseconds of one bucket_pack / bucket_unpack wrapper call.
+    Small buckets (8 rows of a four-leaf attention-like and a two-leaf
+    MLP-like layout, f32), so the host and not the card sets the pace: each
+    call runs 1000 times back to back on the host clock, less an empty
+    call; medians of 5. ``before``, another checkout's `bucket.py` loaded
+    beside this one's, is timed in turns with it on the same leaves."""
+    from repro_torch.kernels import bucket as bk
+
+    mods = {"this": bk} if before is None else {"before": before, "this": bk}
+    empty = min(host_us(torch, lambda: None) for _ in range(3))
+    print(f"  bucket host cost per call (us, median of 5, less {empty:.3f} "
+          f"us of an empty call; {' -> '.join(mods)}):", flush=True)
+    for label, widths in (("attn 4 leaves", (896, 128, 128, 896)),
+                          ("MLP 2 leaves", (128, 128))):
+        leaves = [torch.randn((8, w), generator=g, device=dev) for w in widths]
+        flat = bk.bucket_pack(leaves)
+        for name in ("bucket_pack", "bucket_unpack"):
+            calls = {k: (lambda m=m: m.bucket_pack(leaves))
+                     if name == "bucket_pack" else
+                     (lambda m=m: m.bucket_unpack(flat, widths))
+                     for k, m in mods.items()}
+            t = {k: [] for k in calls}
+            for _ in range(5):
+                for k, f in calls.items():
+                    t[k].append(host_us(torch, f))
+            print(f"    {label:14s} {name:14s} " + " -> ".join(
+                f"{statistics.median(v) - empty:7.3f}" for v in t.values()),
+                flush=True)
+        if before is not None:
+            check(torch.equal(before.bucket_pack(leaves),
+                              bk.bucket_pack(leaves)),
+                  "bucket_pack: the two checkouts' wrappers disagree")
+
+
 def bucket_rows(torch, dev, g, rows):
     """bucket_pack / bucket_unpack at the training path's bucket shapes:
     rows = D·n1·buf of the stacked emulated ranks (2 replicas x TP 4 at
@@ -543,6 +587,7 @@ def bucket_rows(torch, dev, g, rows):
     from repro_torch.kernels import ref
     from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
 
+    bucket_host_cost(torch, dev, g)
     attn = (3584 * 896, 3584 * 128, 3584 * 128, 896 * 3584)   # wq wk wv wo
     mlp = (3584 * 128, 128 * 3584)                             # A B
     cases = [("MLP TP (3,4)", 400, mlp), ("MLP healthy", 296, mlp),
@@ -594,17 +639,22 @@ SSD_TOL = 5e-4     # tests/test_kernels.py::test_ssd_scan
 
 
 def ssd_rows(torch, dev, g, rows, report):
-    """ssd_scan at the reference's test shapes and at the prefill shape of
+    """ssd_scan at the reference's test shapes, at the prefill shape of
     the Mamba-2 path (batch 4 x 48 heads, S=2048, hp 64, ds 128, chunk 256,
-    B/C shared by a batch row's heads as the model passes them): y against
-    the sequential plain version, the final state against the model's plain
-    `_ssd_chunked` on the same card tensors, both within 5e-4."""
+    B/C shared by a batch row's heads as the model passes them), at a
+    ragged shape (hp 6, ds 12) and at d_state 256 / chunk 256 (shapes the
+    earlier one-block-per-row kernel refused): y against the sequential
+    plain version, the final state against the model's plain
+    `_ssd_chunked` on the same card tensors, both within 5e-4. At the
+    prefill shape, the CUDA kernels one call issues and each one's device
+    ms (torch.profiler over 4 calls)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.ssm import _ssd_chunked
 
     cases = [(2, 64, 16, 32, 16, 2, 1), (3, 128, 16, 32, 32, 3, 1),
-             (1, 256, 64, 128, 64, 1, 1), (4, 2048, 64, 128, 256, 4, 48)]
+             (1, 256, 64, 128, 64, 1, 1), (2, 128, 6, 12, 32, 2, 2),
+             (2, 512, 64, 256, 256, 2, 2), (4, 2048, 64, 128, 256, 4, 48)]
     for b, s, hp, ds, chunk, groups, nh in cases:
         bh = b * nh
         x = torch.randn((bh, s, hp), generator=g, device=dev)
@@ -641,10 +691,12 @@ def ssd_rows(torch, dev, g, rows, report):
                                       final_state=True), 10)
         plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, A, B, C,
                                                  final_state=True), 1)
-        # per (row, chunk): C·Bᵀ and its product with x over the L(L+1)/2
-        # causal pairs, the carried term C·h and the state update
+        # C·Bᵀ once per (B/C row, chunk) over its L(L+1)/2 causal pairs;
+        # per (row, chunk) the causal M·x, the carried term C·h and the
+        # state update
         L, nc = min(chunk, s), s // min(chunk, s)
-        n_ops = bh * nc * (L * (L + 1) * (ds + hp) + 4 * L * hp * ds)
+        n_ops = (groups * nc * L * (L + 1) * ds
+                 + bh * nc * (L * (L + 1) * hp + 4 * L * hp * ds))
         n_bytes = 4 * (2 * bh * s * hp + bh * s + bh + 2 * groups * s * ds
                        + bh * hp * ds)
         bd = bound_ms(n_bytes, n_ops, "float32")
@@ -663,8 +715,33 @@ def ssd_rows(torch, dev, g, rows, report):
             rows["ssd_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                     library_ms=None, bound_ms=bd[0],
                                     bound_by=bd[1])
+            ssd_kernels(torch, lambda: ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                                final_state=True))
         del x, dt, A, B, C, y, h
     torch.cuda.empty_cache()
+
+
+def ssd_kernels(torch, call, calls=4):
+    """The CUDA kernels one ssd_scan call issues, each with its device ms
+    per call (torch.profiler over ``calls`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in kernels) / calls
+    total = sum(e.self_device_time_total for e in kernels) / calls / 1e3
+    print(f"  ssd_scan         {n:g} CUDA kernels a call, {total:.5f} device "
+          f"ms a call in all (torch.profiler, {calls} calls):", flush=True)
+    check(n == 4, f"ssd_scan issued {n} kernels a call, not 4")
+    for e in kernels:
+        print(f"    {e.self_device_time_total / calls / 1e3:.5f} ms  "
+              f"{e.key[:80]}")
 
 
 def reference_phase(torch, dev):
@@ -1403,6 +1480,26 @@ SOURCES = {
 }
 
 
+def bucket_host_cost_against(torch, checkout):
+    """`bucket_host_cost` of this checkout's bucket wrappers beside those
+    of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
+    against this checkout's kernel build; the kernel source must be the
+    same), then exit."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+
+    path = os.path.join(checkout, "src/repro_torch/kernels/bucket.py")
+    spec = importlib.util.spec_from_file_location("bucket_before", path)
+    before = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(before)
+    build.build_all()
+    dev = torch.device("cuda")
+    bucket_host_cost(torch, dev, torch.Generator(device=dev).manual_seed(0),
+                     before)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1411,6 +1508,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
+    if sys.argv[1:2] == ["--bucket-host-cost-against"]:
+        return bucket_host_cost_against(torch, sys.argv[2])
     import torch.nn.functional as F
 
     from repro_torch.kernels import build

@@ -27,13 +27,17 @@ _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_void_p]
 _LAUNCH = build.Launcher("bucket", "bucket_copy_launch", _ARGS)
+_max_leaves = 0  # the kernel's kMaxLeaves, read at the first launch
 
 
 def _launch(pack: bool, leaves: Sequence[torch.Tensor], flat: torch.Tensor,
             kernel: str) -> None:
     """One `bucket_copy_launch` per group of at most `kMaxLeaves` leaves;
     each group's first column is folded into the flat pointer."""
-    max_leaves = build.function("bucket", "bucket_max_leaves", [])()
+    global _max_leaves
+    if not _max_leaves:
+        _max_leaves = build.function("bucket", "bucket_max_leaves", [])()
+    max_leaves = _max_leaves
     rows = flat.shape[0]
     pitch = flat.shape[1] * flat.element_size()
     col = 0

@@ -356,6 +356,61 @@ def test_bucket_unaligned_pointers(dev, dtype):
         assert torch.equal(o, leaf)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_layouts_alternate_bit_exact(dev, dtype):
+    """Layouts that change between calls — four leaves, two leaves, four
+    leaves of other widths, the first again, and the first in another
+    dtype — each stay bit-exact with one launch per call, so state carried
+    from one call's layout into the next would show."""
+    layouts = [(8, (3584, 512, 512, 3584)), (16, (512, 3584)),
+               (8, (640, 128, 128, 640)), (8, (3584, 512, 512, 3584)),
+               (4, (136, 8)), (4, (8, 136, 1))]
+    for i, (rows, widths) in enumerate(layouts + layouts[:1]):
+        dt = torch.float32 if i == len(layouts) else dtype
+        leaves = [_randn((rows, w), dt, dev, 100 * i + w) for w in widths]
+        mode.reset_launches()
+        flat = bucket_pack(leaves)
+        parts = bucket_unpack(flat, widths)
+        torch.cuda.synchronize()
+        assert mode.launches()["bucket_pack"] == 1
+        assert mode.launches()["bucket_unpack"] == 1
+        assert torch.equal(flat, ref.bucket_pack_ref(leaves)), (rows, widths)
+        for p, leaf in zip(parts, leaves):
+            assert torch.equal(p, leaf), (rows, widths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_on_side_stream_and_in_graph(dev, dtype):
+    """bucket_pack / bucket_unpack issued on a side stream (as the
+    overlapped gradient sync does) and captured in a CUDA graph, then
+    replayed on new leaf values: both bit-exact, so the launcher passes
+    the current stream's handle intact."""
+    widths = (3584, 512, 512, 3584)
+    leaves = [_randn((8, w), dtype, dev, 40 + w) for w in widths]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flat = bucket_pack(leaves)
+        parts = bucket_unpack(flat, widths)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(flat, ref.bucket_pack_ref(leaves))
+    for p, leaf in zip(parts, leaves):
+        assert torch.equal(p, leaf)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flat = bucket_pack(leaves)
+        parts = bucket_unpack(flat, widths)
+    for i, leaf in enumerate(leaves):
+        leaf.copy_(_randn(tuple(leaf.shape), dtype, dev, 90 + i))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(flat, ref.bucket_pack_ref(leaves))
+    for p, leaf in zip(parts, leaves):
+        assert torch.equal(p, leaf)
+
+
 def test_bucket_single_leaf_passes_through(dev):
     x = _randn((8, 128), torch.float32, dev, 12)
     mode.reset_launches()
@@ -392,6 +447,10 @@ def _ssd_inputs(bh, s, hp, ds, dev, seed, groups=None):
     (300, 128, 64, 128, 64, 3),      # more rows than the 132 SMs
     (6, 96, 64, 128, 96, 2),         # chunk not a multiple of the 64-row tile
     (2, 1, 64, 128, 256, None),      # a one-token call
+    (4, 192, 64, 128, 96, 1),        # L = 96 over two chunks, shared B/C
+    (4, 128, 6, 12, 32, 2),          # hp, ds off the float4 words
+    (2, 128, 72, 80, 64, None),      # two hp tiles, two ds tiles
+    (2, 640, 8, 16, 320, 1),         # L > 256: two cumsum segments
 ])
 def test_ssd_scan_matches_plain(dev, bh, s, hp, ds, chunk, groups):
     x, dt, A, B, C = _ssd_inputs(bh, s, hp, ds, dev, bh + s, groups)
@@ -401,6 +460,27 @@ def test_ssd_scan_matches_plain(dev, bh, s, hp, ds, chunk, groups):
     assert mode.launches()["ssd_scan"] == 1
     want_y, want_h = ref.ssd_scan_ref(x, dt, A, B, C, final_state=True)
     assert y.shape == (bh, s, hp) and h.shape == (bh, hp, ds)
+    assert (y - want_y).abs().max().item() < 5e-4
+    assert (h - want_h).abs().max().item() < 5e-4
+
+
+@pytest.mark.parametrize("bh,s,hp,ds,chunk,groups", [
+    (4, 512, 64, 256, 256, 2),       # d_state 256 at chunk 256
+    (2, 256, 3, 256, 256, 1),        # hp % 4 != 0
+    (2, 256, 64, 20, 128, 1),        # ds % 8 != 0
+    (2, 1024, 64, 128, 1024, 1),     # one chunk of 1024
+])
+def test_ssd_scan_takes_shapes_the_old_kernel_refused(dev, bh, s, hp, ds,
+                                                      chunk, groups):
+    """Shapes the one-block-per-row kernel refused (hp % 4, ds % 8, or
+    more than 227 KB of shared memory) run, one counted launch each, and
+    hold the plain version with the final state."""
+    x, dt, A, B, C = _ssd_inputs(bh, s, hp, ds, dev, bh * s + ds, groups)
+    mode.reset_launches()
+    y, h = ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=True)
+    torch.cuda.synchronize()
+    assert mode.launches()["ssd_scan"] == 1
+    want_y, want_h = ref.ssd_scan_ref(x, dt, A, B, C, final_state=True)
     assert (y - want_y).abs().max().item() < 5e-4
     assert (h - want_h).abs().max().item() < 5e-4
 
