@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
 2. build the hand-written CUDA kernels from `src/repro_torch/kernels/csrc`
    (one nvcc per source, in parallel) and print the build time;
 3. time the host's cost of each step of one rmsnorm wrapper call, on the
-   previous release's launch path and on this one; hold each kernel
+   previous release's launch path and on this one, and of the whole call
+   with telemetry off and with a Recorder active (the `kernels.dispatch`
+   counter, in turns); hold each kernel
    against its plain PyTorch version on the card, in f32 and bf16, at the
    serving paths' shapes (qwen2-7b's and mamba2-780m's norm rows, KV-head
    and SSD-head reshard rows), the training path's gradient-bucket shapes
@@ -72,11 +74,33 @@ Phases (any failure exits non-zero):
    events), transition time and bytes, peak memory, and a torch.profiler
    view of one degraded step of each session, with the reshard_pack
    calls it made by shape, are printed;
-7. run the training launcher (`repro_torch.launch.train --ntp --steps 8
-   --fail-at 3 --overlap on`) at its defaults on the card;
-8. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2 and training paths, each counted from zero just before
-   it), then the device line.
+7. replay a mixed failure trace against the same model (one session, TP 4
+   x 2 replicas, overlap on, `power_policy("ntp_pw")`, quarantine on):
+   `schedule_from_trace` over 16 steps (a failure and its repair, a link
+   degrade and its repair, an SDC suspicion that rolls back to the step-0
+   snapshot, a straggler and its clear; `TRACE`, pinned by
+   tests/test_torch_lifecycle.py) through `TraceRunner(verify=True,
+   atol=1e-4)` with the dense reference on the card: every step's loss and
+   the canonical params at every transition, the rollback and the end
+   within 1e-4; every transition's ledger equal to `expected_transfer` and
+   to its `session.transition` span; per-step plans, local batches and
+   `PowerDecision`s equal to the same schedule run through the port on the
+   CPU; reshard_pack, bucket_pack and bucket_unpack launched; at step 8 a
+   canonical checkpoint (about 7 GB, under `build/`) saved and restored
+   into a fresh session under the live plan, bit-identical. Printed: step
+   ms per regime (healthy, degraded at TP (3, 4), repriced, quarantined),
+   each event's apply ms and bytes, snapshot and rollback ms, the
+   snapshot's host bytes, the goodput gauges, `TraceRunner.summary()`,
+   peak memory; then the schedule again with verify off, timed, with the
+   host syncs outside the transitions (at most one per `drain_every`
+   steps, the metrics drain);
+8. run the training launcher at its defaults on the card: `--ntp --steps 8
+   --fail-at 3 --overlap on`, then phase 7's trace with `--power-policy
+   ntp_pw --ckpt ... --ckpt-every 4 --telemetry ... --steps 12`: the
+   checkpoint loads and every telemetry event is on the schema;
+9. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training and trace paths, each counted from zero just
+   before it), then the device line.
 """
 import contextlib
 import json
@@ -378,6 +402,10 @@ def host_cost(torch, dev, g):
         if err:
             build.fail(err, "rmsnorm")
 
+    def old_count():
+        # the counter before the kernels.dispatch check was added
+        mode._launches["rmsnorm"] += 1
+
     def old_context():
         with torch.cuda.device(x.device):
             pass
@@ -406,7 +434,7 @@ def host_cost(torch, dev, g):
                          ctypes.addressof(p),
                          torch.cuda.current_stream(x.device).cuda_stream)
         old_check(err)
-        mode.count_launch("rmsnorm")
+        old_count()
         return y
 
     def checks():
@@ -431,8 +459,7 @@ def host_cost(torch, dev, g):
         ("ctypes launch", old_launch,
          lambda: new_fn(xp, wp, yp, 8, params, stream)),
         ("error check", lambda: old_check(0), new_check),
-        ("launch counter", lambda: mode.count_launch("rmsnorm"),
-         lambda: mode.count_launch("rmsnorm")),
+        ("launch counter", old_count, lambda: mode.count_launch("rmsnorm")),
         ("whole call", lambda: old_rmsnorm(x, w, plus_one=True),
          lambda: rm.rmsnorm(x, w, plus_one=True)),
     ]
@@ -451,6 +478,23 @@ def host_cost(torch, dev, g):
         print(f"    {name:18s} {t['old']:7.3f} -> {t['new']:7.3f}")
     print(f"    {'sum of the steps':18s} {total['old']:7.3f} -> "
           f"{total['new']:7.3f}", flush=True)
+
+    # the kernels.dispatch counter: one attribute check with telemetry off,
+    # a counter event per launch with a Recorder active; in turns
+    from repro_torch import telemetry
+
+    rec = telemetry.Recorder(sinks=[telemetry.MemorySink(maxlen=4096)])
+    t = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off", "off", "on", "on", "off",
+                  "off", "on"):
+        with telemetry.recording(rec if label == "on" else None):
+            t[label].append(host_us(torch, lambda: rm.rmsnorm(
+                x, w, plus_one=True)) - empty)
+    print(f"    whole call, telemetry off {statistics.median(t['off']):7.3f}"
+          f", with a Recorder active {statistics.median(t['on']):7.3f} "
+          f"(medians of 5 in turns; kernels.dispatch counted "
+          f"{rec.total('kernels.dispatch', kernel='rmsnorm', mode='cuda')})",
+          flush=True)
 
 
 def host_us(torch, f, reps=1000):
@@ -1162,7 +1206,7 @@ MAMBA_KERNELS = ("rmsnorm", "reshard_pack", "ssd_scan")
 
 
 def train_phase(torch, dev):
-    """Phase 5. Returns the launch counts of the fail→repair training run."""
+    """Phase 6. Returns the launch counts of the fail→repair training run."""
     import numpy as np
 
     from repro_torch import tree as tr
@@ -1388,11 +1432,13 @@ def host_syncs(torch, fn):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
+            n0 = len(caught)     # (switching the mode warns once itself)
             fn()
+            run = caught[n0:]
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message) for w in run)
 
 
 def allocator_churn(torch, before):
@@ -1411,17 +1457,401 @@ def _unit_bytes(cfg, family):
     return elems * 4 * cfg.n_layers
 
 
-def launcher_phase():
-    """Phase 6: the training launcher at its defaults on the card."""
+TRACE_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
+# the mixed trace phase 7 replays (tests/test_torch_lifecycle.py pins it):
+# failure -> link degrade -> link repair -> repair -> SDC suspect (rollback)
+# -> clear -> straggler -> clear, over 16 steps of 2 replicas x TP 4
+TRACE = dict(n_gpus=8, domain_size=4, days=16 / 1.0 / 24.0,
+             rate_multiplier=200.0, seed=136, straggler_rate_mult=2.0,
+             link_rate_mult=2.0, sdc_rate_mult=1.0)
+TRACE_STEPS, TRACE_STEPS_PER_HOUR, TRACE_CKPT_STEP = 16, 1.0, 8
+TRACE_LAUNCHER = ["--trace", "200", "--trace-seed", "136", "--trace-mix",
+                  "straggler=2,link=2,sdc=1", "--power-policy", "ntp_pw"]
+
+
+def _host_decisions(torch):
+    """Per-step plans, local batches and policy verdicts of the phase-7
+    schedule through the port on the CPU (a 2-layer model of the same
+    geometry: they are host-side, so they must equal the card's)."""
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.core.failure_model import FailureTraceConfig
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import (
+        NTPSession, TraceRunner, power_policy, schedule_from_trace,
+    )
+
+    cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=7,
+                            head_dim=16, d_ff=256, unit_rows=64, vocab=128,
+                            n_layers=2)
+    s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(1e-2),
+                          device="cpu", overlap=True,
+                          generator=torch.Generator().manual_seed(0),
+                          power_policy=power_policy("ntp_pw"))
+    decisions = _record_decisions(s)
+    runner = TraceRunner(s, schedule_from_trace(
+        FailureTraceConfig(**TRACE), steps=TRACE_STEPS,
+        steps_per_hour=TRACE_STEPS_PER_HOUR))
+    runner.run(lambda i: torch.zeros((8, 17), dtype=torch.int64),
+               TRACE_STEPS)
+    return [_host_fields(h) for h in runner.history], decisions
+
+
+def _host_fields(rec):
+    return {k: rec.get(k) for k in ("replica_tp", "local_batches",
+                                    "events_applied", "policy", "power_boost",
+                                    "rel_iter_time", "quarantined")}
+
+
+def _record_decisions(session):
+    """Wrap ``session.step`` so each step appends the session's
+    `power_decision`; returns the list."""
+    real, out = session.step, []
+
+    def step(batch):
+        out.append(session.power_decision)
+        return real(batch)
+
+    session.step = step
+    return out
+
+
+def _regime(session):
+    if session.quarantined:
+        return "quarantined"
+    if session.health.degraded is not None:
+        return f"repriced (straggler/link) at TP {session.plan.replica_tp}"
+    if not session.plan.healthy:
+        return f"degraded at TP {session.plan.replica_tp}"
+    return "healthy"
+
+
+def trace_phase(torch, dev):
+    """Phase 7. Returns the launch counts of the trace-driven run."""
+    import gc
+    import shutil
+
     import numpy as np
 
+    from repro_torch import telemetry
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.core.failure_model import FailureTraceConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.optim import sgd
+    from repro_torch.reshard.transition import expected_transfer
+    from repro_torch.runtime import (
+        NTPSession, TraceRunner, event_kind, power_policy,
+        schedule_from_trace,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
+                            head_dim=128, d_ff=18944, unit_rows=128,
+                            vocab=152064, n_layers=4)
+    lb, seq = 4, 256
+    schedule = schedule_from_trace(FailureTraceConfig(**TRACE),
+                                   steps=TRACE_STEPS,
+                                   steps_per_hour=TRACE_STEPS_PER_HOUR)
+    print("  schedule: " + "; ".join(
+        f"step {e.step} {event_kind(e.event)} domain {e.event.domain}"
+        + (f" x{e.event.slowdown:.4f}" if hasattr(e.event, "slowdown")
+           else f" bw {e.event.bw_frac:.4f}" if hasattr(e.event, "bw_frac")
+           else "") for e in schedule), flush=True)
+    want_host, want_decisions = _host_decisions(torch)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
+    batches = [torch.as_tensor(pipe._batch_np(i), device=dev)
+               for i in range(TRACE_STEPS)]
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def new_session():
+        canon = nt.init_canonical(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        return NTPSession.create(cfg, (2, 4), local_batch=lb,
+                                 optimizer=sgd(1e-2), params=canon,
+                                 overlap=True, device=dev,
+                                 power_policy=power_policy("ntp_pw"),
+                                 quarantine=True)
+
+    session = new_session()
+    decisions = _record_decisions(session)
+    real_step, real_apply = session.step, session.apply
+    step_ms, applies = [], []
+
+    def step(batch):
+        regime = _regime(session)
+        out, ms = timed(lambda: real_step(batch))
+        step_ms.append((regime, ms))
+        return out
+
+    def apply(ev):
+        old = session.plan
+        out, ms = timed(lambda: real_apply(ev))
+        st = session.last_transition if out != old else None
+        applies.append((ev, old, out, ms, st, session.last_rollback))
+        return out
+
+    session.step, session.apply = step, apply
+    rec = telemetry.Recorder(sinks=[telemetry.MemorySink(maxlen=None)])
+    t0 = time.perf_counter()
+    with telemetry.recording(rec):
+        runner = TraceRunner(session, schedule, verify=True, atol=1e-4)
+    print(f"  session, dense reference and the step-0 snapshot (host) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    snap_bytes = sum(t.numel() * t.element_size()
+                     for t in tr.leaves(session._snapshot))
+    ckpt_dir = scratch_dir()
+    try:
+        mode.reset_launches()
+        with telemetry.recording(rec):
+            runner.run(lambda i: batches[i], TRACE_CKPT_STEP)
+            ckpt = checkpoint_round_trip(torch, session, cfg, dev, ckpt_dir,
+                                         new_plan=session.plan)
+            runner.run(lambda i: batches[i], TRACE_STEPS - TRACE_CKPT_STEP)
+        launches = mode.launches()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for h in runner.history:
+        print(f"  step {h['step']:2d}: tp {h['replica_tp']} local batches "
+              f"{h['local_batches']} policy {h['policy']} boost "
+              f"{h['power_boost']:.2f} rel_iter {h['rel_iter_time']:.4f} "
+              f"loss {h['loss']:.6f} reference {h['ref_loss']:.6f} |diff| "
+              f"{abs(h['loss'] - h['ref_loss']):.2e}; "
+              f"{step_ms[h['step']][0]}, {step_ms[h['step']][1]:.1f} ms",
+              flush=True)
+    # every transition's ledger against expected_transfer, and the span
+    spans = rec.spans("session.transition")
+    check(len(spans) == len(applies), "a transition span is missing")
+    for (ev, old, new, ms, st, rolled), sp in zip(applies, spans):
+        line = (f"  apply {event_kind(ev)} domain {ev.domain}: plan "
+                f"{old.replica_tp} -> {new.replica_tp} in {ms:.3f} ms")
+        if st is not None:
+            want = sum(int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f)
+                       for f, m in expected_transfer(cfg, old, new).items())
+            line += (f", {st.bytes_moved} B in {st.messages} messages "
+                     f"(expected {want} B)")
+            check(st.bytes_moved == want,
+                  f"transition ledger {st.bytes_moved} != {want}")
+            check(all(sp["attrs"][k] == v for k, v in st.as_dict().items()),
+                  f"span {sp['attrs']} != ledger {st.as_dict()}")
+        if rolled:
+            line += " (rolled back to the step-0 snapshot)"
+        print(line, flush=True)
+    for t in runner.transitions:
+        if "canonical_err" in t:
+            print(f"  step {t['step']} {t['kind']}"
+                  f"{' rollback' if t.get('rollback') else ''}: canonical "
+                  f"params vs the dense reference {t['canonical_err']:.2e} "
+                  f"(tol 1e-4)")
+    check(sum(1 for t in runner.transitions if t.get("rollback")) == 1,
+          "the SDC suspicion did not roll back")
+    got_host = [_host_fields(h) for h in runner.history]
+    check(got_host == want_host,
+          f"host-side records differ from the CPU's: {got_host} {want_host}")
+    check(decisions == want_decisions,
+          "power decisions differ from the CPU's")
+    print(f"  kernels {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in TRACE_KERNELS),
+          f"a kernel of the trace path never launched: {launches}")
+    regimes = {}
+    for regime, ms in step_ms:
+        regimes.setdefault(regime, []).append(ms)
+    for regime, v in regimes.items():
+        print(f"  step ms, {regime}: " + ", ".join(f"{t:.1f}" for t in v)
+              + f" (mean {statistics.mean(v):.1f})")
+    for name in ("train.goodput", "train.goodput_unboosted"):
+        v = [e["value"] for e in rec.sinks[0].events(kind="gauge", name=name)]
+        print(f"  {name}: mean {statistics.mean(v):.4f} over {len(v)} steps: "
+              + ", ".join(f"{x:.3f}" for x in v))
+    summ = runner.summary()
+    summ["final_plan"] = summ["final_plan"].replica_tp
+    print(f"  TraceRunner.summary(): {summ}")
+    snap_ms = timed(session.snapshot)[1]
+    roll_ms = timed(session.rollback)[1]
+    print(f"  snapshot {snap_ms:.1f} ms, rollback {roll_ms:.1f} ms, "
+          f"snapshot {snap_bytes} B in host memory; checkpoint {ckpt}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    del runner, session, rec, decisions, real_step, real_apply, step, apply
+    gc.collect()          # the step/apply wrappers close over the session
+    torch.cuda.empty_cache()
+
+    # the same schedule again, verify off, timed: host syncs outside the
+    # transitions come from the drain (one per drain_every steps)
+    session = new_session()
+    runner = TraceRunner(session, schedule, drain_every=16)
+    syncs = {}
+    (_, ms) = timed(lambda: syncs.update(syncs_outside_apply(
+        torch, session, lambda: runner.run(lambda i: batches[i],
+                                           TRACE_STEPS))))
+    print(f"  timing run (verify off, drain_every 16): {ms:.1f} ms for "
+          f"{TRACE_STEPS} steps and {len(schedule)} events; host syncs "
+          f"{syncs['outside']} outside transitions ({syncs['where']}), "
+          f"{syncs['inside']} inside them", flush=True)
+    check(syncs["outside"] <= -(-TRACE_STEPS // runner.drain_every),
+          f"host syncs outside transitions: {syncs['outside']}")
+    sync = session.measure_sync(batches[0])
+    print(f"  measure_sync at TP {session.plan.replica_tp}: "
+          f"{sync['sync_s'] * 1e3:.3f} ms (CUDA events), "
+          f"{sync['collectives']} collectives, overlap {sync['overlap']}",
+          flush=True)
+    del runner, session
+    torch.cuda.empty_cache()
+    return launches
+
+
+def scratch_dir():
+    """A fresh directory under the checkout's git-ignored `build/` (made if
+    the checkout has none); the caller removes it."""
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(dir=root)
+
+
+def checkpoint_round_trip(torch, session, cfg, dev, directory, new_plan):
+    """Save the session's canonical checkpoint, restore it into a fresh
+    session on the card under ``new_plan``: canonical params bit-identical.
+    Returns a line of bytes and seconds."""
+    from repro_torch import tree as tr
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    path = os.path.join(directory, "ckpt.npz")
+    t0 = time.perf_counter()
+    session.save(path)
+    save_s = time.perf_counter() - t0
+    n_bytes = os.path.getsize(path)
+    fresh = NTPSession.create(cfg, (2, 4), plan=new_plan, local_batch=4,
+                              optimizer=sgd(1e-2), overlap=True, device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = fresh.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    os.unlink(path)
+    want = [t.cpu() for t in tr.leaves(session.canonical_params())]
+    got = fresh.canonical_params()
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tr.leaves(got), want))
+    del fresh, got, want
+    torch.cuda.empty_cache()
+    check(same, "restored canonical params differ from the saving session's")
+    check(step == session.opt_step, f"restored step {step}")
+    return (f"at step {step}: {n_bytes} B written in {save_s:.1f} s, restored "
+            f"into a fresh session at TP {new_plan.replica_tp} in "
+            f"{restore_s:.1f} s, canonical params bit-identical")
+
+
+def syncs_outside_apply(torch, session, fn):
+    """Host syncs (CUDA sync debug mode's warnings) while ``fn`` runs,
+    split into those inside ``session.apply`` and the rest, with the
+    repository source lines (innermost two) of the rest."""
+    import collections
+    import traceback
+    import warnings
+
+    real = session.apply
+    caught, inside = [], [0]
+
+    def show(message, *_, **__):
+        if "synchroniz" in str(message):
+            caught.append(traceback.extract_stack()[:-1])
+
+    def apply(ev):
+        n0 = len(caught)
+        out = real(ev)
+        inside[0] += len(caught) - n0
+        return out
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        session.apply = apply
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            n0 = len(caught)     # (switching the mode warns once itself)
+            fn()
+            run = caught[n0:]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            del session.apply
+    torch.cuda.synchronize()
+
+    def where(stack):
+        ours = [f for f in stack if "repro_torch" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        return " < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                          for f in reversed(ours[-2:]))
+
+    # an apply's syncs are all inside it; the rest came from elsewhere
+    outside = [st for st in run if not any(
+        f.name == "apply" and f.filename.endswith("chip_smoke.py")
+        for f in st)]
+    return {"inside": inside[0], "outside": len(outside),
+            "where": dict(collections.Counter(
+                where(st) for st in outside).most_common(4))}
+
+
+
+def launcher_phase():
+    """Phase 8: the training launcher at its defaults on the card, with an
+    injected failure, then replaying phase 7's trace with checkpoints and a
+    telemetry stream."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.launch.train import main as train_main
+    from repro_torch.telemetry import EVENT_KEYS, load_jsonl
 
     out = train_main(["--ntp", "--steps", "8", "--fail-at", "3",
                       "--overlap", "on", "--log-every", "1"])
     check(len(out["losses"]) == 8 and np.isfinite(out["losses"]).all(),
           "launcher: non-finite losses")
     check(out["plan"].replica_tp == (3, 4), f"launcher plan {out['plan']}")
+
+    tmp = scratch_dir()
+    try:
+        ckpt, tel = os.path.join(tmp, "ckpt.npz"), os.path.join(tmp, "run.jsonl")
+        out = train_main(["--ntp", *TRACE_LAUNCHER, "--ckpt", ckpt,
+                          "--ckpt-every", "4", "--telemetry", tel,
+                          "--steps", "12", "--overlap", "on",
+                          "--log-every", "4"])
+        check(np.isfinite(out["losses"]).all(), "launcher: non-finite losses")
+        check(out["summary"]["rollbacks"] == 1,
+              f"launcher: no SDC rollback {out['summary']}")
+        tree, step = load_checkpoint(ckpt)
+        check(step is not None and "params/embed" in tree
+              and "opt/m/layers/0/wq" in tree,
+              f"launcher checkpoint: step {step}, keys {sorted(tree)[:4]}")
+        events = load_jsonl(tel)
+        bad = [e for e in events
+               if tuple(sorted(e)) != tuple(sorted(EVENT_KEYS[e["kind"]]))]
+        check(events and not bad, f"telemetry events off the schema: {bad[:3]}")
+        names = {e["name"] for e in events}
+        check({"session.step", "session.transition", "orchestrator.event",
+               "train.goodput", "kernels.dispatch"} <= names,
+              f"telemetry names {sorted(names)}")
+        print(f"  trace launcher: checkpoint at step {step} loads "
+              f"({len(tree)} leaves), {len(events)} telemetry events on the "
+              f"schema", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -1554,11 +1984,16 @@ def main() -> int:
           "fail->repair", flush=True)
     train_launches = train_phase(torch, dev)
 
-    print("phase 7: the training launcher", flush=True)
+    print("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
+          "failure, link, SDC quarantine and straggler", flush=True)
+    trace_launches = trace_phase(torch, dev)
+
+    print("phase 8: the training launcher", flush=True)
     launcher_phase()
 
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
-             (mamba_launches, MAMBA_KERNELS))
+             (mamba_launches, MAMBA_KERNELS),
+             (trace_launches, TRACE_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)

@@ -253,8 +253,9 @@ def _attn_local(lp, h, cfg: NTPModelConfig, n1: int):
     scores = torch.einsum("dnbsugh,dnbtuh->dnbugst", q, k) \
         * cfg.head_dim ** -0.5
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=h.device))
-    scores = torch.where(mask, scores.to(torch.float32),
-                         torch.tensor(-1e30, device=h.device))
+    # a Python scalar, not a device tensor built from one: building that
+    # copies it to the device and makes the host wait, once per layer
+    scores = torch.where(mask, scores.to(torch.float32), -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("dnbugst,dnbtuh->dnbsugh", probs.to(h.dtype), v)
     out = out.reshape(dd, n1, b, s, u, cfg.q_per_kv * cfg.head_dim)
@@ -383,6 +384,25 @@ def _sample_mask(lb: np.ndarray, b: int, device):
             < torch.as_tensor(lb, device=device)[:, None]).to(torch.float32)
 
 
+_masks: Dict[tuple, torch.Tensor] = {}
+
+
+def _sample_masks(lb: np.ndarray):
+    """``mask(b, device)``: the (D, b) sample mask of the static table
+    ``lb``. Masks are kept per (table, b, device) for the process, so a
+    step — and the steps rebuilt after a transition — does not copy the
+    table to the device (and wait for the copy) every time."""
+    table = tuple(int(x) for x in lb)
+
+    def mask(b: int, device):
+        key = (table, b, device)
+        if key not in _masks:
+            _masks[key] = _sample_mask(lb, b, device)
+        return _masks[key]
+
+    return mask
+
+
 def _grad_leaves(params):
     """Fresh autograd leaves sharing the params' storage."""
     return tr.tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -433,13 +453,14 @@ def make_ntp_train_step(
     d_axis, n1 = fplan.d, fplan.n1
     lb = _validated_local_batches(local_batches, fplan, mode, local_batch,
                                   d_axis)
+    sample_mask = _sample_masks(lb)
 
     def loss_and_grads(params, batch):
         """Global loss and the pre-sync gradients (unit leaves per replica,
         replicated leaves summed) from one autograd graph."""
         dev = params["embed"].device
         tokens = _split_batch(batch, d_axis, dev)
-        mask = _sample_mask(lb, tokens.shape[1], dev)
+        mask = sample_mask(tokens.shape[1], dev)
         leaves = _grad_leaves(params)
         loss = _global_loss(*_forward_totals(cfg, leaves, tokens, mask, n1))
         grads = torch.autograd.grad(loss, tr.leaves(leaves))

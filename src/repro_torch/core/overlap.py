@@ -293,6 +293,7 @@ def make_overlapped_train_step(
     stage_plans = [nt._plans(cfg, plan)]
     lb = nt._validated_local_batches(local_batches, plan, mode, local_batch,
                                      d_axis)
+    sample_mask = nt._sample_masks(lb)
 
     chunks = chunk_ranges(cfg.n_layers, 1)
     per_chunk_buckets = [
@@ -306,7 +307,7 @@ def make_overlapped_train_step(
     def loss_and_grads(params, batch):
         dev = params["embed"].device
         tokens = nt._split_batch(batch, d_axis, dev)
-        mask = nt._sample_mask(lb, tokens.shape[1], dev)
+        mask = sample_mask(tokens.shape[1], dev)
         inp, tgt = tokens[..., :-1], tokens[..., 1:]
         leaves = nt._grad_leaves(params)
 

@@ -8,13 +8,19 @@ override and no fallback.
 
 Each wrapper adds one to its kernel's counter where it launches the kernel
 and nowhere else, so a run can show that a path really went through the
-kernels (`reset_launches` before it, `launches` after it).
+kernels (`reset_launches` before it, `launches` after it). With telemetry
+active, each launch and each call that takes the plain version also counts
+into the reference's ``kernels.dispatch`` series (labels ``kernel`` and
+``mode``: ``"cuda"`` for a launch, ``"cpu"`` for the plain version); with
+telemetry off that costs one attribute check of the active recorder.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
 import torch
+
+from repro_torch import telemetry
 
 KERNELS = ("rmsnorm", "flash_attention", "reshard_pack", "bucket_pack",
            "bucket_unpack", "ssd_scan")
@@ -24,6 +30,9 @@ _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 def count_launch(kernel: str) -> None:
     _launches[kernel] += 1
+    if telemetry._active.enabled:
+        telemetry._active.counter("kernels.dispatch", kernel=kernel,
+                                  mode="cuda")
 
 
 def launches() -> Dict[str, int]:
@@ -54,6 +63,9 @@ def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
         raise ValueError(f"{kernel}: tensors lie on several devices {devices}")
     device = devices.pop()
     if device.type == "cpu":
+        if telemetry._active.enabled:
+            telemetry._active.counter("kernels.dispatch", kernel=kernel,
+                                      mode="cpu")
         return True
     raise ValueError(f"{kernel}: no kernel for device {device}")
 

@@ -59,6 +59,14 @@ def leaf_key(path: Path):
     return path[-1] if path and isinstance(path[-1], str) else None
 
 
+def path_key(path: Path) -> str:
+    """The reference's checkpoint key of a leaf: each dict key's ``str`` and
+    each list index's ``str``, joined by ``/`` (as `jax.tree_util`'s
+    ``DictKey.key`` / ``SequenceKey.idx`` render in
+    `repro/checkpoint/checkpoint.py`), e.g. ``"layers/0/wq"``."""
+    return "/".join(str(p) for p in path)
+
+
 def set_path(tree, path: Path, value) -> None:
     """Replace the leaf at ``path`` in place (its parent container is
     mutated)."""

@@ -557,3 +557,54 @@ def test_mamba2_serving_on_card_through_fail_repair(dev):
     assert mode.launches()["rmsnorm"] > 0
     want = run(ServeSession.create(cfg, device=dev, params=s.params, **kw), {})
     assert len(got) == 16 and got == want
+
+
+def test_trace_run_on_card_matches_cpu(dev):
+    """A small trace run (2 layers, d_model 64) through the mixed schedule
+    `chip_smoke.py` replays — failure, link degrade, repair, SDC quarantine
+    with rollback, straggler — under NTP-PW with the overlapped sync, on the
+    card and on the CPU from the same canonical params: the same plans,
+    local batches and policy verdicts, losses within 1e-4, canonical params
+    within 1e-4 at the end, and the card's run through the path's kernels."""
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.core.failure_model import FailureTraceConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import (
+        NTPSession, TraceRunner, power_policy, schedule_from_trace,
+    )
+
+    cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=2,
+                            head_dim=16, d_ff=256, unit_rows=64, vocab=128,
+                            n_layers=2)
+    canon = nt.init_canonical(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    trace = FailureTraceConfig(n_gpus=8, domain_size=4, days=16 / 24.0,
+                               rate_multiplier=200.0, seed=136,
+                               straggler_rate_mult=2.0, link_rate_mult=2.0,
+                               sdc_rate_mult=1.0)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, 32, 8, seed=0))
+    runs = {}
+    for where in ("cpu", dev):
+        s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(0.05),
+                              params=_to(canon, where), overlap=True,
+                              device=where,
+                              power_policy=power_policy("ntp_pw"))
+        runner = TraceRunner(s, schedule_from_trace(trace, steps=16),
+                             verify=True, atol=1e-4)
+        mode.reset_launches()
+        hist = runner.run(pipe._batch_np, 16)
+        runs[str(where)] = (hist, runner.summary(), mode.launches(),
+                            tr.leaves(s.canonical_params()))
+    (ch, cs, _, cp), (gh, gs, launches, gp) = runs["cpu"], runs[str(dev)]
+    for a, b in zip(ch, gh):
+        for k in ("replica_tp", "local_batches", "policy", "power_boost",
+                  "rel_iter_time", "events_applied"):
+            assert a[k] == b[k], (k, a, b)
+        assert abs(a["loss"] - b["loss"]) < 1e-4
+    assert cs == gs and cs["rollbacks"] == 1
+    for a, b in zip(cp, gp):
+        assert float((a - b.cpu()).abs().max()) < 1e-4
+    assert all(launches[k] > 0 for k in
+               ("reshard_pack", "bucket_pack", "bucket_unpack")), launches

@@ -12,9 +12,13 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 PORT_MODULES = [
     "repro_torch",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint",
     "repro_torch.convert",
     "repro_torch.configs",
     "repro_torch.configs.shapes",
+    "repro_torch.core.availability",
+    "repro_torch.core.failure_model",
     "repro_torch.core.nonuniform",
     "repro_torch.core.ntp_train",
     "repro_torch.core.overlap",
@@ -54,8 +58,13 @@ PORT_MODULES = [
     "repro_torch.reshard.units",
     "repro_torch.runtime",
     "repro_torch.runtime.events",
+    "repro_torch.runtime.orchestrator",
     "repro_torch.runtime.session",
     "repro_torch.serve",
+    "repro_torch.telemetry",
+    "repro_torch.telemetry.export",
+    "repro_torch.telemetry.recorder",
+    "repro_torch.telemetry.sinks",
     "repro_torch.tree",
 ]
 
