@@ -14,6 +14,7 @@ Phases (any failure exits non-zero):
    against its plain PyTorch version on the card, in f32 and bf16, at the
    serving paths' shapes (qwen2-7b's and mamba2-780m's norm rows, KV-head
    and SSD-head reshard rows), the training path's gradient-bucket shapes
+   (one layer's leaves at pp=1, one stage's two layers' leaves at pp=2)
    and largest reshard (one layer's MLP bucket), and, for ssd_scan (f32,
    5e-4), the reference's test shapes, a ragged shape (hp 6, ds 12), d_state
    256 at chunk 256 and the Mamba-2 prefill shape (4 x 48 heads, S=2048,
@@ -94,13 +95,36 @@ Phases (any failure exits non-zero):
    peak memory; then the schedule again with verify off, timed, with the
    host syncs outside the transitions (at most one per `drain_every`
    steps, the metrics drain);
-8. run the training launcher at its defaults on the card: `--ntp --steps 8
-   --fail-at 3 --overlap on`, then phase 7's trace with `--power-policy
-   ntp_pw --ckpt ... --ckpt-every 4 --telemetry ... --steps 12`: the
-   checkpoint loads and every telemetry event is on the schema;
-9. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training and trace paths, each counted from zero just
-   before it), then the device line.
+8. pipeline parallelism at pp=2 (stages (0, 2, 4)) on the same model,
+   mesh, batch and SGD: (a) two sessions, overlap off with microbatches 1
+   and overlap on with microbatches 2, in lockstep with the dense
+   reference on the card through the stage-addressed chain of
+   tests/dist/session_pp_lifecycle.py (14 steps: stage 1 fails at 2, stage
+   0 at 5, stage 1 repaired at 8, stage 0 at 11): every loss within 1e-4
+   of the reference and 1e-5 between the sessions, both replicas'
+   canonical params within 1e-4 at every transition and the end, every
+   ledger stage-local and equal to `expected_transfer` of the hit stage,
+   stage_tp / local batches / stage_rel_iter_time / rel_iter_time and
+   `step.collectives` equal to the chain on the CPU, reshard_pack,
+   bucket_pack and bucket_unpack launched; printed: step ms and
+   reshard_pack launches a step by regime, each transition's ms and bytes
+   beside phase 6's, then with the reference freed the step ms of overlap
+   off/on x microbatches 1/2 at each plan in turns, `measure_sync` at each
+   plan, and a profile of one stage-1-degraded step; (b) the pp=2 trace
+   (`TRACE_PP`, pinned by tests/test_torch_staged.py: 2 replicas x 2
+   stages x TP 4, a failure and its repair, a link degrade and its repair,
+   an SDC suspicion that rolls back to the step-0 snapshot, a straggler)
+   under NTP-PW with quarantine, overlap on, microbatches 2, through
+   `TraceRunner(verify=True, atol=1e-4)`, with phase 7's checks and
+   printout (no checkpoint round trip: phase 7 holds it);
+9. run the training launcher at its defaults on the card: `--ntp --steps 8
+   --fail-at 3 --overlap on`, then `--pp 2 --microbatches 2 --fail-stage
+   1`, then phase 7's trace with `--power-policy ntp_pw --ckpt ...
+   --ckpt-every 4 --telemetry ... --steps 12`: the checkpoint loads and
+   every telemetry event is on the schema;
+10. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace and pp=2 paths, each counted from
+   zero just before it), then the device line.
 """
 import contextlib
 import json
@@ -625,7 +649,8 @@ def bucket_host_cost(torch, dev, g, before=None):
 def bucket_rows(torch, dev, g, rows):
     """bucket_pack / bucket_unpack at the training path's bucket shapes:
     rows = D·n1·buf of the stacked emulated ranks (2 replicas x TP 4 at
-    qwen2-7b widths), one launch per bucket; bit-exact against the plain
+    qwen2-7b widths), one launch per bucket — one layer's leaves at pp=1,
+    one stage's two layers' leaves at pp=2; bit-exact against the plain
     versions, timed in turns with `torch.cat` and `split` + `.contiguous()`
     (call ms and device ms)."""
     from repro_torch.kernels import ref
@@ -635,7 +660,11 @@ def bucket_rows(torch, dev, g, rows):
     attn = (3584 * 896, 3584 * 128, 3584 * 128, 896 * 3584)   # wq wk wv wo
     mlp = (3584 * 128, 128 * 3584)                             # A B
     cases = [("MLP TP (3,4)", 400, mlp), ("MLP healthy", 296, mlp),
-             ("attn healthy", 8, attn), ("attn TP (3,4)", 16, attn)]
+             ("attn healthy", 8, attn), ("attn TP (3,4)", 16, attn),
+             ("pp2 stage MLP TP (3,4)", 400, mlp * 2),
+             ("pp2 stage MLP healthy", 296, mlp * 2),
+             ("pp2 stage attn healthy", 8, attn * 2),
+             ("pp2 stage attn TP (3,4)", 16, attn * 2)]
     for label, n_rows, widths in cases:
         for dt in (torch.float32, torch.bfloat16):
             dn = str(dt).split(".")[1]
@@ -674,6 +703,8 @@ def bucket_rows(torch, dev, g, rows):
                              plain, bd)
                 if label == "MLP TP (3,4)" and dt == torch.float32:
                     rows[name] = table_row(0.0, t, plain, bd)
+                if label == "pp2 stage MLP TP (3,4)" and dt == torch.float32:
+                    rows[f"{name} pp2"] = table_row(0.0, t, plain, bd)
                 torch.cuda.empty_cache()
             del leaves, flat
             torch.cuda.empty_cache()
@@ -1200,13 +1231,25 @@ def mamba_launcher_phase():
     check(out["tokens"].shape == (4, 32), "launcher: wrong token shape")
 
 
+def qwen_widths():
+    """The NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups of
+    7 query heads, head_dim 128, d_ff 18944, vocab 152064), depth cut to 4
+    layers: the model of phases 6-8."""
+    from repro_torch.core import ntp_train as nt
+
+    return nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
+                             head_dim=128, d_ff=18944, unit_rows=128,
+                             vocab=152064, n_layers=4)
+
+
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
 TRAIN_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
 MAMBA_KERNELS = ("rmsnorm", "reshard_pack", "ssd_scan")
 
 
 def train_phase(torch, dev):
-    """Phase 6. Returns the launch counts of the fail→repair training run."""
+    """Phase 6. Returns the launch counts of the fail→repair training run
+    and its transitions as (event, session, ms, bytes moved)."""
     import numpy as np
 
     from repro_torch import tree as tr
@@ -1217,9 +1260,7 @@ def train_phase(torch, dev):
     from repro_torch.reshard.transition import expected_transfer
     from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
 
-    cfg = nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
-                            head_dim=128, d_ff=18944, unit_rows=128,
-                            vocab=152064, n_layers=4)
+    cfg = qwen_widths()
     lr, lb, seq, steps = 1e-2, 4, 256, 9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1253,6 +1294,7 @@ def train_phase(torch, dev):
         end.synchronize()
         return out, start.elapsed_time(end)
 
+    transitions = []
     mode.reset_launches()
     for i in range(steps):
         if i in events:
@@ -1260,6 +1302,8 @@ def train_phase(torch, dev):
                 old = s.plan
                 new, ms = timed(lambda: s.apply(events[i]))
                 st = s.last_transition
+                transitions.append((type(events[i]).__name__, name, ms,
+                                    st.bytes_moved))
                 want = sum(int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f)
                            for f, m in expected_transfer(cfg, old, new).items())
                 print(f"  step {i}: {type(events[i]).__name__} -> plan "
@@ -1393,7 +1437,7 @@ def train_phase(torch, dev):
               flush=True)
     del s, sessions
     torch.cuda.empty_cache()
-    return launches
+    return launches, transitions
 
 
 @contextlib.contextmanager
@@ -1465,13 +1509,20 @@ TRACE = dict(n_gpus=8, domain_size=4, days=16 / 1.0 / 24.0,
              rate_multiplier=200.0, seed=136, straggler_rate_mult=2.0,
              link_rate_mult=2.0, sdc_rate_mult=1.0)
 TRACE_STEPS, TRACE_STEPS_PER_HOUR, TRACE_CKPT_STEP = 16, 1.0, 8
+# the pp=2 trace phase 8 replays (tests/test_torch_staged.py pins it): 2
+# replicas x 2 stages x TP 4; failure (stage 0) -> link degrade (stage 1)
+# -> link repair -> repair -> SDC suspect (rollback) -> clear -> straggler
+# (stage 1) -> clear, over 16 steps
+TRACE_PP = dict(n_gpus=16, domain_size=4, days=16 / 1.0 / 24.0,
+                rate_multiplier=100.0, seed=136, straggler_rate_mult=2.0,
+                link_rate_mult=2.0, sdc_rate_mult=1.0)
 TRACE_LAUNCHER = ["--trace", "200", "--trace-seed", "136", "--trace-mix",
                   "straggler=2,link=2,sdc=1", "--power-policy", "ntp_pw"]
 
 
-def _host_decisions(torch):
-    """Per-step plans, local batches and policy verdicts of the phase-7
-    schedule through the port on the CPU (a 2-layer model of the same
+def _host_decisions(torch, trace, pp, microbatches):
+    """Per-step plans, local batches and policy verdicts of a trace's
+    schedule through the port on the CPU (a small model of the same
     geometry: they are host-side, so they must equal the card's)."""
     from repro_torch.core import ntp_train as nt
     from repro_torch.core.failure_model import FailureTraceConfig
@@ -1484,13 +1535,14 @@ def _host_decisions(torch):
                             head_dim=16, d_ff=256, unit_rows=64, vocab=128,
                             n_layers=2)
     s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(1e-2),
-                          device="cpu", overlap=True,
+                          device="cpu", overlap=True, pp=pp,
+                          microbatches=microbatches,
                           generator=torch.Generator().manual_seed(0),
                           power_policy=power_policy("ntp_pw"))
     decisions = _record_decisions(s)
     runner = TraceRunner(s, schedule_from_trace(
-        FailureTraceConfig(**TRACE), steps=TRACE_STEPS,
-        steps_per_hour=TRACE_STEPS_PER_HOUR))
+        FailureTraceConfig(**trace), steps=TRACE_STEPS,
+        steps_per_hour=TRACE_STEPS_PER_HOUR, pp=pp))
     runner.run(lambda i: torch.zeros((8, 17), dtype=torch.int64),
                TRACE_STEPS)
     return [_host_fields(h) for h in runner.history], decisions
@@ -1499,7 +1551,8 @@ def _host_decisions(torch):
 def _host_fields(rec):
     return {k: rec.get(k) for k in ("replica_tp", "local_batches",
                                     "events_applied", "policy", "power_boost",
-                                    "rel_iter_time", "quarantined")}
+                                    "rel_iter_time", "quarantined",
+                                    "stage_tp", "stage_rel_iter_time")}
 
 
 def _record_decisions(session):
@@ -1515,22 +1568,63 @@ def _record_decisions(session):
     return out
 
 
+def _tp(plan):
+    """A plan's TPs as printed: per stage at pp>1, per replica at pp=1."""
+    return plan.stage_tp if getattr(plan, "pp", 1) > 1 else plan.replica_tp
+
+
 def _regime(session):
     if session.quarantined:
         return "quarantined"
-    if session.health.degraded is not None:
-        return f"repriced (straggler/link) at TP {session.plan.replica_tp}"
+    h = session.health
+    repriced = (any(st.degraded is not None for st in h.stages)
+                if session.pp > 1 else h.degraded is not None)
+    if repriced:
+        return f"repriced (straggler/link) at TP {_tp(session.plan)}"
     if not session.plan.healthy:
-        return f"degraded at TP {session.plan.replica_tp}"
+        return f"degraded at TP {_tp(session.plan)}"
     return "healthy"
 
 
-def trace_phase(torch, dev):
-    """Phase 7. Returns the launch counts of the trace-driven run."""
+def _site(ev):
+    return (f"stage {ev.stage} domain {ev.domain}" if ev.stage is not None
+            else f"domain {ev.domain}")
+
+
+def _expected_bytes(cfg, old, new):
+    """Bytes a transition must move: `expected_transfer`'s units off the
+    diagonal x their f32 bytes; at pp>1 summed over the stages whose plan
+    changed, each over its own layers."""
+    import numpy as np
+
+    from repro_torch.configs.shapes import stage_boundaries
+    from repro_torch.reshard.transition import expected_transfer
+
+    if getattr(old, "pp", 1) == 1:
+        return sum(int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f)
+                   for f, m in expected_transfer(cfg, old, new).items())
+    b = stage_boundaries(cfg.n_layers, old.pp)
+    return sum(
+        int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f) // cfg.n_layers
+        * (b[s + 1] - b[s])
+        for s in range(old.pp) if old.stages[s] != new.stages[s]
+        for f, m in expected_transfer(cfg, old.stages[s],
+                                      new.stages[s]).items())
+
+
+def _changed_stages(old, new):
+    return {s for s in range(old.pp) if old.stages[s] != new.stages[s]}
+
+
+def replay_trace(torch, dev, cfg, trace, *, pp=1, microbatches=1,
+                 ckpt_step=None):
+    """Replay ``trace``'s schedule against one overlap-on session under
+    NTP-PW with quarantine on, through `TraceRunner(verify=True,
+    atol=1e-4)` with the dense reference on the card, and check and print
+    it (phases 7 and 8). ``ckpt_step``: a canonical checkpoint round trip
+    after that step. Returns (launch counts, schedule, batches)."""
     import gc
     import shutil
-
-    import numpy as np
 
     from repro_torch import telemetry
     from repro_torch import tree as tr
@@ -1539,7 +1633,6 @@ def trace_phase(torch, dev):
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels import mode
     from repro_torch.optim import sgd
-    from repro_torch.reshard.transition import expected_transfer
     from repro_torch.runtime import (
         NTPSession, TraceRunner, event_kind, power_policy,
         schedule_from_trace,
@@ -1547,19 +1640,17 @@ def trace_phase(torch, dev):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
-                            head_dim=128, d_ff=18944, unit_rows=128,
-                            vocab=152064, n_layers=4)
     lb, seq = 4, 256
-    schedule = schedule_from_trace(FailureTraceConfig(**TRACE),
+    schedule = schedule_from_trace(FailureTraceConfig(**trace),
                                    steps=TRACE_STEPS,
-                                   steps_per_hour=TRACE_STEPS_PER_HOUR)
+                                   steps_per_hour=TRACE_STEPS_PER_HOUR, pp=pp)
     print("  schedule: " + "; ".join(
-        f"step {e.step} {event_kind(e.event)} domain {e.event.domain}"
+        f"step {e.step} {event_kind(e.event)} {_site(e.event)}"
         + (f" x{e.event.slowdown:.4f}" if hasattr(e.event, "slowdown")
            else f" bw {e.event.bw_frac:.4f}" if hasattr(e.event, "bw_frac")
            else "") for e in schedule), flush=True)
-    want_host, want_decisions = _host_decisions(torch)
+    want_host, want_decisions = _host_decisions(torch, trace, pp,
+                                                microbatches)
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
     batches = [torch.as_tensor(pipe._batch_np(i), device=dev)
                for i in range(TRACE_STEPS)]
@@ -1574,16 +1665,15 @@ def trace_phase(torch, dev):
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    def new_session():
-        canon = nt.init_canonical(
-            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-        return NTPSession.create(cfg, (2, 4), local_batch=lb,
-                                 optimizer=sgd(1e-2), params=canon,
-                                 overlap=True, device=dev,
-                                 power_policy=power_policy("ntp_pw"),
-                                 quarantine=True)
-
-    session = new_session()
+    canon = nt.init_canonical(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    session = NTPSession.create(cfg, (2, 4), local_batch=lb,
+                                optimizer=sgd(1e-2), params=canon,
+                                overlap=True, device=dev, pp=pp,
+                                microbatches=microbatches,
+                                power_policy=power_policy("ntp_pw"),
+                                quarantine=True)
+    del canon
     decisions = _record_decisions(session)
     real_step, real_apply = session.step, session.apply
     step_ms, applies = [], []
@@ -1610,40 +1700,53 @@ def trace_phase(torch, dev):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     snap_bytes = sum(t.numel() * t.element_size()
                      for t in tr.leaves(session._snapshot))
-    ckpt_dir = scratch_dir()
-    try:
-        mode.reset_launches()
-        with telemetry.recording(rec):
-            runner.run(lambda i: batches[i], TRACE_CKPT_STEP)
-            ckpt = checkpoint_round_trip(torch, session, cfg, dev, ckpt_dir,
-                                         new_plan=session.plan)
-            runner.run(lambda i: batches[i], TRACE_STEPS - TRACE_CKPT_STEP)
-        launches = mode.launches()
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = None
+    mode.reset_launches()
+    with telemetry.recording(rec):
+        if ckpt_step is None:
+            runner.run(lambda i: batches[i], TRACE_STEPS)
+        else:
+            ckpt_dir = scratch_dir()
+            try:
+                runner.run(lambda i: batches[i], ckpt_step)
+                ckpt = checkpoint_round_trip(torch, session, cfg, dev,
+                                             ckpt_dir, new_plan=session.plan)
+                runner.run(lambda i: batches[i], TRACE_STEPS - ckpt_step)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = mode.launches()
     for h in runner.history:
-        print(f"  step {h['step']:2d}: tp {h['replica_tp']} local batches "
-              f"{h['local_batches']} policy {h['policy']} boost "
-              f"{h['power_boost']:.2f} rel_iter {h['rel_iter_time']:.4f} "
-              f"loss {h['loss']:.6f} reference {h['ref_loss']:.6f} |diff| "
-              f"{abs(h['loss'] - h['ref_loss']):.2e}; "
+        print(f"  step {h['step']:2d}: tp {h['replica_tp']}"
+              + (f" stages {h['stage_tp']}" if pp > 1 else "")
+              + f" local batches {h['local_batches']} policy {h['policy']} "
+              f"boost {h['power_boost']:.2f} rel_iter "
+              f"{h['rel_iter_time']:.4f}"
+              + (" stage_rel (" + ", ".join(
+                  f"{r:.4f}" for r in h["stage_rel_iter_time"]) + ")"
+                 if pp > 1 else "")
+              + f" loss {h['loss']:.6f} reference {h['ref_loss']:.6f} "
+              f"|diff| {abs(h['loss'] - h['ref_loss']):.2e}; "
               f"{step_ms[h['step']][0]}, {step_ms[h['step']][1]:.1f} ms",
               flush=True)
+        check(pp == 1 or h["rel_iter_time"] == max(h["stage_rel_iter_time"]),
+              f"step {h['step']}: rel_iter_time is not the slowest stage's")
     # every transition's ledger against expected_transfer, and the span
     spans = rec.spans("session.transition")
     check(len(spans) == len(applies), "a transition span is missing")
     for (ev, old, new, ms, st, rolled), sp in zip(applies, spans):
-        line = (f"  apply {event_kind(ev)} domain {ev.domain}: plan "
-                f"{old.replica_tp} -> {new.replica_tp} in {ms:.3f} ms")
+        line = (f"  apply {event_kind(ev)} {_site(ev)}: plan {_tp(old)} -> "
+                f"{_tp(new)} in {ms:.3f} ms")
         if st is not None:
-            want = sum(int(m.sum() - np.trace(m)) * _unit_bytes(cfg, f)
-                       for f, m in expected_transfer(cfg, old, new).items())
+            want = _expected_bytes(cfg, old, new)
             line += (f", {st.bytes_moved} B in {st.messages} messages "
                      f"(expected {want} B)")
             check(st.bytes_moved == want,
                   f"transition ledger {st.bytes_moved} != {want}")
             check(all(sp["attrs"][k] == v for k, v in st.as_dict().items()),
                   f"span {sp['attrs']} != ledger {st.as_dict()}")
+            check(pp == 1 or {k[0] for k in st.per_pair}
+                  == _changed_stages(old, new),
+                  f"transition not stage-local: {st.per_pair}")
         if rolled:
             line += " (rolled back to the step-0 snapshot)"
         print(line, flush=True)
@@ -1674,26 +1777,53 @@ def trace_phase(torch, dev):
         print(f"  {name}: mean {statistics.mean(v):.4f} over {len(v)} steps: "
               + ", ".join(f"{x:.3f}" for x in v))
     summ = runner.summary()
-    summ["final_plan"] = summ["final_plan"].replica_tp
+    summ["final_plan"] = _tp(summ["final_plan"])
     print(f"  TraceRunner.summary(): {summ}")
     snap_ms = timed(session.snapshot)[1]
     roll_ms = timed(session.rollback)[1]
     print(f"  snapshot {snap_ms:.1f} ms, rollback {roll_ms:.1f} ms, "
-          f"snapshot {snap_bytes} B in host memory; checkpoint {ckpt}")
+          f"snapshot {snap_bytes} B in host memory"
+          + (f"; checkpoint {ckpt}" if ckpt is not None else ""))
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB", flush=True)
     del runner, session, rec, decisions, real_step, real_apply, step, apply
     gc.collect()          # the step/apply wrappers close over the session
     torch.cuda.empty_cache()
+    return launches, schedule, batches
+
+
+def trace_phase(torch, dev):
+    """Phase 7. Returns the launch counts of the trace-driven run."""
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.runtime import NTPSession, TraceRunner, power_policy
+    from repro_torch.optim import sgd
+
+    cfg = qwen_widths()
+    launches, schedule, batches = replay_trace(
+        torch, dev, cfg, TRACE, ckpt_step=TRACE_CKPT_STEP)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
 
     # the same schedule again, verify off, timed: host syncs outside the
     # transitions come from the drain (one per drain_every steps)
-    session = new_session()
+    canon = nt.init_canonical(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    session = NTPSession.create(cfg, (2, 4), local_batch=4,
+                                optimizer=sgd(1e-2), params=canon,
+                                overlap=True, device=dev,
+                                power_policy=power_policy("ntp_pw"),
+                                quarantine=True)
+    del canon
     runner = TraceRunner(session, schedule, drain_every=16)
     syncs = {}
-    (_, ms) = timed(lambda: syncs.update(syncs_outside_apply(
+    torch.cuda.synchronize()
+    start.record()
+    syncs.update(syncs_outside_apply(
         torch, session, lambda: runner.run(lambda i: batches[i],
-                                           TRACE_STEPS))))
+                                           TRACE_STEPS)))
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
     print(f"  timing run (verify off, drain_every 16): {ms:.1f} ms for "
           f"{TRACE_STEPS} steps and {len(schedule)} events; host syncs "
           f"{syncs['outside']} outside transitions ({syncs['where']}), "
@@ -1705,9 +1835,290 @@ def trace_phase(torch, dev):
           f"{sync['sync_s'] * 1e3:.3f} ms (CUDA events), "
           f"{sync['collectives']} collectives, overlap {sync['overlap']}",
           flush=True)
-    del runner, session
+    del runner, session, batches
     torch.cuda.empty_cache()
     return launches
+
+
+PP2_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
+PP2_STEPS = 14      # the chain of tests/dist/session_pp_lifecycle.py
+# the lockstep chain's regimes by step
+PP2_REGIMES = (("healthy", range(0, 2)), ("stage 1 degraded", range(2, 5)),
+               ("both stages degraded", range(5, 8)),
+               ("stage 0 degraded (stage 1 repaired)", range(8, 11)),
+               ("repaired", range(11, 14)))
+
+
+def _pp2_chain():
+    """tests/dist/session_pp_lifecycle.py's stage-addressed chain: stage 1
+    then stage 0 of replica 0 lose a GPU, then each is repaired."""
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    return {2: FailureEvent(step=2, stage=1, domain=0),
+            5: FailureEvent(step=5, stage=0, domain=0),
+            8: RecoveryEvent(step=8, stage=1, domain=0),
+            11: RecoveryEvent(step=11, stage=0, domain=0)}
+
+
+def _pp2_fields(session, metrics):
+    return {"stage_tp": session.plan.stage_tp,
+            "local_batches": tuple(session.local_batches),
+            "stage_rel_iter_time": metrics["stage_rel_iter_time"],
+            "rel_iter_time": metrics["rel_iter_time"],
+            "collectives": session.step_fn.collectives}
+
+
+PP2_SESSIONS = {"off": dict(overlap=False, microbatches=1),
+                "on": dict(overlap=True, microbatches=2)}
+
+
+def _pp2_host_chain(torch):
+    """`_pp2_fields` of every step of the chain through the port on the CPU
+    (a small model of the same geometry), for both lockstep sessions."""
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=7,
+                            head_dim=16, d_ff=256, unit_rows=64, vocab=128,
+                            n_layers=4)
+    chain, out = _pp2_chain(), {}
+    for name, kw in PP2_SESSIONS.items():
+        s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(1e-2),
+                              device="cpu", pp=2,
+                              generator=torch.Generator().manual_seed(0),
+                              **kw)
+        out[name] = []
+        for i in range(PP2_STEPS):
+            if i in chain:
+                s.apply(chain[i])
+            m = s.step(torch.zeros((8, 17), dtype=torch.int64))
+            out[name].append(_pp2_fields(s, m))
+    return out
+
+
+def pp2_phase(torch, dev, pp1_transitions):
+    """Phase 8. Returns the launch counts of the pp=2 runs (the lockstep
+    chain and the trace)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.core.overlap import chunk_ranges, sync_collectives
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
+
+    cfg = qwen_widths()
+    lr, lb, seq = 1e-2, 4, 256
+    chain = _pp2_chain()
+    want = _pp2_host_chain(torch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    sessions = {name: NTPSession.create(cfg, (2, 4), local_batch=lb,
+                                        optimizer=sgd(lr), params=ref,
+                                        device=dev, pp=2, **kw)
+                for name, kw in PP2_SESSIONS.items()}
+    torch.cuda.synchronize()
+    check(all(s.stage_boundaries == (0, 2, 4) for s in sessions.values()),
+          "stage boundaries")
+    print(f"  (a) pp=2 (stages (0, 2, 4)) on 2 replicas x TP 4: sessions "
+          f"overlap off/microbatches 1 and overlap on/microbatches 2, and "
+          f"the dense reference on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
+    ref_loss = nt.make_reference_loss(cfg)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def canonical_errs():
+        errs = {}
+        for name, s in sessions.items():
+            for r in range(2):
+                got = s.canonical_params(r)
+                errs[(name, r)] = max(float((a - b).abs().max()) for a, b in
+                                      zip(tr.leaves(got), tr.leaves(ref)))
+                del got
+        return errs
+
+    step_ms = {n: [] for n in sessions}
+    packs = {n: [] for n in sessions}
+    applied = []
+    mode.reset_launches()
+    for i in range(PP2_STEPS):
+        if i in chain:
+            ev = chain[i]
+            for name, s in sessions.items():
+                old = s.plan
+                new, ms = timed(lambda: s.apply(ev))
+                st = s.last_transition
+                want_b = _expected_bytes(cfg, old, new)
+                stages = {k[0] for k in st.per_pair}
+                applied.append((i, name, ev, old, new, ms, st))
+                print(f"  step {i}: {type(ev).__name__} {_site(ev)} -> "
+                      f"stages {new.stage_tp} [{name}]: transition "
+                      f"{ms:.3f} ms, {st.bytes_moved} B moved "
+                      f"({st.bytes_moved / 2**20:.1f} MiB) in {st.messages} "
+                      f"messages, stages moved {sorted(stages)} (expected "
+                      f"{want_b} B, stage {ev.stage} only)", flush=True)
+                check(st.bytes_moved == want_b,
+                      f"transition ledger {st.bytes_moved} != {want_b}")
+                check(stages == {ev.stage},
+                      f"transition not stage-local: {st.per_pair}")
+            errs = canonical_errs()
+            print(f"  step {i}: canonical params vs the dense reference "
+                  "after the transition: " + ", ".join(
+                      f"{n} replica {r} {e:.2e}" for (n, r), e in
+                      errs.items()) + " (tol 1e-4)", flush=True)
+            check(max(errs.values()) < 1e-4,
+                  f"step {i}: canonical params diverged at the transition")
+        tokens = pipe._batch_np(i)
+        losses, fields = {}, {}
+        for name, s in sessions.items():
+            n0 = mode.launches().get("reshard_pack", 0)
+            m, ms = timed(lambda: s.step(tokens))
+            packs[name].append(mode.launches().get("reshard_pack", 0) - n0)
+            losses[name] = float(m["loss"])
+            step_ms[name].append(ms)
+            fields[name] = _pp2_fields(s, m)
+            check(fields[name] == want[name][i],
+                  f"step {i} [{name}]: host records {fields[name]} differ "
+                  f"from the CPU's {want[name][i]}")
+            host = sync_collectives(
+                cfg, s.plan, s.mode, bucketed=s.overlap,
+                chunks=chunk_ranges(cfg.n_layers, 2) if s.overlap else None)
+            check(s.step_fn.collectives == host,
+                  f"step {i} [{name}]: collectives {s.step_fn.collectives} "
+                  f"!= host count {host}")
+            check(m["rel_iter_time"] == max(m["stage_rel_iter_time"]),
+                  f"step {i}: rel_iter_time is not the slowest stage's")
+        lbs = sessions["off"].local_batches
+        mask = torch.tensor(np.concatenate(
+            [np.arange(lb) < lbs[d] for d in range(2)]), dtype=torch.float32,
+            device=dev)
+        leaves = tr.tree_map(lambda t: t.requires_grad_(True), ref)
+        rl = ref_loss(leaves, torch.as_tensor(tokens, device=dev), mask)
+        grads = torch.autograd.grad(rl, tr.leaves(leaves))
+        ref = tr.tree_map(lambda t: t.detach(), ref)
+        with torch.no_grad():
+            for p, gr in zip(tr.leaves(ref), grads):
+                p.sub_(lr * gr)
+        del grads, leaves
+        rl = float(rl.detach())
+        f = fields["off"]
+        print(f"  step {i}: stages {f['stage_tp']} local batches "
+              f"{f['local_batches']} stage_rel_iter_time "
+              f"{tuple(round(r, 4) for r in f['stage_rel_iter_time'])} "
+              f"rel_iter_time {f['rel_iter_time']:.4f}; loss off "
+              f"{losses['off']:.6f} on {losses['on']:.6f} reference "
+              f"{rl:.6f}; |off-ref| {abs(losses['off'] - rl):.2e} |on-ref| "
+              f"{abs(losses['on'] - rl):.2e} |on-off| "
+              f"{abs(losses['on'] - losses['off']):.2e}; ms off "
+              f"{step_ms['off'][-1]:.1f} on {step_ms['on'][-1]:.1f}; "
+              f"collectives off {fields['off']['collectives']} on "
+              f"{fields['on']['collectives']}; reshard_pack launches off "
+              f"{packs['off'][-1]} on {packs['on'][-1]}", flush=True)
+        check(np.isfinite([losses["on"], losses["off"], rl]).all(),
+              "non-finite loss")
+        check(abs(losses["on"] - rl) < 1e-4 and abs(losses["off"] - rl) < 1e-4,
+              f"step {i}: loss off the dense reference")
+        check(abs(losses["on"] - losses["off"]) < 1e-5,
+              f"step {i}: the two sessions disagree")
+    launches = mode.launches()
+    print(f"  kernels {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in PP2_KERNELS),
+          f"a kernel of the pp=2 path never launched: {launches}")
+    check([s.plan.healthy for s in sessions.values()] == [True, True],
+          "the chain did not end healthy")
+    errs = canonical_errs()
+    print("  canonical params vs the dense reference at the end: "
+          + ", ".join(f"{n} replica {r} {e:.2e}" for (n, r), e in
+                      errs.items()) + " (tol 1e-4)")
+    check(max(errs.values()) < 1e-4, "canonical params diverged")
+    for label, idx in PP2_REGIMES:
+        print(f"  {label}: step ms " + "; ".join(
+            f"overlap {n} (microbatches {PP2_SESSIONS[n]['microbatches']}) "
+            + ", ".join(f"{step_ms[n][i]:.1f}" for i in idx)
+            for n in sessions) + "; reshard_pack launches a step "
+            + "; ".join(f"{n} " + ", ".join(str(packs[n][i]) for i in idx)
+                        for n in sessions))
+    for i, name, ev, old, new, ms, st in applied:
+        print(f"  transition at step {i} [{name}]: {type(ev).__name__} "
+              f"{_site(ev)}, {ms:.3f} ms, {st.bytes_moved} B")
+    print("  beside phase 6's pp=1 transitions: " + "; ".join(
+        f"{kind} [{name}] {ms:.3f} ms, {b} B"
+        for kind, name, ms, b in pp1_transitions))
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+
+    # step ms of each (overlap, microbatches) at each plan, in turns, with
+    # the reference freed; measure_sync at each plan; a profile of one step
+    # with stage 1 degraded
+    del ref
+    torch.cuda.empty_cache()
+    tokens = pipe._batch_np(PP2_STEPS)
+    combos = [(o, m) for o in ("off", "on") for m in (1, 2)]
+    plans = (("healthy", ()),
+             ("stage 1 degraded", (FailureEvent(stage=1, domain=0),)),
+             ("both stages degraded", (FailureEvent(stage=0, domain=0),)),
+             ("repaired", (RecoveryEvent(stage=1, domain=0),
+                           RecoveryEvent(stage=0, domain=0))))
+    for label, evs in plans:
+        for ev in evs:
+            for s in sessions.values():
+                s.apply(ev)
+        steps = {}
+        for o, m in combos:
+            s = sessions[o]
+            fn = nt.make_ntp_train_step(
+                cfg, s.plan, (2, 4), mode=s.mode, local_batch=lb,
+                optimizer=sgd(lr), microbatches=m, overlap=o == "on")
+            steps[(o, m)] = (lambda fn=fn, s=s:
+                             fn(s.params, s.opt_state, tokens))
+            steps[(o, m)]()                              # warm-up
+        turns = {c: [] for c in combos}
+        for c in combos + combos[::-1]:
+            turns[c].append(timed(steps[c])[1])
+        sync = {n: s.measure_sync(tokens) for n, s in sessions.items()}
+        print(f"  {label} (stages {sessions['off'].plan.stage_tp}) step ms "
+              "in turns: " + "; ".join(
+                  f"overlap {o} microbatches {m} " + ", ".join(
+                      f"{t:.1f}" for t in turns[(o, m)])
+                  for o, m in combos)
+              + "; measure_sync " + "; ".join(
+                  f"overlap {n} {v['sync_s'] * 1e3:.3f} ms "
+                  f"({v['collectives']} collectives)"
+                  for n, v in sync.items()), flush=True)
+        if label == "stage 1 degraded":
+            for name, s in sessions.items():
+                profile_steps(torch, lambda: s.step(tokens),
+                              f"stage-1-degraded step (overlap {name})",
+                              ticks=1, top=8, also="pack_kernel")
+        del steps
+    del s, sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("  (b) the pp=2 trace under NTP-PW with quarantine, overlap on, "
+          "microbatches 2, TraceRunner(verify=True)", flush=True)
+    trace_launches, _, _ = replay_trace(torch, dev, cfg, TRACE_PP, pp=2,
+                                        microbatches=2)
+    return {k: launches.get(k, 0) + trace_launches.get(k, 0)
+            for k in set(launches) | set(trace_launches)}
 
 
 def scratch_dir():
@@ -1808,8 +2219,9 @@ def syncs_outside_apply(torch, session, fn):
 
 
 def launcher_phase():
-    """Phase 8: the training launcher at its defaults on the card, with an
-    injected failure, then replaying phase 7's trace with checkpoints and a
+    """Phase 9: the training launcher at its defaults on the card, with an
+    injected failure, then at pp=2 with microbatches and a stage-addressed
+    failure, then replaying phase 7's trace with checkpoints and a
     telemetry stream."""
     import shutil
 
@@ -1824,6 +2236,13 @@ def launcher_phase():
     check(len(out["losses"]) == 8 and np.isfinite(out["losses"]).all(),
           "launcher: non-finite losses")
     check(out["plan"].replica_tp == (3, 4), f"launcher plan {out['plan']}")
+    out = train_main(["--ntp", "--pp", "2", "--microbatches", "2",
+                      "--steps", "8", "--fail-at", "3", "--fail-stage", "1",
+                      "--overlap", "on", "--log-every", "1"])
+    check(len(out["losses"]) == 8 and np.isfinite(out["losses"]).all(),
+          "launcher --pp 2: non-finite losses")
+    check(out["plan"].stage_tp == ((4, 3), (4, 4)),
+          f"launcher --pp 2 plan {out['plan']}")
 
     tmp = scratch_dir()
     try:
@@ -1982,18 +2401,23 @@ def main() -> int:
 
     print("phase 6: train the NTP prototype at qwen2-7b widths through "
           "fail->repair", flush=True)
-    train_launches = train_phase(torch, dev)
+    train_launches, pp1_transitions = train_phase(torch, dev)
 
     print("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
           "failure, link, SDC quarantine and straggler", flush=True)
     trace_launches = trace_phase(torch, dev)
 
-    print("phase 8: the training launcher", flush=True)
+    print("phase 8: pp=2 NTP training at qwen2-7b widths: stage-local "
+          "failures and repairs, microbatches, and a trace under NTP-PW",
+          flush=True)
+    pp2_launches = pp2_phase(torch, dev, pp1_transitions)
+
+    print("phase 9: the training launcher", flush=True)
     launcher_phase()
 
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
-             (trace_launches, TRACE_KERNELS))
+             (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)

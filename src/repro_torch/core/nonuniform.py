@@ -10,6 +10,7 @@ ceil-max over every replica's layouts, so one program serves the whole
 nonuniform job. Pure numpy; plans and tables must stay bit-identical to the
 reference's. The port emulates the mesh on one device, so a packed buffer
 ``(D, n1*buf, *unit)`` is one tensor holding every (replica, rank) buffer.
+A DP×PP×TP job carries one `FailurePlan` per pipeline stage (`StagedPlan`).
 """
 from __future__ import annotations
 
@@ -64,10 +65,13 @@ class FailurePlan:
 
 @dataclass(frozen=True)
 class StagedPlan:
-    """Per-(replica, stage) health of a DP×PP×TP job. The port trains at
-    pp=1 only, so this is kept as far as the sync body needs it: a pp=1 job
-    is exactly ``StagedPlan((plan,))`` and degenerates to the plain
-    `FailurePlan` path everywhere."""
+    """Per-(replica, stage) health of one DP×PP×TP job.
+
+    ``stages[s]`` is the `FailurePlan` of pipeline stage ``s`` over the D
+    replicas: stage s of replica d runs at ``stages[s].replica_tp[d]``. Every
+    stage shares the mesh geometry (same n1, same D); only its failure state
+    differs. A pp=1 job is exactly ``StagedPlan((plan,))`` and degenerates to
+    the plain `FailurePlan` path everywhere."""
 
     stages: Tuple[FailurePlan, ...]
 
@@ -81,6 +85,52 @@ class StagedPlan:
     @property
     def pp(self) -> int:
         return len(self.stages)
+
+    @property
+    def n1(self) -> int:
+        return self.stages[0].n1
+
+    @property
+    def d(self) -> int:
+        return self.stages[0].d
+
+    @property
+    def healthy(self) -> bool:
+        return all(p.healthy for p in self.stages)
+
+    @property
+    def stage_tp(self) -> Tuple[Tuple[int, ...], ...]:
+        """stage_tp[d][s] — surviving TP of replica d's stage s."""
+        return tuple(
+            tuple(p.replica_tp[d] for p in self.stages) for d in range(self.d)
+        )
+
+    @property
+    def effective(self) -> FailurePlan:
+        """The slowest-stage reduction: replica d's usable rate is gated by
+        its worst stage (1F1B runs every microbatch through every stage), so
+        batch and slowdown math read a plain `FailurePlan` whose replica_tp
+        is the per-replica min over stages."""
+        return FailurePlan(
+            n1=self.n1,
+            replica_tp=tuple(
+                min(p.replica_tp[d] for p in self.stages)
+                for d in range(self.d)
+            ),
+        )
+
+    @property
+    def replica_tp(self) -> Tuple[int, ...]:
+        """EFFECTIVE per-replica TP (min over stages); per-stage degrees are
+        in `stage_tp`/`stages`. Lets consumers that only read the operating
+        point (TraceRunner history, goodput) take staged and plain plans
+        alike."""
+        return self.effective.replica_tp
+
+    def replace_stage(self, s: int, plan: FailurePlan) -> "StagedPlan":
+        if not 0 <= s < self.pp:
+            raise ValueError(f"stage {s} outside [0, pp={self.pp})")
+        return StagedPlan(self.stages[:s] + (plan,) + self.stages[s + 1:])
 
 
 def as_staged(plan) -> StagedPlan:

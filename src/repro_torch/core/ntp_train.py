@@ -1,5 +1,5 @@
 """NTP training of the prototype transformer (port of
-`repro/core/ntp_train.py` at pp=1, dense MLP).
+`repro/core/ntp_train.py`, dense MLP, pp >= 1).
 
 The reference computes transformer layers under nonuniform tensor
 parallelism inside shard_map over a (data=D, model=n1) mesh. The port
@@ -22,9 +22,18 @@ emulates that mesh on one device:
   reshard (`core.reshard`, through the `reshard_pack` kernel), or the
   overlapped bucketed sync of `core.overlap` (``overlap=True``).
 
+Nonuniform pipeline parallelism (a `StagedPlan`): the layers split into
+``pp`` contiguous stages (`configs.shapes.stage_boundaries`), each packed
+and synced under its own stage's `FailurePlan`, so a degraded stage packs
+wider buffers while a healthy one stays tight. As in the reference's
+emulated step, every rank plays each stage in turn: the layer loop is the
+pipeline, and ``microbatches`` chunks of the local batch walk it one after
+another, their token-loss totals summed before the one normalization. The
+1F1B bubble is analytic (`core.perf_model`), not measured.
+
 Also the DP-DROP baseline and a dense single-logical-copy reference
-(`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) and
-pp>1 (`_make_staged_train_step`) wait for later slices (ROADMAP Queue 1).
+(`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) waits
+for a later slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as tr
+from repro_torch.configs.shapes import layer_stages
 from repro_torch.core import nonuniform as nu
 from repro_torch.kernels import mode as kmode
 from repro_torch.optim.base import Optimizer, sgd
@@ -145,14 +155,16 @@ def _plans(cfg: NTPModelConfig, fplan: nu.FailurePlan):
     }
 
 
-def _require_pp1(fplan) -> nu.FailurePlan:
-    if isinstance(fplan, nu.StagedPlan):
-        if fplan.pp != 1:
-            raise NotImplementedError(
-                "pipeline-parallel NTP training (pp>1) is not ported yet: "
-                "ROADMAP Queue 1, 'pp>1 in the port'")
-        return fplan.stages[0]
-    return fplan
+def _layer_plans(cfg: NTPModelConfig, fplan):
+    """Per-layer {attn, mlp} weight plans. A plain `FailurePlan` (pp=1)
+    gives every layer the same (cached) plans; a `StagedPlan` gives each
+    layer its OWN stage's plans, so a layer's buffers are packed for exactly
+    the scale-up domain that computes it."""
+    staged = nu.as_staged(fplan)
+    if staged.pp == 1:
+        return [_plans(cfg, staged.stages[0])] * cfg.n_layers
+    per_stage = [_plans(cfg, p) for p in staged.stages]
+    return [per_stage[s] for s in layer_stages(cfg.n_layers, staged.pp)]
 
 
 def _slot_index(wp: nu.WeightPlan, d: int, device):
@@ -183,13 +195,14 @@ def _unpack_unit(w: torch.Tensor, wp: nu.WeightPlan,
 
 
 def pack_params(cfg: NTPModelConfig, canonical: Dict, fplan) -> Dict:
-    """Canonical -> packed unit buffers under ``fplan``. Every leaf of the
+    """Canonical -> packed unit buffers under ``fplan`` (a `FailurePlan`, or
+    a `StagedPlan` whose stages pack their own layers). Every leaf of the
     result is a fresh tensor (replicated leaves are copied)."""
-    plans = _plans(cfg, _require_pp1(fplan))
+    lplans = _layer_plans(cfg, fplan)
     with torch.no_grad():
         out = {k: canonical[k].clone() for k in ("embed", "head", "final_norm")}
         out["layers"] = []
-        for lp in canonical["layers"]:
+        for lp, plans in zip(canonical["layers"], lplans):
             layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
             for k in UNIT_KEYS:
                 wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
@@ -201,11 +214,11 @@ def pack_params(cfg: NTPModelConfig, canonical: Dict, fplan) -> Dict:
 def unpack_params(cfg: NTPModelConfig, packed: Dict, fplan,
                   replica: int = 0) -> Dict:
     """Packed -> canonical weights as held by ``replica``."""
-    plans = _plans(cfg, _require_pp1(fplan))
+    lplans = _layer_plans(cfg, fplan)
     with torch.no_grad():
         out = {k: packed[k].clone() for k in ("embed", "head", "final_norm")}
         out["layers"] = []
-        for lp in packed["layers"]:
+        for lp, plans in zip(packed["layers"], lplans):
             layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
             for k in UNIT_KEYS:
                 wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
@@ -214,16 +227,21 @@ def unpack_params(cfg: NTPModelConfig, packed: Dict, fplan,
     return out
 
 
-def repack_params(cfg: NTPModelConfig, packed: Dict, old: nu.FailurePlan,
-                  new: nu.FailurePlan) -> Dict:
-    """Re-express a packed tree under a new failure plan via the DIRECT
-    packed→packed transition (`reshard.transition`)."""
+def repack_params(cfg: NTPModelConfig, packed: Dict, old, new) -> Dict:
+    """Re-express a packed tree under a new plan via the DIRECT
+    packed→packed transition (`reshard.transition`); staged plans move each
+    stage's layers under that stage's own plans."""
     if new == old:
         return packed
+    if isinstance(old, nu.StagedPlan) or isinstance(new, nu.StagedPlan):
+        from repro_torch.reshard.transition import transition_staged_trees
+
+        (tree,), _ = transition_staged_trees(
+            cfg, [packed], nu.as_staged(old), nu.as_staged(new))
+        return tree
     from repro_torch.reshard.transition import transition_params
 
-    tree, _ = transition_params(cfg, packed, _require_pp1(old),
-                                _require_pp1(new))
+    tree, _ = transition_params(cfg, packed, old, new)
     return tree
 
 
@@ -298,6 +316,24 @@ def _forward_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
                         sample_mask)
 
 
+def _microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
+                       n1: int, microbatches: int):
+    """`_forward_totals` over ``microbatches`` chunks of the local batch
+    walked one after another (the stage-sequential 1F1B emulation):
+    microbatch j takes local rows [j*mb, (j+1)*mb) and the same columns of
+    the mask — ``j*mb + arange(mb) < lb[d]``. Totals and counts accumulate
+    before the one normalization, so the loss is the full-batch mean."""
+    mb = tokens.shape[1] // microbatches
+    total = count = None
+    for j in range(microbatches):
+        rows = slice(j * mb, (j + 1) * mb)
+        t, c = _forward_totals(cfg, params, tokens[:, rows],
+                               sample_mask[:, rows], n1)
+        total = t if total is None else total + t
+        count = c if count is None else count + c
+    return total, count
+
+
 def _global_loss(totals, counts):
     """psum('data') of totals and counts, then the global mean."""
     return totals.sum() / torch.clamp(counts.sum(), min=1.0)
@@ -361,7 +397,11 @@ def default_local_batches(fplan, mode: Union[Mode, str],
                           local_batch: int) -> np.ndarray:
     """Per-replica usable local batch implied by the mode alone: UNIFORM
     keeps the full batch, NTP shrinks ∝ surviving TP (paper §3.1), DP_DROP
-    zeroes every replica containing a failure."""
+    zeroes every replica containing a failure. A `StagedPlan` is reduced by
+    its slowest stage (`StagedPlan.effective`): 1F1B runs every microbatch
+    through every stage, so the most-degraded stage gates the replica."""
+    if isinstance(fplan, nu.StagedPlan):
+        fplan = fplan.effective
     mode = Mode.coerce(mode)
     if mode is Mode.NTP:
         return fplan.local_batch_fraction(local_batch)
@@ -370,6 +410,20 @@ def default_local_batches(fplan, mode: Union[Mode, str],
             local_batch if t == fplan.n1 else 0 for t in fplan.replica_tp
         ])
     return np.array([local_batch] * fplan.d)
+
+
+def validate_microbatches(microbatches: int, local_batch: int) -> None:
+    """The staged builders' check: 1 <= microbatches <= local_batch, and
+    microbatches divides local_batch."""
+    if not 1 <= microbatches <= local_batch:
+        raise ValueError(
+            f"microbatches={microbatches} outside [1, local_batch={local_batch}]"
+        )
+    if local_batch % microbatches:
+        raise ValueError(
+            f"local_batch={local_batch} not divisible by "
+            f"microbatches={microbatches}"
+        )
 
 
 def _split_batch(batch, d_axis: int, device):
@@ -430,28 +484,69 @@ def make_ntp_train_step(
     donates them. ``mesh`` is the emulated (data, model) shape; it must
     match the plan when given.
 
+    ``fplan`` may be a `StagedPlan` (nonuniform PP): each layer's gradients
+    sync under its OWN stage's plan, and the forward runs stage-sequentially
+    over ``microbatches`` chunks (`_make_staged_train_step`). A pp=1
+    `StagedPlan` with ``microbatches=1`` takes the plain-plan path, so its
+    step is the unstaged one.
+
     ``overlap=True`` switches to the overlapped, bucketed gradient sync
     (`core.overlap.make_overlapped_train_step`): the backward is layer-
     chunked and each chunk's bucket sync is issued while the previous
     chunk's backward runs. ``local_batches`` overrides the per-replica
     usable samples (bounds-checked); default is the mode's own rule."""
-    fplan = _require_pp1(fplan)
+    if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
+        fplan = fplan.stages[0]
     if mesh is not None and tuple(mesh) != (fplan.d, fplan.n1):
         raise ValueError(f"plan {fplan} does not fit mesh {tuple(mesh)}")
-    if microbatches != 1:
-        raise NotImplementedError(
-            "microbatched (1F1B) steps belong to pp>1, not ported yet: "
-            "ROADMAP Queue 1, 'pp>1 in the port'")
+    staged = isinstance(fplan, nu.StagedPlan) or microbatches > 1
     if overlap:
         from repro_torch.core import overlap as ov
 
         return ov.make_overlapped_train_step(
-            cfg, fplan, mode=mode, local_batch=local_batch,
-            optimizer=optimizer, local_batches=local_batches)
-    mode = Mode.coerce(mode)
-    optimizer = optimizer or sgd(1e-2)
-    d_axis, n1 = fplan.d, fplan.n1
-    lb = _validated_local_batches(local_batches, fplan, mode, local_batch,
+            cfg, nu.as_staged(fplan) if staged else fplan, mode=mode,
+            local_batch=local_batch, optimizer=optimizer,
+            local_batches=local_batches, microbatches=microbatches)
+    if staged:
+        return _make_staged_train_step(
+            cfg, nu.as_staged(fplan), mode=mode, local_batch=local_batch,
+            optimizer=optimizer, local_batches=local_batches,
+            microbatches=microbatches)
+    return _build_step(cfg, fplan, Mode.coerce(mode), local_batch,
+                       optimizer or sgd(1e-2), local_batches, 1)
+
+
+def _make_staged_train_step(
+    cfg: NTPModelConfig,
+    staged: nu.StagedPlan,
+    *,
+    mode: Union[Mode, str] = Mode.NTP,
+    local_batch: int = 4,
+    optimizer: Optional[Optimizer] = None,
+    local_batches=None,
+    microbatches: int = 1,
+):
+    """Stage-aware twin of the plain step: the model is partitioned into
+    ``staged.pp`` contiguous layer groups, each packed and synced under its
+    own stage `FailurePlan`. The forward is microbatched stage-sequential —
+    every microbatch walks the stages in order (on this emulation every
+    rank plays each stage in turn); the 1F1B bubble ((pp-1)/m) is accounted
+    analytically by `core.perf_model`, not by the clock. Gradient sync is
+    STAGE-LOCAL: a failure in stage s moves no bytes for any other stage,
+    and a healthy stage takes the plain sum while another is degraded. The
+    local batches follow the slowest stage (`StagedPlan.effective`)."""
+    validate_microbatches(microbatches, local_batch)
+    return _build_step(cfg, staged, Mode.coerce(mode), local_batch,
+                       optimizer or sgd(1e-2), local_batches, microbatches)
+
+
+def _build_step(cfg, plan, mode: Mode, local_batch: int,
+                optimizer: Optimizer, local_batches, microbatches: int):
+    """The sequential step on a `FailurePlan` or `StagedPlan`: one autograd
+    graph of the global loss (over ``microbatches`` chunks), then the
+    shared sync body of `core.overlap.make_sync_grads`."""
+    d_axis, n1 = plan.d, plan.n1
+    lb = _validated_local_batches(local_batches, plan, mode, local_batch,
                                   d_axis)
     sample_mask = _sample_masks(lb)
 
@@ -462,13 +557,14 @@ def make_ntp_train_step(
         tokens = _split_batch(batch, d_axis, dev)
         mask = sample_mask(tokens.shape[1], dev)
         leaves = _grad_leaves(params)
-        loss = _global_loss(*_forward_totals(cfg, leaves, tokens, mask, n1))
+        loss = _global_loss(*_microbatch_totals(cfg, leaves, tokens, mask,
+                                                n1, microbatches))
         grads = torch.autograd.grad(loss, tr.leaves(leaves))
         return loss.detach(), _unflatten_like(leaves, grads)
 
     from repro_torch.core import overlap as ov
 
-    sync_grads = ov.make_sync_grads(cfg, fplan, mode=mode)
+    sync_grads = ov.make_sync_grads(cfg, plan, mode=mode)
 
     def step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch)

@@ -1,23 +1,27 @@
 """Overlapped, bucketed gradient synchronization (port of
-`repro/core/overlap.py` at pp=1).
+`repro/core/overlap.py`, pp >= 1).
 
-* `make_sync_grads` is the one sync body of the step builders. With
-  ``bucketed=False`` it is the per-leaf reshard → psum('data') → reshard
-  route; with ``bucketed=True`` every unit leaf sharing a WeightPlan is fused
-  into one flat ``(rows, ΣE)`` buffer by the hand-written `bucket_pack`
-  kernel before the sync and split by `bucket_unpack` after it. The rows are
-  every emulated (replica, rank, slot) buffer row, so one launch packs a
-  whole bucket. The fused buffer reshards under the per-leaf Algorithm-1
-  tables unchanged (they index unit rows only), so bucketed and sequential
-  syncs agree exactly.
+* `make_sync_grads` is the one sync body of the step builders: stage-local
+  NTP sync — each layer's unit grads reshard → psum('data') → reshard under
+  its OWN stage's plan; a healthy stage takes the plain sum over replicas
+  even while another stage is degraded, and no sync mixes stages. With
+  ``bucketed=False`` it is the per-leaf route; with ``bucketed=True`` every
+  unit leaf sharing a (stage, WeightPlan) is fused into one flat
+  ``(rows, ΣE)`` buffer by the hand-written `bucket_pack` kernel before the
+  sync and split by `bucket_unpack` after it. The rows are every emulated
+  (replica, rank, slot) buffer row, so one launch packs a whole bucket. The
+  fused buffer reshards under the per-leaf Algorithm-1 tables unchanged
+  (they index unit rows only), so bucketed and sequential syncs agree
+  exactly.
 
 * `make_overlapped_train_step` chunks the backward on the
-  `stage_boundaries` ladder (at most `DEFAULT_CHUNKS` chunks): each chunk
-  runs forward on a detached, grad-requiring input, and the backward runs
-  chunk by chunk with `torch.autograd.grad`. Each chunk's bucket sync is
-  ISSUED (pack + pre-sync reshard) on a second CUDA stream as soon as its
-  grads exist and COMPLETED (sum over replicas + post-sync reshard +
-  unpack) after the next chunk's backward has been issued — the reference's
+  `stage_boundaries` ladder (the stages at pp>1, so a bucket never
+  straddles two; at most `DEFAULT_CHUNKS` chunks at pp=1): each chunk runs
+  forward on a detached, grad-requiring input, and the backward runs chunk
+  by chunk with `torch.autograd.grad`. Each chunk's bucket sync is ISSUED
+  (pack + pre-sync reshard) on a second CUDA stream as soon as its grads
+  exist and COMPLETED (sum over replicas + post-sync reshard + unpack)
+  after the next chunk's backward has been issued — the reference's
   issue-L / complete-L+1 order, so the sync's kernels can run beside the
   backward's. Cross-stream use is made safe with `wait_stream` (the side
   stream waits for the grads it reads; the main stream waits for the synced
@@ -129,13 +133,9 @@ def sync_collectives(cfg, staged, mode, *, bucketed: bool,
                for l in range(cfg.n_layers))
 
 
-def _require_pp1(staged) -> nu.StagedPlan:
-    staged = nu.as_staged(staged)
-    if staged.pp != 1:
-        raise NotImplementedError(
-            "pipeline-parallel NTP training (pp>1) is not ported yet: "
-            "ROADMAP Queue 1, 'pp>1 in the port'")
-    return staged
+def _layer_idx(path) -> int:
+    """The layer index of a ``("layers", i, key)`` grads-tree path."""
+    return path[1]
 
 
 def _bucket_syncers(staged: nu.StagedPlan, stage_plans, mode):
@@ -178,19 +178,20 @@ def _bucket_syncers(staged: nu.StagedPlan, stage_plans, mode):
 
 def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False):
     """The gradient-sync body shared by the step builders: each layer's unit
-    grads reshard → psum('data') → reshard under the plan; a healthy plan
-    (or a non-NTP mode) takes the plain sum over replicas. Replicated leaves
-    pass through: the one-graph backward already summed them.
+    grads reshard → psum('data') → reshard under its own stage's plan; a
+    healthy stage (or a non-NTP mode) takes the plain sum over replicas.
+    Replicated leaves pass through: the one-graph backward already summed
+    them.
 
     ``bucketed=False`` is the sequential per-leaf route; ``bucketed=True``
-    fuses each plan-kind group into one flat payload via the bucket kernels.
-    The returned callable carries ``.collectives`` (static launch count) and
-    ``.bucketed``."""
-    staged = _require_pp1(staged)
+    fuses each (stage, plan-kind) group into one flat payload via the bucket
+    kernels. The returned callable carries ``.collectives`` (static launch
+    count) and ``.bucketed``."""
+    staged = nu.as_staged(staged)
     mode = nt.Mode.coerce(mode)
-    plan = staged.stages[0]
-    stage_plans = [nt._plans(cfg, plan)]
-    degraded = mode is nt.Mode.NTP and not plan.healthy
+    stage_of = layer_stages(cfg.n_layers, staged.pp)
+    stage_plans = [nt._plans(cfg, p) for p in staged.stages]
+    degraded = [mode is nt.Mode.NTP and not p.healthy for p in staged.stages]
 
     if not bucketed:
         @torch.no_grad()
@@ -199,9 +200,10 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False):
                 key = tr.leaf_key(path)
                 if key not in nt.UNIT_KEYS:
                     return g
-                if not degraded:
+                s = stage_of[_layer_idx(path)]
+                if not degraded[s]:
                     return rs.uniform_sync_gradient(g)
-                wp = stage_plans[0]["attn" if key in _ATTN_KEYS else "mlp"]
+                wp = stage_plans[s]["attn" if key in _ATTN_KEYS else "mlp"]
                 g4 = g.reshape(g.shape[0], -1, wp.buf,
                                g[0, 0].numel())
                 return rs.ntp_sync_gradient(g4, wp).reshape(g.shape)
@@ -274,6 +276,7 @@ def make_overlapped_train_step(
     local_batch: int = 4,
     optimizer: Optional[Optimizer] = None,
     local_batches=None,
+    microbatches: int = 1,
 ):
     """Overlapped twin of `ntp_train.make_ntp_train_step`: same contract
     (``step(params, opt_state, batch) -> (params, opt_state, metrics)``),
@@ -281,24 +284,32 @@ def make_overlapped_train_step(
     f32 sums — but the backward is layer-chunked with each chunk's bucket
     sync issued while the next (earlier) chunk's backward runs.
 
+    ``fplan`` is a `FailurePlan` or a `StagedPlan` (each chunk is then one
+    stage and syncs under that stage's plan). ``microbatches`` is validated
+    exactly as the staged builder's, but the forward runs the full local
+    batch in ONE chunked pass, as the reference's overlapped step does: the
+    sample mask does not depend on the microbatching, so the loss equals
+    the microbatched one up to the order of f32 sums.
+
     The returned step carries probes: ``.overlap`` (True), ``.chunks``,
     ``.collectives`` (static unit-bucket launch count), ``.grads_fn``
     (loss + synced grads) and ``.sync_fn`` / ``.sync_off_fn`` (standalone
     bucketed / sequential sync of a grads tree)."""
-    staged = _require_pp1(fplan)
-    plan = staged.stages[0]
+    staged = nu.as_staged(fplan)
     mode = nt.Mode.coerce(mode)
     optimizer = optimizer or sgd(1e-2)
-    d_axis, n1 = plan.d, plan.n1
-    stage_plans = [nt._plans(cfg, plan)]
-    lb = nt._validated_local_batches(local_batches, plan, mode, local_batch,
-                                     d_axis)
+    d_axis, n1 = staged.d, staged.n1
+    nt.validate_microbatches(microbatches, local_batch)
+    stage_of = layer_stages(cfg.n_layers, staged.pp)
+    stage_plans = [nt._plans(cfg, p) for p in staged.stages]
+    lb = nt._validated_local_batches(local_batches, staged.effective, mode,
+                                     local_batch, d_axis)
     sample_mask = nt._sample_masks(lb)
 
-    chunks = chunk_ranges(cfg.n_layers, 1)
+    chunks = chunk_ranges(cfg.n_layers, staged.pp)
     per_chunk_buckets = [
-        tuple(Bucket(0, kind, tuple((l, k) for l in range(lo, hi)
-                                    for k in keys))
+        tuple(Bucket(stage_of[lo], kind,
+                     tuple((l, k) for l in range(lo, hi) for k in keys))
               for kind, keys in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS)))
         for lo, hi in chunks
     ]

@@ -13,6 +13,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
       --steps 4 --fail-at 2 --seq-len 16
 
+  # two pipeline stages, 2 microbatches: the failure degrades stage 1 only
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
+      --pp 2 --microbatches 2 --steps 4 --fail-at 2 --fail-stage 1 \\
+      --seq-len 16 --batch 2
+
   # replay a mixed failure trace (fail -> boost -> repair, stragglers,
   # degraded links, SDC quarantine and rollback) under NTP-PW, with
   # canonical checkpoints and a telemetry stream
@@ -22,9 +27,10 @@ Examples:
       --ckpt /tmp/ckpt.npz --ckpt-every 4 --telemetry /tmp/run.jsonl
 
 The (data, model) mesh is emulated on one device: ``--devices N`` sets the
-emulated ranks, as a (2, N/2) mesh. The uniform arch-stack launcher
-(``--arch``), pipeline stages and the global allocator wait for their
-slices (ROADMAP).
+emulated ranks, as a (2, N/2) mesh; ``--pp`` splits the layers into
+pipeline stages, every rank playing each stage in turn. The uniform
+arch-stack launcher (``--arch``) and the global allocator
+(``--allocator greedy``) wait for their slices (ROADMAP).
 """
 import argparse
 import time
@@ -35,12 +41,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--ntp", action="store_true",
                     help="train the NTP prototype via the runtime session "
                          "(the only launcher path ported so far)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (stage-partitioned layers, "
+                         "per-(replica, stage) health; a failure degrades "
+                         "only its stage)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="1F1B microbatch chunks per step (must divide "
+                         "--batch)")
     ap.add_argument("--overlap", choices=["on", "off"], default="off",
                     help="overlapped, bucketed gradient sync")
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a GPU failure before this step")
     ap.add_argument("--fail-replica", type=int, default=1,
                     help="DP replica whose scale-up domain loses a GPU")
+    ap.add_argument("--fail-stage", type=int, default=None,
+                    help="pipeline stage the failure lands on (--pp > 1; "
+                         "default: the replica's worst stage)")
     ap.add_argument("--fail-gpus", type=int, default=1,
                     help="GPUs lost in the failure event")
     ap.add_argument("--trace", type=float, default=None, metavar="RATE_MULT",
@@ -62,9 +78,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--power-policy", choices=["ntp", "ntp_pw"], default=None,
                     help="per-transition NTP vs NTP-PW decision hook "
                          "(default: ntp when --trace is given)")
+    ap.add_argument("--allocator", choices=["greedy", "off"], default="off",
+                    help="global repack planner for --pp > 1 (not ported: "
+                         "'greedy' is refused)")
     ap.add_argument("--spares", type=int, default=0,
                     help="spare scale-up domains absorbing the worst "
-                         "failures")
+                         "failures (--pp 1 only)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -89,6 +108,22 @@ def main(argv=None) -> dict:
                  "arch launcher')")
     if args.trace is not None and args.fail_at is not None:
         ap.error("--trace and --fail-at are mutually exclusive")
+    from repro_torch.configs.shapes import SUPPORTED_PP
+
+    if args.pp not in SUPPORTED_PP:
+        ap.error(f"--pp {args.pp} not in supported ladder {SUPPORTED_PP}")
+    if args.fail_stage is not None and args.pp == 1:
+        ap.error("--fail-stage needs --pp > 1")
+    if args.allocator != "off" and args.pp == 1:
+        ap.error("--allocator is the pp>1 global repack planner; pp=1 "
+                 "sessions already pack globally (--spares works directly)")
+    if args.spares and args.pp > 1 and args.allocator == "off":
+        ap.error("spares with --pp > 1 need the global allocator: pass "
+                 "--allocator greedy")
+    if args.allocator != "off":
+        ap.error("--allocator greedy: the global repack allocator is not "
+                 "ported yet (ROADMAP Queue 1 item 6, 'session spares and "
+                 "allocator')")
     args.trace_mix_kwargs = {}
     if args.trace_mix is not None:
         if args.trace is None:
@@ -137,7 +172,8 @@ def _run_ntp(args) -> dict:
     n1 = n_dev // 2
     cfg = NTPModelConfig(
         d_model=256, n_kv_groups=2 * n1, q_per_kv=2, head_dim=32,
-        d_ff=max(512, 128 * n1), unit_rows=128, n_layers=2, vocab=2048,
+        d_ff=max(512, 128 * n1), unit_rows=128,
+        n_layers=max(2, 2 * args.pp), vocab=2048,
     )
     policy_name = args.power_policy or ("ntp" if args.trace is not None
                                         else None)
@@ -148,10 +184,13 @@ def _run_ntp(args) -> dict:
         overlap=args.overlap, device=dev,
         power_policy=power_policy(policy_name) if policy_name else None,
         spares=args.spares, quarantine=args.quarantine == "on",
+        pp=args.pp, microbatches=args.microbatches,
     )
     n_par = sum(p.numel() for p in tr.leaves(session.canonical_params()))
     print(f"ntp prototype: {n_par/1e6:.1f}M params  mesh data=2 model={n1}  "
-          f"plan {session.plan}"
+          + (f"pp={args.pp} stages {session.stage_boundaries}  "
+             if args.pp > 1 else "")
+          + f"plan {session.plan}"
           + (f"  overlap {args.overlap}" if args.overlap == "on" else "")
           + (f"  policy {policy_name}" if policy_name else "")
           + (f"  spares {args.spares}" if args.spares else "")
@@ -169,18 +208,23 @@ def _run_ntp(args) -> dict:
         if args.fail_at is not None and i == args.fail_at:
             plan = session.apply(
                 FailureEvent(step=i, replica=args.fail_replica,
-                             n_gpus=args.fail_gpus)
+                             n_gpus=args.fail_gpus, stage=args.fail_stage)
             )
+            stage_s = (f"stage={args.fail_stage}, "
+                       if args.fail_stage is not None else "")
             print(f"*** step {i}: FailureEvent(replica={args.fail_replica}, "
-                  f"n_gpus={args.fail_gpus}) "
+                  f"{stage_s}n_gpus={args.fail_gpus}) "
                   f"-> plan {plan} mode {session.mode.value}")
         metrics = session.step(pipe._batch_np(i))
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:
+            srel = metrics.get("stage_rel_iter_time")
             print(
                 f"step {i:5d}  loss {losses[-1]:.4f}  "
                 f"gnorm {float(metrics['grad_norm']):.3f}  "
-                f"({(time.time()-t0):.1f}s)", flush=True,
+                + (f"stage_rel {tuple(round(r, 3) for r in srel)}  "
+                   if srel is not None else "")
+                + f"({(time.time()-t0):.1f}s)", flush=True,
             )
         if args.ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
             session.save(args.ckpt)
@@ -200,15 +244,16 @@ def _run_ntp_trace(args, session, pipe) -> dict:
     from repro_torch.core.failure_model import FailureTraceConfig
     from repro_torch.runtime import TraceRunner, event_kind, schedule_from_trace
 
-    d, n1 = session.plan.d, session.plan.n1
+    d, n1, pp = session.plan.d, session.plan.n1, session.pp
     trace_cfg = FailureTraceConfig(
-        n_gpus=d * n1, domain_size=n1,
+        n_gpus=d * pp * n1, domain_size=n1,
         days=args.steps / args.steps_per_hour / 24.0,
         rate_multiplier=args.trace, seed=args.trace_seed,
         **args.trace_mix_kwargs,
     )
     schedule = schedule_from_trace(
         trace_cfg, steps=args.steps, steps_per_hour=args.steps_per_hour,
+        pp=pp,
     )
     kinds = Counter(event_kind(s.event) for s in schedule)
     print(f"trace: {len(schedule)} events over {args.steps} steps "
@@ -217,15 +262,18 @@ def _run_ntp_trace(args, session, pipe) -> dict:
     t0 = time.time()
 
     def on_event(ev, plan):
-        print(f"*** step {ev.step}: {event_kind(ev)} domain {ev.domain} -> "
+        site = (f"stage {ev.stage} domain {ev.domain}"
+                if ev.stage is not None else f"domain {ev.domain}")
+        print(f"*** step {ev.step}: {event_kind(ev)} {site} -> "
               f"plan {plan}  local_batches {session.local_batches}")
 
     runner = TraceRunner(session, schedule, on_event=on_event)
     log_every = max(args.log_every, 1)
     ckpt_every = args.ckpt_every if args.ckpt else 0
-    marks = sorted({s for s in range(log_every, args.steps, log_every)}
-                   | {s for s in range(ckpt_every, args.steps, ckpt_every)
-                      if ckpt_every} | {args.steps})
+    marks = set(range(log_every, args.steps, log_every)) | {args.steps}
+    if ckpt_every:
+        marks |= set(range(ckpt_every, args.steps, ckpt_every))
+    marks = sorted(marks)
     done = 0
     for stop in marks:
         hist = runner.run(lambda i: pipe._batch_np(i), stop - done)

@@ -8,8 +8,10 @@ run, no host round trip): stays are rank-local slot renames, and only units
 whose rank changes travel, fused into ONE message per (replica, src, dst)
 across EVERY unit leaf of every tree handed in (params and both AdamW
 moments ride the same messages). The `TransferStats` ledger records exactly
-what moved and is bit-identical to the reference's on the same trees. The
-staged (pp>1) variant waits for the port's pp>1 slice.
+what moved and is bit-identical to the reference's on the same trees.
+`transition_staged_trees` does the same stage by stage for a pipeline-
+parallel job: each stage's layers move under that stage's own plans, so a
+stage-local event moves nothing of any other stage.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.configs.shapes import stage_boundaries
 from repro_torch.core import nonuniform as nu
 from repro_torch.reshard import planner
 from repro_torch.reshard.twin import TransferStats, apply_plan
@@ -109,6 +112,54 @@ def transition_params(
     """Single-tree convenience wrapper over `transition_trees`."""
     (tree,), stats = transition_trees(cfg, [packed], old, new)
     return tree, stats
+
+
+def transition_staged_trees(
+    cfg,
+    trees: Sequence[Dict],
+    old: nu.StagedPlan,
+    new: nu.StagedPlan,
+    *,
+    copy_unchanged: bool = True,
+) -> Tuple[List[Dict], TransferStats]:
+    """Stage-local packed→packed transition of stage-partitioned trees: each
+    pipeline stage's layer slice moves under its OWN (old, new) stage-plan
+    pair through `transition_trees` (ledger keys tagged by stage, so sends
+    of different device groups never fuse), so a failure in stage s moves
+    only stage-s units. Top-level replicated leaves (embed, head,
+    final_norm) never move. Returns the transitioned trees and the merged
+    `TransferStats`.
+
+    ``copy_unchanged``: untouched stages and the replicated leaves are
+    copied into fresh tensors by default, so no result aliases a tree the
+    caller still holds (the optimizers update in place). A caller that drops
+    its old trees (the session) passes False: untouched stages then pass
+    through with zero bytes and no copy, each tensor still held by exactly
+    one tree."""
+    if old.pp != new.pp or old.n1 != new.n1 or old.d != new.d:
+        raise ValueError(f"staged plans of different jobs: {old} -> {new}")
+    bounds = stage_boundaries(cfg.n_layers, old.pp)
+    stats = TransferStats()
+    keep = (lambda t: t) if not copy_unchanged else torch.clone
+    outs = [{k: tr.tree_map(keep, v) for k, v in t.items() if k != "layers"}
+            for t in trees]
+    out_layers = [[None] * cfg.n_layers for _ in trees]
+    for s in range(old.pp):
+        lo, hi = bounds[s], bounds[s + 1]
+        if new.stages[s] == old.stages[s]:
+            for ti, t in enumerate(trees):
+                out_layers[ti][lo:hi] = [tr.tree_map(keep, lp)
+                                         for lp in t["layers"][lo:hi]]
+            continue
+        subs = [{"layers": list(t["layers"][lo:hi])} for t in trees]
+        moved, st = transition_trees(cfg, subs, old.stages[s], new.stages[s],
+                                     tag=(s,))
+        stats.merge(st)
+        for ti, m in enumerate(moved):
+            out_layers[ti][lo:hi] = m["layers"]
+    for ti, o in enumerate(outs):
+        o["layers"] = out_layers[ti]
+    return outs, stats
 
 
 def expected_transfer(

@@ -1,5 +1,5 @@
 """NTPSession — the runtime entry point for training under failures (port of
-`repro/runtime/session.py` for the NTP prototype at pp=1).
+`repro/runtime/session.py` for the NTP prototype).
 
 Session lifecycle::
 
@@ -24,6 +24,15 @@ replica's TP, a `RecoveryEvent` raises it back. An optional `PowerPolicy`
 replica's power boost and usable batch (NTP vs NTP-PW); the step metrics
 carry its verdict.
 
+``pp > 1`` partitions the layers into contiguous pipeline stages: health
+is kept per (replica, stage) (`StagedHealth`), an event lands on one stage,
+and only that stage's layers move (`transition_staged_trees`; the other
+stages pass through untouched). Each stage syncs its gradients under its
+own plan, the local batches follow the slowest stage, and the step metrics
+carry each stage's predicted relative iteration time
+(``stage_rel_iter_time``; ``rel_iter_time`` is their max). ``microbatches``
+splits the local batch into 1F1B chunks.
+
 The rest of the health-state taxonomy rides the same `apply()`:
 `StragglerEvent`/`LinkDegradeEvent` leave the TP plan alone but reprice the
 policy decision through the degradation ledger; `SdcSuspectEvent`
@@ -34,8 +43,8 @@ in ``session.last_rollback``); each clear/repair unwinds its onset exactly.
 format; a snapshot is the same canonical trees, kept in host memory.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP row):
-pp>1 and microbatches, the global allocator (`allocator=`), and the uniform
-arch backend (`from_arch`).
+the global allocator (`allocator=`) and the uniform arch backend
+(`from_arch`).
 """
 from __future__ import annotations
 
@@ -49,15 +58,17 @@ from repro_torch import telemetry
 from repro_torch import tree as tr
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core import ntp_train as nt
-from repro_torch.core.nonuniform import FailurePlan
+from repro_torch.configs.shapes import stage_boundaries
+from repro_torch.core.nonuniform import FailurePlan, StagedPlan, as_staged
 from repro_torch.core.ntp_train import Mode, NTPModelConfig
 from repro_torch.core.overlap import coerce_overlap
-from repro_torch.core.policies import WorkloadGeometry
+from repro_torch.core.policies import WorkloadGeometry, staged_rel_iter_times
+from repro_torch.core.power import PowerModel
 from repro_torch.kernels import mode as kmode
 from repro_torch.optim import AdamWConfig, Optimizer, adamw
 from repro_torch.runtime.events import (
     DEGRADATION_EVENTS, ClusterHealth, LifecycleEvent, SdcSuspectEvent,
-    event_kind, plan_from_health,
+    StagedHealth, event_kind, plan_from_health, staged_plan_from_health,
 )
 
 
@@ -80,8 +91,8 @@ class NTPSession:
         cfg: NTPModelConfig,
         mesh: Sequence[int] = (2, 4),
         *,
-        health: Optional[ClusterHealth] = None,
-        plan: Optional[FailurePlan] = None,
+        health: Optional[Union[ClusterHealth, StagedHealth]] = None,
+        plan: Optional[Union[FailurePlan, StagedPlan]] = None,
         mode: Union[Mode, str] = Mode.NTP,
         local_batch: int = 4,
         optimizer: Optional[Optimizer] = None,
@@ -92,8 +103,8 @@ class NTPSession:
         power_policy=None,                 # orchestrator.PowerPolicy
         spares: int = 0,                   # spare domains absorbing failures
         quarantine: bool = True,           # SDC → batch 0 + rollback
-        pp: int = 1,
-        microbatches: int = 1,
+        pp: int = 1,                       # pipeline stages
+        microbatches: int = 1,             # 1F1B chunks per step
         allocator=None,
     ) -> "NTPSession":
         """NTP-prototype session on an emulated (data=D, model=N1) mesh
@@ -101,13 +112,18 @@ class NTPSession:
         and/or ``plan`` seed the failure state (default: pristine).
         ``params`` are canonical weights (default: drawn from ``generator``
         by `ntp_train.init_canonical`). ``spares`` spare domains absorb the
-        worst failures first (`plan_from_health`)."""
+        worst failures first (`plan_from_health`; pp=1 only).
+
+        ``pp > 1`` partitions the transformer into contiguous layer stages
+        (`configs.shapes.stage_boundaries`); health is then kept per
+        (replica, stage) and a failure reduces TP only for the stage whose
+        scale-up domain lost the GPU. Seed it with a `StagedHealth` or a
+        `StagedPlan` (a plain one is refused: it does not say which stage
+        is hit); a pp=1 staged seed is unwrapped, so ``pp=1`` is the
+        unstaged session."""
         if allocator is not None:
             raise _not_ported("the global repack allocator (allocator=)",
                               "'session spares and allocator'")
-        if pp != 1 or microbatches != 1:
-            raise _not_ported("pipeline parallelism (pp>1, microbatches)",
-                              "'pp>1 in the port'")
         self = object.__new__(cls)
         self._cfg = cfg
         self._device = kmode.resolve_device(device)
@@ -123,6 +139,7 @@ class NTPSession:
         self._spares = spares
         self._overlap = coerce_overlap(overlap)
         self._decision = None
+        self._stage_rel = None
         self._quarantine = quarantine
         self._quarantined = ()
         self._snapshot = None
@@ -130,17 +147,56 @@ class NTPSession:
         self.last_rollback = False    # latest apply() rolled back
         d, n1 = (int(x) for x in mesh)
         self._mesh = (d, n1)
-        if health is None:
-            health = (ClusterHealth.from_plan(plan) if plan is not None
-                      else ClusterHealth.pristine(d, n1))
+
+        if pp < 1:
+            raise ValueError(f"pp must be >= 1, got {pp}")
+        if isinstance(plan, StagedPlan) and plan.pp == 1:
+            plan = plan.stages[0]
+        if isinstance(health, StagedHealth) and health.pp == 1:
+            health = health.stages[0]
+        for given, what in ((plan, "plan"), (health, "health")):
+            given_pp = getattr(given, "pp", None)
+            if given_pp is not None and pp != 1 and given_pp != pp:
+                raise ValueError(
+                    f"{what} has {given_pp} stages but pp={pp} was requested"
+                )
+            if given_pp is not None:
+                pp = given_pp
+            elif given is not None and pp != 1:
+                # a plain FailurePlan/ClusterHealth is ambiguous under pp>1
+                # (per-stage state differs by stage); broadcasting failures
+                # to every stage would silently change their blast radius
+                raise ValueError(
+                    f"pp={pp} needs a staged {what} "
+                    f"(StagedPlan/StagedHealth), got {type(given).__name__}"
+                )
+        self._pp = pp
+        self._microbatches = microbatches
+        self._boundaries = stage_boundaries(cfg.n_layers, pp)
+        if pp == 1:
+            if health is None:
+                health = (ClusterHealth.from_plan(plan) if plan is not None
+                          else ClusterHealth.pristine(d, n1))
+            packed = plan_from_health(health, spares=spares)
+            if plan is not None and plan != packed:
+                raise ValueError(
+                    f"plan {plan} is not in resource-manager packed order "
+                    f"(most-degraded first); health {health.failed} packs to "
+                    f"{packed}"
+                )
+        else:
+            if health is None:
+                health = (StagedHealth.from_plan(as_staged(plan))
+                          if plan is not None
+                          else StagedHealth.pristine(d, n1, pp))
+            packed = staged_plan_from_health(health, spares=spares)
+            if plan is not None and as_staged(plan) != packed:
+                raise ValueError(
+                    f"staged plan {plan} is not in per-stage packed order "
+                    f"(most-degraded first per stage); health packs to "
+                    f"{packed}"
+                )
         self._health = health
-        packed = plan_from_health(health, spares=spares)
-        if plan is not None and plan != packed:
-            raise ValueError(
-                f"plan {plan} is not in resource-manager packed order "
-                f"(most-degraded first); health {health.failed} packs to "
-                f"{packed}"
-            )
         if (packed.d, packed.n1) != (d, n1):
             raise ValueError(
                 f"plan {packed} does not fit mesh (data={d}, model={n1})")
@@ -166,12 +222,23 @@ class NTPSession:
         return self._mode
 
     @property
-    def plan(self) -> FailurePlan:
+    def plan(self) -> Union[FailurePlan, StagedPlan]:
+        """The live plan: a `FailurePlan` for pp=1, a `StagedPlan` for
+        pp > 1."""
         return self._plan
 
     @property
-    def health(self) -> ClusterHealth:
+    def health(self) -> Union[ClusterHealth, StagedHealth]:
         return self._health
+
+    @property
+    def pp(self) -> int:
+        return self._pp
+
+    @property
+    def stage_boundaries(self):
+        """Layer boundaries of the pipeline stages (pp+1 ints)."""
+        return self._boundaries
 
     @property
     def device(self) -> torch.device:
@@ -262,13 +329,15 @@ class NTPSession:
         array; returns the metrics dict (loss, grad_norm, lr). Values are
         device tensors: reading one waits for the step. Under a PowerPolicy
         the dict also carries its verdict: ``policy``, ``power_boost`` (max
-        ×TDP over replicas) and the predicted ``rel_iter_time``.
+        ×TDP over replicas) and the predicted ``rel_iter_time``; a staged
+        session adds ``stage_rel_iter_time`` (one per stage) and sets
+        ``rel_iter_time`` to its max.
 
         With telemetry active the step is a ``session.step`` span; it times
         the host's dispatch of the step (nothing here waits for the
         device)."""
         tel = telemetry.get()
-        with tel.span("session.step", backend="ntp", pp=1,
+        with tel.span("session.step", backend="ntp", pp=self._pp,
                       overlap="on" if self._overlap else "off"):
             self._params, self._opt, metrics = self._step_fn(
                 self._params, self._opt, batch)
@@ -284,6 +353,11 @@ class NTPSession:
                 power_boost=self._decision.max_boost,
                 rel_iter_time=self._decision.rel_iter_time,
             )
+        if self._stage_rel is not None:
+            # a staged session always predicts per-stage relative iteration
+            # time (the slowest stage gates the replica), policy or not
+            metrics = dict(metrics, stage_rel_iter_time=self._stage_rel,
+                           rel_iter_time=max(self._stage_rel))
         return metrics
 
     def measure_sync(self, batch) -> Dict[str, Any]:
@@ -323,13 +397,15 @@ class NTPSession:
 
     # ---------------------------------------------------------------- events
 
-    def apply(self, event: LifecycleEvent) -> FailurePlan:
+    def apply(self, event: LifecycleEvent):
         """Consume a health event: update health, replan, and move params
         and optimizer state into the new plan — training continues with the
         same logical weights. A degradation event keeps the TP plan, but
         reprices the policy decision, and an `SdcSuspectEvent` quarantines
         its replica and (with quarantine on and a snapshot taken) rolls
-        back. Returns the new plan.
+        back. On a staged session the event resolves to ONE pipeline stage
+        (`StagedHealth.resolve_site`) and only that stage's layers move.
+        Returns the new plan (`FailurePlan` for pp=1, `StagedPlan` else).
 
         With telemetry active the whole replan is one ``session.transition``
         span: phase marks ``planned``/``executed`` and, when state moved,
@@ -338,9 +414,13 @@ class NTPSession:
         tel = telemetry.get()
         self.last_rollback = False
         with tel.span("session.transition", kind=event_kind(event),
-                      pp=1) as sp:
+                      pp=self._pp) as sp:
             new_health = self._health.apply(event)
-            new_plan = plan_from_health(new_health, spares=self._spares)
+            if self._pp == 1:
+                new_plan = plan_from_health(new_health, spares=self._spares)
+            else:
+                new_plan = staged_plan_from_health(new_health,
+                                                   spares=self._spares)
             sp.mark("planned")
             self._events.append(event)
             self._health = new_health
@@ -368,7 +448,10 @@ class NTPSession:
                 return self._plan
 
             old_plan = self._plan
-            self._transition(old_plan, new_plan)
+            if self._pp == 1:
+                self._transition(old_plan, new_plan)
+            else:
+                self._transition_staged(old_plan, new_plan)
             sp.mark("executed")
             sp.set(changed=True, old_plan=str(old_plan),
                    new_plan=str(new_plan), **self.last_transition.as_dict())
@@ -443,9 +526,13 @@ class NTPSession:
         None when the health carries none — the binary fail/repair path then
         passes ``degradations=None`` everywhere. SDC entries are masked out
         when quarantine is off, so only straggle/link pricing remains."""
-        if self._health.degraded is None:
+        h = self._health
+        if isinstance(h, StagedHealth):
+            if all(st.degraded is None for st in h.stages):
+                return None
+        elif h.degraded is None:
             return None
-        degs = self._health.replica_degradations()
+        degs = h.replica_degradations()
         if not self._quarantine and any(d.sdc for d in degs):
             degs = tuple(replace(d, sdc=0) for d in degs)
         return degs
@@ -453,23 +540,52 @@ class NTPSession:
     def _decide(self) -> None:
         """Consult the PowerPolicy (if any) for the current plan. Geometry is
         derived from the live model: attention quantizes at kv-group (unit)
-        granularity. The health's degradation ledgers ride along:
+        granularity. A staged plan decides on its `effective` (slowest-stage)
+        reduction and also predicts each stage's relative iteration time for
+        the step metrics. The health's degradation ledgers ride along:
         stragglers/links reprice the slowdown, open SDC suspicions
         quarantine their replica (batch 0)."""
+        self._stage_rel = None
         degs = self._replica_degradations()
         self._quarantined = (
             tuple(r for r, dg in enumerate(degs) if dg.sdc > 0)
             if degs is not None else ()
         )
+        eff_plan = self._plan.effective if self._pp > 1 else self._plan
+        geom = (self._policy.geom if self._policy is not None else None) or \
+            WorkloadGeometry(n_heads=self._cfg.n_kv_groups,
+                             local_batch=self._local_batch)
         if self._policy is None:
             self._decision = None
-            return
-        geom = self._policy.geom or WorkloadGeometry(
-            n_heads=self._cfg.n_kv_groups, local_batch=self._local_batch)
-        self._decision = self._policy.decide(
-            self._plan, local_batch=self._local_batch, geom=geom,
-            degradations=degs,
-        )
+        else:
+            self._decision = self._policy.decide(
+                eff_plan, local_batch=self._local_batch, geom=geom,
+                degradations=degs,
+            )
+        if self._pp > 1:
+            if self._decision is not None:
+                boosts = self._decision.boost
+                lbs = self._decision.local_batches
+                power = self._policy.model
+            else:
+                boosts = None
+                lbs = [int(b) for b in nt.default_local_batches(
+                    eff_plan, self._mode, self._local_batch)]
+                for r in self._quarantined:
+                    lbs[r] = 0
+                lbs = tuple(lbs)
+                power = PowerModel()
+            if degs is not None:
+                slow_factors = tuple(dg.slow_factor for dg in degs)
+                bw_fracs = tuple(dg.bw_frac for dg in degs)
+            else:
+                slow_factors = bw_fracs = None
+            self._stage_rel = staged_rel_iter_times(
+                self._plan.stage_tp, self._plan.n1, geom,
+                local_batches=lbs, local_batch=self._local_batch,
+                boosts=boosts, power=power,
+                slow_factors=slow_factors, bw_fracs=bw_fracs,
+            )
 
     def _build_step(self) -> None:
         if self._decision is not None:
@@ -481,8 +597,14 @@ class NTPSession:
         self._step_fn = nt.make_ntp_train_step(
             self._cfg, self._plan, self._mesh, mode=self._mode,
             local_batch=self._local_batch, optimizer=self._optimizer,
-            local_batches=lbs, overlap=self._overlap,
+            local_batches=lbs, microbatches=self._microbatches,
+            overlap=self._overlap,
         )
+
+    def _param_trees(self):
+        """The optimizer's param-like keys, and [params, *those trees]."""
+        opt_keys = [k for k in self._optimizer.param_like if k in self._opt]
+        return opt_keys, [self._params] + [self._opt[k] for k in opt_keys]
 
     def _transition(self, old: FailurePlan, new: FailurePlan) -> None:
         """One fused packed→packed transition for params AND every
@@ -491,9 +613,23 @@ class NTPSession:
         `last_transition`."""
         from repro_torch.reshard.transition import transition_trees
 
-        opt_keys = [k for k in self._optimizer.param_like if k in self._opt]
-        trees = [self._params] + [self._opt[k] for k in opt_keys]
+        opt_keys, trees = self._param_trees()
         moved, stats = transition_trees(self._cfg, trees, old, new)
+        self._params = moved[0]
+        self._opt = dict(self._opt, **dict(zip(opt_keys, moved[1:])))
+        self.last_transition = stats
+
+    def _transition_staged(self, old: StagedPlan, new: StagedPlan) -> None:
+        """Stage-local transitions via `transition_staged_trees`: only the
+        stages whose plan changed move their layers (their own
+        per-(replica, src, dst) messages, tagged by stage). The session
+        drops its old trees, so untouched stages pass through with zero
+        bytes and no copy (``copy_unchanged=False``)."""
+        from repro_torch.reshard.transition import transition_staged_trees
+
+        opt_keys, trees = self._param_trees()
+        moved, stats = transition_staged_trees(self._cfg, trees, old, new,
+                                               copy_unchanged=False)
         self._params = moved[0]
         self._opt = dict(self._opt, **dict(zip(opt_keys, moved[1:])))
         self.last_transition = stats

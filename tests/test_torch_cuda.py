@@ -608,3 +608,56 @@ def test_trace_run_on_card_matches_cpu(dev):
         assert float((a - b.cpu()).abs().max()) < 1e-4
     assert all(launches[k] > 0 for k in
                ("reshard_pack", "bucket_pack", "bucket_unpack")), launches
+
+
+@pytest.mark.parametrize("overlap,microbatches", [(False, 1), (True, 2)])
+def test_pp2_session_on_card_matches_cpu(dev, overlap, microbatches):
+    """A small pp=2 session (4 layers, d_model 64) through the stage-
+    addressed chain of tests/dist/session_pp_lifecycle.py, on the card and
+    on the CPU from the same canonical params: the same stage plans, local
+    batches, stage_rel_iter_time and ledgers, losses within 1e-4,
+    canonical params within 1e-4 at the end, and the card's run through
+    the path's kernels (the bucket kernels with overlap on)."""
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
+
+    cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=2,
+                            head_dim=16, d_ff=256, unit_rows=64, vocab=128,
+                            n_layers=4)
+    canon = nt.init_canonical(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    chain = {2: FailureEvent(stage=1, domain=0),
+             5: FailureEvent(stage=0, domain=0),
+             8: RecoveryEvent(stage=1, domain=0),
+             11: RecoveryEvent(stage=0, domain=0)}
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, 32, 8, seed=0))
+    runs = {}
+    for where in ("cpu", dev):
+        s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(0.05),
+                              params=_to(canon, where), overlap=overlap,
+                              microbatches=microbatches, pp=2, device=where)
+        mode.reset_launches()
+        recs = []
+        for i in range(14):
+            if i in chain:
+                s.apply(chain[i])
+                recs.append(s.last_transition.as_dict())
+            m = s.step(pipe._batch_np(i))
+            recs.append((float(m["loss"]), s.plan.stage_tp,
+                         tuple(s.local_batches), m["stage_rel_iter_time"]))
+        runs[str(where)] = (recs, mode.launches(),
+                            tr.leaves(s.canonical_params()))
+    (cr, _, cp), (gr, launches, gp) = runs["cpu"], runs[str(dev)]
+    for a, b in zip(cr, gr):
+        if isinstance(a, dict):
+            assert a == b
+        else:
+            assert a[1:] == b[1:] and abs(a[0] - b[0]) < 1e-4, (a, b)
+    for a, b in zip(cp, gp):
+        assert float((a - b.cpu()).abs().max()) < 1e-4
+    kernels = ("reshard_pack", "bucket_pack", "bucket_unpack") if overlap \
+        else ("reshard_pack",)
+    assert all(launches[k] > 0 for k in kernels), launches

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "repro_torch.core.nonuniform",
     "repro_torch.core.ntp_train",
     "repro_torch.core.overlap",
+    "repro_torch.core.perf_model",
     "repro_torch.core.policies",
     "repro_torch.core.power",
     "repro_torch.core.reshard",

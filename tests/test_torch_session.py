@@ -152,12 +152,15 @@ def test_session_ledger_with_adamw_moments():
 
 
 def test_session_refuses_what_is_not_ported():
-    """Only pp>1 (and its microbatches), the global allocator and the
-    uniform arch backend still raise, each naming its ROADMAP row."""
+    """Only the global allocator and the uniform arch backend still raise,
+    each naming its ROADMAP row; pp>1 and microbatches are ported."""
     cfg = nt.NTPModelConfig(n_layers=2, **KW)
-    for kw in (dict(pp=2), dict(microbatches=2), dict(allocator=object())):
+    for kw in (dict(allocator=object()), dict(pp=2, allocator=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NTPSession.create(cfg, (2, 4), device="cpu", **kw)
+    for kw in (dict(pp=2), dict(microbatches=2)):
+        assert NTPSession.create(cfg, (2, 4), device="cpu", **kw).pp == \
+            kw.get("pp", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NTPSession.from_arch()
     with pytest.raises(TypeError, match="create"):

@@ -427,12 +427,13 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         tnt.NTPModelConfig(n_experts=4)
     _, tcfg = _cfgs(2)
+    # pp>1 and microbatches are ported: they build steps, and a microbatch
+    # count that does not divide the local batch is refused
     staged = tnu.StagedPlan((tnu.FailurePlan(4, (4, 4)),) * 2)
-    with pytest.raises(NotImplementedError, match="pp>1"):
-        tnt.make_ntp_train_step(tcfg, staged)
-    with pytest.raises(NotImplementedError, match="pp>1"):
+    assert tnt.make_ntp_train_step(tcfg, staged).collectives == 12
+    with pytest.raises(ValueError, match="not divisible"):
         tnt.make_ntp_train_step(tcfg, tnu.FailurePlan(4, (4, 4)),
-                                microbatches=2)
+                                microbatches=3)
     with pytest.raises(ValueError, match="does not fit mesh"):
         tnt.make_ntp_train_step(tcfg, tnu.FailurePlan(4, (4, 4)), (2, 8))
     with pytest.raises(ValueError, match="outside"):
