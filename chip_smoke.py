@@ -2,6 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --gloo-probe`` instead times a 512 MB gloo
+all-reduce of CUDA and of CPU tensors and a 512 MB all-to-all between 2
+and among 4 processes on the card, and exits.)
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
@@ -121,10 +124,31 @@ Phases (any failure exits non-zero):
    --fail-at 3 --overlap on`, then `--pp 2 --microbatches 2 --fail-stage
    1`, then phase 7's trace with `--power-policy ntp_pw --ckpt ...
    --ckpt-every 4 --telemetry ... --steps 12`: the checkpoint loads and
-   every telemetry event is on the schema;
-10. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training, trace and pp=2 paths, each counted from
-   zero just before it), then the device line.
+   every telemetry event is on the schema; then `--nproc 4 --mesh 2x2
+   --backend gloo --steps 8 --fail-at 3` (four processes on this card);
+10. ranks as processes: the training cell's model (qwen2-7b widths, 4
+   layers) on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
+   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 9 steps,
+   `FailureEvent(replica=1)` before step 3 (TP (1, 2)) and its repair
+   before step 6. The emulated (2, 2) session runs first on the same seed,
+   chain and batches, its canonical params written under `build/` after
+   each transition and at the end; the card is freed and the 4 ranks are
+   spawned (`PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`). Each rank
+   first runs the raw gloo collectives of the path on CUDA tensors (a
+   refusal fails the phase), then the chain. Checks: every rank's loss
+   within 1e-5 of the emulated; rank 0's canonical params, gathered over
+   its model group, within 1e-4 after each transition and at the end;
+   each transition's bytes equal to `expected_transfer`, one all-to-all a
+   rank; reshard_pack launched on degraded steps only. Printed: the card's
+   compute_mode, step ms by regime (max over ranks) beside the emulated
+   step, each transition's ms and bytes, rank 0's collective calls and
+   bytes a step, each rank's peak memory, what gloo staged (nothing).
+   Then the per-rank reshard_pack (one rank's MLP gradient leaf under the
+   degraded plan's pre-sync tables) against its plain version, timed in
+   turns with `src[idx]` and `index_select`;
+11. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace, pp=2 and process paths, each counted
+   from zero just before it), then the device line.
 """
 import contextlib
 import json
@@ -2243,6 +2267,13 @@ def launcher_phase():
           "launcher --pp 2: non-finite losses")
     check(out["plan"].stage_tp == ((4, 3), (4, 4)),
           f"launcher --pp 2 plan {out['plan']}")
+    out = train_main(["--ntp", "--nproc", "4", "--mesh", "2x2", "--backend",
+                      "gloo", "--steps", "8", "--fail-at", "3",
+                      "--log-every", "1"])
+    check(len(out["losses"]) == 8 and np.isfinite(out["losses"]).all(),
+          "launcher --nproc 4: non-finite losses")
+    check(out["plan"].replica_tp == (1, 2),
+          f"launcher --nproc 4 plan {out['plan']}")
 
     tmp = scratch_dir()
     try:
@@ -2271,6 +2302,358 @@ def launcher_phase():
               f"schema", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+RANKS_KERNELS = ("reshard_pack",)
+# phase 10's chain on the (2, 2) mesh of processes: replica 1 loses a GPU
+# before step 3 (TP (1, 2): packing puts it in replica 0) and is repaired
+# before step 6
+RANKS_EVENTS = {3: ("fail", 1), 6: ("repair", 0)}
+RANKS_LR, RANKS_LB = 1e-2, 4
+
+
+def _ranks_event(i):
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    kind, replica = RANKS_EVENTS[i]
+    cls = FailureEvent if kind == "fail" else RecoveryEvent
+    return cls(step=i, replica=replica, n_gpus=1)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _plan_regime(plan):
+    return "healthy" if plan.healthy else f"degraded {plan.replica_tp}"
+
+
+def ranks_reference(torch, dev, cfg, seq, steps, directory):
+    """Phase 10 (a): the emulated session on the card through the chain;
+    its canonical params after each transition and at the end go to
+    ``directory`` (one .npy a leaf, flatten order) for the ranks to read,
+    written by a thread while the session steps on. Returns its losses
+    and step ms."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    s = NTPSession.create(cfg, (2, 2), local_batch=RANKS_LB,
+                          optimizer=sgd(RANKS_LR), params=canon, device=dev)
+    del canon
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * RANKS_LB,
+                                          seed=0))
+
+    def write(tag, leaves):
+        os.makedirs(os.path.join(directory, tag))
+        for i, leaf in enumerate(leaves):
+            np.save(os.path.join(directory, tag, f"{i}.npy"), leaf.numpy())
+
+    losses, ms, writes = [], [], []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        def keep(tag):
+            leaves = [t.cpu() for t in tr.leaves(s.canonical_params(0))]
+            writes.append(pool.submit(write, tag, leaves))
+
+        for i in range(steps):
+            if i in RANKS_EVENTS:
+                s.apply(_ranks_event(i))
+                keep(f"step{i}")
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            losses.append(float(s.step(pipe._batch_np(i))["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        keep("end")
+        for w in writes:
+            w.result()
+    del s
+    return losses, ms
+
+
+def _gloo_takes(torch, mesh):
+    """Each collective the process path runs, raw, on tensors of the mesh's
+    device (CUDA tensors of this card on the chip) over the model group
+    (uneven all-to-all splits, one of them empty); raises if gloo refuses
+    one or gets it wrong."""
+    import torch.distributed as dist
+
+    dev, r, n = mesh.device, mesh.rank, mesh.n_model
+    x = torch.full((5,), float(r + 1), device=dev)
+    dist.all_reduce(x, group=mesh.model)
+    check(bool((x == n * (n + 1) / 2).all()), "gloo all_reduce")
+    sc = [(r + j) % 3 for j in range(n)]
+    rc = [(j + r) % 3 for j in range(n)]
+    send = torch.cat([torch.full((c,), float(10 * r + j), device=dev)
+                      for j, c in enumerate(sc)])
+    out = torch.empty(sum(rc), device=dev)
+    dist.all_to_all_single(out, send, output_split_sizes=rc,
+                           input_split_sizes=sc, group=mesh.model)
+    want = torch.cat([torch.full((c,), float(10 * j + r), device=dev)
+                      for j, c in enumerate(rc)])
+    check(torch.equal(out, want), "gloo all_to_all_single (uneven)")
+    outs = [torch.empty(2, device=dev) for _ in range(n)]
+    dist.all_gather(outs, torch.full((2,), float(r), device=dev),
+                    group=mesh.model)
+    check(all(bool((o == j).all()) for j, o in enumerate(outs)),
+          "gloo all_gather")
+    return ("all_reduce", "all_to_all_single (uneven)", "all_gather")
+
+
+def _canonical_err(torch, leaves, directory):
+    """Max |rank 0's gathered canonical params ``leaves`` - the emulated
+    run's, read from ``directory``|."""
+    import numpy as np
+
+    return max(float((leaf - torch.from_numpy(np.load(
+        os.path.join(directory, f"{i}.npy")))).abs().max())
+        for i, leaf in enumerate(leaves))
+
+
+def rank_worker(cfg, seq, steps, directory, device):
+    """Phase 10 (b): one (replica, rank) process of the (2, 2) gloo mesh on
+    the card: the chain with SGD, each step and transition timed (host
+    clock after a device sync), its collectives and reshard_pack launches
+    counted, the canonical params checked by rank 0 after each transition
+    and at the end."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.core import collectives as C
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    mesh = make_test_mesh(2, 2, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    takes = _gloo_takes(torch, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    s = NTPSession.create(cfg, mesh, local_batch=RANKS_LB,
+                          optimizer=sgd(RANKS_LR), params=canon)
+    del canon
+    if cuda:
+        torch.cuda.empty_cache()
+    _sync(torch, dev)
+    out = {"setup_s": time.perf_counter() - t0, "takes": takes,
+           "loss": [], "grad_norm": [], "step_ms": [], "regime": [],
+           "counts": [], "packs": [], "transitions": []}
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * RANKS_LB,
+                                          seed=0))
+    # rank 0 gathers its replica's canonical params to the host (with rank
+    # 1) after each transition and at the end, and compares them with the
+    # emulated run's on a thread while the ranks step on
+    pool = ThreadPoolExecutor(max_workers=1)
+    checks = []
+
+    def check_canonical(tag):
+        got = s.canonical_params(0, device="cpu")
+        if got is not None and mesh.rank == 0:
+            checks.append(pool.submit(_canonical_err, torch, tr.leaves(got),
+                                      os.path.join(directory, tag)))
+
+    mode.reset_launches()
+    for i in range(steps):
+        if i in RANKS_EVENTS:
+            old = s.plan
+            C.reset_counts()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            s.apply(_ranks_event(i))
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            out["transitions"].append((i, old, s.plan, ms,
+                                       s.last_transition.as_dict(),
+                                       C.counts()))
+            check_canonical(f"step{i}")
+        C.reset_counts()
+        before = mode.launches()["reshard_pack"]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        m = s.step(pipe._batch_np(i))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        _sync(torch, dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["regime"].append(_plan_regime(s.plan))
+        out["counts"].append(C.counts())
+        out["packs"].append(mode.launches()["reshard_pack"] - before)
+    out["launches"] = mode.launches()
+    check_canonical("end")
+    out["canonical"] = [c.result() for c in checks] or None
+    pool.shutdown()
+    out["collectives"] = (s.step_fn.collectives,
+                          s.step_fn.sync_fn.replicated_collectives)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9,
+                      torch.cuda.max_memory_reserved(dev) / 1e9) if cuda \
+        else (0.0, 0.0)
+    out["rank"] = (mesh.replica, mesh.rank)
+    return out
+
+
+def ranks_phase(torch, dev, cfg=None, seq=256, steps=9):
+    """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths (4
+    layers) on a (2, 2) mesh of 4 processes, gloo on this card, through
+    fail → repair with SGD, held to the emulated session run first on the
+    same seed, chain and batches. Returns the ranks' launch counts summed
+    (and, on the card, the per-rank reshard_pack row). ``cfg``/``seq``/
+    ``steps`` and a CPU ``dev`` let the phase be rehearsed small on the
+    CPU."""
+    import shutil
+    import subprocess
+
+    from repro_torch.core.nonuniform import FailurePlan
+    from repro_torch.launch.spawn import spawn
+
+    cfg = cfg or qwen_widths()
+    if dev.type == "cuda":
+        mode_ = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60
+        ).stdout.strip()
+        print(f"  compute_mode {mode_}: 4 processes share cuda:0", flush=True)
+    tmp = scratch_dir()
+    # four processes share the card: segments that grow in place keep each
+    # rank's cached-but-free memory small (the ranks read it at start)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        t0 = time.perf_counter()
+        ref_losses, ref_ms = ranks_reference(torch, dev, cfg, seq, steps, tmp)
+        print(f"  emulated (2, 2) session: {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s with its checkpoints, step "
+              f"ms {', '.join(f'{m:.1f}' for m in ref_ms)}", flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info(dev)
+            print(f"  the parent keeps {torch.cuda.memory_allocated() / 1e9:.2f}"
+                  f" GB allocated; card memory free before the spawn "
+                  f"{free / 1e9:.2f} of {total / 1e9:.2f} GB", flush=True)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ranks = spawn(rank_worker, 4, backend="gloo", device=dev.type,
+                      deadline_s=600, args=(cfg, seq, steps, tmp, dev.type))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    r0 = ranks[0]
+    print(f"  gloo takes {dev.type} tensors for {', '.join(r0['takes'])}: "
+          f"staged through host buffers: none", flush=True)
+    print(f"  4 ranks spawned, run and joined in {wall:.1f} s; set-up "
+          f"(canonical init + pack) {max(r['setup_s'] for r in ranks):.1f} s",
+          flush=True)
+    for r in ranks:
+        err = max(abs(a - b) for a, b in zip(r["loss"], ref_losses))
+        print(f"  rank {r['rank']}: max |loss - emulated| {err:.3e}, peak "
+              f"{r['peak_gb'][0]:.2f} GB allocated, {r['peak_gb'][1]:.2f} GB "
+              f"reserved", flush=True)
+        check(err <= 1e-5, f"rank {r['rank']} loss off the emulated by {err}")
+    print(f"  losses {', '.join(f'{x:.5f}' for x in r0['loss'])}")
+    for i, regime in enumerate(r0["regime"]):
+        step_ms = max(r["step_ms"][i] for r in ranks)
+        counts = ", ".join(f"{op}/{g} {c} calls {b} B" for (op, g), (c, b)
+                           in sorted(r0["counts"][i].items()))
+        print(f"  step {i} ({regime}): {step_ms:.1f} ms (max over ranks; "
+              f"emulated {ref_ms[i]:.1f}); rank 0: {counts}; reshard_pack "
+              f"launches {sum(r['packs'][i] for r in ranks)} (all ranks)",
+              flush=True)
+        check(dev.type != "cuda" or
+              (sum(r["packs"][i] for r in ranks) > 0) == (regime != "healthy"),
+              f"step {i}: reshard_pack launches {[r['packs'][i] for r in ranks]}"
+              f" in a {regime} step")
+    for k, (i, old, new, _, st, counts) in enumerate(r0["transitions"]):
+        ms = max(r["transitions"][k][3] for r in ranks)
+        want = _expected_bytes(cfg, old, new)
+        print(f"  step {i}: {old.replica_tp} -> {new.replica_tp}: transition "
+              f"{ms:.1f} ms (max over ranks), {st['bytes_moved']} B in "
+              f"{st['messages']} messages (expected {want} B); rank 0 sent "
+              f"{counts}; canonical params of rank 0 within "
+              f"{r0['canonical'][k]:.3e} of the emulated", flush=True)
+        check(st["bytes_moved"] == want, f"transition bytes {st} != {want}")
+        check(all(r["transitions"][k][4] == st for r in ranks),
+              "ranks disagree on the transition ledger")
+        check(counts == {("all_to_all", "model"): counts[("all_to_all",
+                                                          "model")]}
+              and counts[("all_to_all", "model")][0] == 1,
+              f"a transition sends one all-to-all: {counts}")
+        check(r0["canonical"][k] <= 1e-4, "canonical params off the emulated")
+    print(f"  end: canonical params of rank 0 within {r0['canonical'][-1]:.3e} "
+          f"of the emulated", flush=True)
+    check(r0["canonical"][-1] <= 1e-4, "final canonical params off")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    check(launches["reshard_pack"] > 0 or dev.type != "cuda",
+          f"reshard_pack never launched: {launches}")
+    if dev.type != "cuda":
+        return launches, None
+    return launches, rank_reshard_row(torch, dev, cfg,
+                                      FailurePlan(2, (1, 2)))
+
+
+def rank_reshard_row(torch, dev, cfg, plan):
+    """The per-rank reshard_pack at the process path's largest call: one
+    rank's MLP gradient leaf (one unit row = 3584·128 elems) under the
+    degraded plan's pre-sync tables, the rank that sends the most rows;
+    bit-exact against its plain version and timed in turns against
+    advanced indexing and `index_select`, as phase 3's rows."""
+    from repro_torch.core import nonuniform as nu
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.reshard_pack import reshard_pack
+
+    tables = nu.weight_plan(cfg.k_ff, plan).pre
+    g = torch.Generator(device=dev).manual_seed(7)
+    elems = cfg.d_model * cfg.unit_rows
+    best = None
+    for d in range(plan.d):
+        t = tables.replica(d)
+        for r in range(t.n):
+            n_rows = int((t.send_idx[r] != t.pad).sum())
+            if best is None or n_rows > best[0]:
+                best = (n_rows, d, r, t)
+    _, d, r, t = best
+    xp = torch.randn((t.buf + 1, elems), generator=g, device=dev)
+    xp[-1] = 0
+    ix = torch.as_tensor(t.send_idx[r], device=dev)
+    got = reshard_pack(xp, ix)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref.reshard_pack_ref(xp, ix)),
+          "per-rank reshard_pack is not bit-exact")
+    del got
+    plain = time_ms(lambda: ref.reshard_pack_ref(xp, ix), 10)
+    flat = ix.long().flatten()
+    tm = in_turns(torch, lambda: reshard_pack(xp, ix), {
+        "src[idx]": lambda: xp[ix.long()],
+        "index_select": lambda: torch.index_select(xp, 0, flat).view(
+            *ix.shape, elems)}, reps=10, calls=4)
+    n_read = len({int(u) for u in t.send_idx[r].flatten() if u != t.pad})
+    bd = bound_ms((n_read + ix.numel()) * elems * 4 + ix.numel() * 4, 0,
+                  "float32")
+    report_turns("reshard_pack", f"per rank, replica {d} rank {r} "
+                 f"src{tuple(xp.shape)} idx{tuple(ix.shape)}", "float32",
+                 0.0, 0.0, tm, plain, bd)
+    row = table_row(0.0, tm, plain, bd)
+    del xp, ix
+    torch.cuda.empty_cache()
+    return row
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -2329,6 +2712,48 @@ SOURCES = {
 }
 
 
+def gloo_probe_worker():
+    """One rank of `gloo_probe`: seconds of a 512 MB all-reduce of CUDA and
+    of CPU tensors (mean of 2) and of a 512 MB all-to-all of CUDA tensors
+    over the whole group."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for where in ("cuda", "cpu"):
+        x = torch.ones(128 * 2**20, device=where)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            dist.all_reduce(x)
+        torch.cuda.synchronize(dev)
+        out[f"all_reduce {where}"] = (time.perf_counter() - t0) / 2
+    x = torch.ones(128 * 2**20, device=dev)
+    y = torch.empty_like(x)
+    dist.barrier()
+    t0 = time.perf_counter()
+    dist.all_to_all_single(y, x)
+    torch.cuda.synchronize(dev)
+    out["all_to_all cuda"] = time.perf_counter() - t0
+    return out
+
+
+def gloo_probe():
+    """``--gloo-probe``: gloo's rate on this card between 2 and among 4
+    processes (`gloo_probe_worker`, slowest rank), then exit."""
+    from repro_torch.launch.spawn import spawn
+
+    for world in (2, 4):
+        ranks = spawn(gloo_probe_worker, world, backend="gloo",
+                      device="cuda", deadline_s=300)
+        print(f"  gloo, {world} processes on cuda:0, 512 MB: " + ", ".join(
+            f"{k} {max(r[k] for r in ranks):.3f} s" for k in ranks[0]),
+            flush=True)
+    return 0
+
+
 def bucket_host_cost_against(torch, checkout):
     """`bucket_host_cost` of this checkout's bucket wrappers beside those
     of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
@@ -2359,6 +2784,8 @@ def main() -> int:
                                     "src"))
     if sys.argv[1:2] == ["--bucket-host-cost-against"]:
         return bucket_host_cost_against(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        return gloo_probe()
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
@@ -2414,15 +2841,26 @@ def main() -> int:
 
     print("phase 9: the training launcher", flush=True)
     launcher_phase()
+    torch.cuda.empty_cache()
 
+    print("phase 10: ranks as processes: NTP training at qwen2-7b widths on "
+          "a (2, 2) mesh of 4 processes, gloo on this card, through "
+          "fail->repair", flush=True)
+    ranks_launches, rank_row = ranks_phase(torch, dev)
+
+    print("phase 11: kernels table", flush=True)
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
-             (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS))
+             (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
+             (ranks_launches, RANKS_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=replaces, launches=n, **rows[name]))
+    print(f"  reshard_pack per rank (process path): launches "
+          f"{ranks_launches['reshard_pack']}, " + ", ".join(
+              f"{k} {v}" for k, v in rank_row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,124 @@
+"""Collectives of the process path (the port's counterpart of the
+`jax.lax` collectives the reference calls inside shard_map).
+
+* `psum` / `psum_` — ``jax.lax.psum`` over a group: `all_reduce` (sum).
+* the Megatron pair, for per-rank autograd: `copy_to_model` is the identity
+  forward and an all-reduce over the model group backward (at a block's
+  input); `reduce_from_model` is an all-reduce forward and the identity
+  backward (at a block's output). With the pair each rank's backward sees
+  the full gradient of the replicated activations exactly once. The
+  reference reaches the same result by seeding ``ct/n1`` on each model rank
+  (`repro/core/overlap.py:36-45, :424`); an all-reduce whose backward is
+  also an all-reduce counts the gradient n1 times.
+* `all_to_all_units` — ``jax.lax.all_to_all`` with per-peer split sizes
+  (`all_to_all_single`), the reshard's and the transitions' message route.
+* `all_gather_units` — the canonical gather of a replica's unit buffers.
+
+Every call adds one to its (op, group) counter and its payload bytes to the
+same counter (`counts`, `reset_counts`): an all-reduce's tensor, an
+all-to-all's send buffer (the part to itself included), an all-gather's
+input. A group is named by its ``group_desc`` (``"model"`` / ``"data"`` for
+`launch.mesh.make_test_mesh`'s groups).
+
+Every collective takes the tensors where they lie: gloo takes CUDA tensors
+for `all_reduce`, `all_to_all_single` with uneven splits and `all_gather`
+(probed on an H100 with torch 2.11, `chip_smoke.py` phase 10 checks it each
+run), so nothing is staged through host buffers here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+_counts: Dict[Tuple[str, str], list] = {}
+
+
+def group_name(group) -> str:
+    return getattr(group, "group_desc", None) or "default"
+
+
+def _count(op: str, group, nbytes: int) -> None:
+    c = _counts.setdefault((op, group_name(group)), [0, 0])
+    c[0] += 1
+    c[1] += int(nbytes)
+
+
+def counts() -> Dict[Tuple[str, str], Tuple[int, int]]:
+    """(calls, bytes) per (op, group) since the last `reset_counts`."""
+    return {k: (v[0], v[1]) for k, v in _counts.items()}
+
+
+def reset_counts() -> None:
+    _counts.clear()
+
+
+def psum_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum of ``x`` over ``group`` (a contiguous tensor); returns
+    ``x``."""
+    _count("all_reduce", group, x.numel() * x.element_size())
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.psum(x, axis)``: a fresh tensor, ``x`` summed over
+    ``group``."""
+    return psum_(x.contiguous().clone(), group)
+
+
+def all_to_all_units(send: torch.Tensor, send_counts: Sequence[int],
+                     recv_counts: Sequence[int], group) -> torch.Tensor:
+    """Rows ``send[sum(send_counts[:j]) : ...]`` go to peer j of ``group``;
+    returns the rows received, peer by peer (``recv_counts[j]`` from peer
+    j). Zero counts are legal; every peer must call with matching counts."""
+    send = send.contiguous()
+    out = send.new_empty((sum(recv_counts),) + tuple(send.shape[1:]))
+    _count("all_to_all", group, send.numel() * send.element_size())
+    dist.all_to_all_single(out, send, output_split_sizes=list(recv_counts),
+                           input_split_sizes=list(send_counts), group=group)
+    return out
+
+
+def all_gather_units(x: torch.Tensor, group) -> torch.Tensor:
+    """(group size, *x.shape): every peer's ``x``, in group-rank order."""
+    x = x.contiguous()
+    n = dist.get_world_size(group)
+    _count("all_gather", group, x.numel() * x.element_size())
+    out = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather(list(out.unbind(0)), x, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce over ``group`` backward: a tensor-
+    parallel block's input."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce over ``group`` forward, identity backward: a tensor-
+    parallel block's output (its ranks' partial sums)."""
+    return _ReduceFromModel.apply(x, group)

@@ -31,6 +31,17 @@ pipeline, and ``microbatches`` chunks of the local batch walk it one after
 another, their token-loss totals summed before the one normalization. The
 1F1B bubble is analytic (`core.perf_model`), not measured.
 
+The process path (`make_rank_train_step`, on a `launch.mesh.RankMesh`)
+runs the reference's shard_map body for real: one process per (replica,
+rank) holds its own ``(buf, *unit)`` slots (`pack_rank_params`) and the
+replicated leaves, ``psum('model')`` is an all-reduce over the model group
+wrapped in the Megatron pair (`core.collectives`), and autograd runs per
+rank. Each rank's loss for autograd is its replica's token-loss total over
+the GLOBAL count (totals and counts summed over ``data``, as the reference
+sums them), so its gradients are its replica's share of the global
+gradient; the sync (`core.overlap.make_sync_grads` on the mesh) sums them
+over ``data``.
+
 Also the DP-DROP baseline and a dense single-logical-copy reference
 (`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) waits
 for a later slice (ROADMAP Queue 1).
@@ -47,8 +58,10 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tr
 from repro_torch.configs.shapes import layer_stages
+from repro_torch.core import collectives as C
 from repro_torch.core import nonuniform as nu
 from repro_torch.kernels import mode as kmode
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.optim.base import Optimizer, sgd
 
 
@@ -188,9 +201,11 @@ def _pack_unit(w: torch.Tensor, wp: nu.WeightPlan) -> torch.Tensor:
 
 def _unpack_unit(w: torch.Tensor, wp: nu.WeightPlan,
                  replica: int) -> torch.Tensor:
+    """Replica ``replica``'s buffers ``w`` (n1*buf, *unit) -> canonical
+    (k, *unit)."""
     pos, uid = _slot_index(wp, replica, w.device)
-    out = w.new_zeros((wp.k,) + tuple(w.shape[2:]))
-    out.index_copy_(0, uid, w[replica].index_select(0, pos))
+    out = w.new_zeros((wp.k,) + tuple(w.shape[1:]))
+    out.index_copy_(0, uid, w.index_select(0, pos))
     return out
 
 
@@ -222,8 +237,72 @@ def unpack_params(cfg: NTPModelConfig, packed: Dict, fplan,
             layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
             for k in UNIT_KEYS:
                 wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
-                layer[k] = _unpack_unit(lp[k], wp, replica)
+                layer[k] = _unpack_unit(lp[k][replica], wp, replica)
             out["layers"].append(layer)
+    return out
+
+
+def _pp1(plan) -> nu.FailurePlan:
+    """The process path's plan: a `FailurePlan` (a pp=1 `StagedPlan` is
+    unwrapped); pp>1 on process groups waits for its slice."""
+    if isinstance(plan, nu.StagedPlan):
+        if plan.pp != 1:
+            raise NotImplementedError(
+                "pp>1 on process groups (per-stage groups, core/pp_submesh) "
+                "is not ported yet: ROADMAP Queue 1, 'pp>1 in the port'")
+        plan = plan.stages[0]
+    return plan
+
+
+def pack_rank_params(cfg: NTPModelConfig, canonical: Dict, plan,
+                     replica: int, rank: int) -> Dict:
+    """Canonical -> the packed tree of one (replica, rank) process: unit
+    leaves ``(buf, *unit)``, equal to slice ``[replica, rank]`` of
+    `pack_params`' ``(D, n1, buf, *unit)`` view; replicated leaves copied.
+    A failed rank holds only pad slots (zeros)."""
+    plans = _plans(cfg, _pp1(plan))
+    with torch.no_grad():
+        out = {k: canonical[k].clone() for k in ("embed", "head", "final_norm")}
+        out["layers"] = []
+        for lp in canonical["layers"]:
+            layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
+            for k in UNIT_KEYS:
+                wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
+                sl = wp.comp_slots[replica, rank]
+                pos = np.nonzero(sl >= 0)[0]
+                w = lp[k]
+                layer[k] = w.new_zeros((wp.buf,) + tuple(w.shape[1:]))
+                layer[k].index_copy_(
+                    0, torch.as_tensor(pos, device=w.device),
+                    w.index_select(0, torch.as_tensor(sl[pos], device=w.device)))
+            out["layers"].append(layer)
+    return out
+
+
+def unpack_rank_params(cfg: NTPModelConfig, packed: Dict, plan,
+                       mesh: RankMesh, device=None) -> Dict:
+    """This process's replica's canonical weights from its packed tree:
+    every unit leaf is gathered over the replica's model group (a
+    collective: every process of the replica calls it, leaf by leaf in
+    flatten order). Each leaf lands on ``device`` (default: where it lies)
+    as soon as it is gathered, so the card holds one gathered leaf at a
+    time when ``device`` is the CPU."""
+    plans = _plans(cfg, _pp1(plan))
+
+    def leaf(path, w):
+        key = tr.leaf_key(path)
+        dev = w.device if device is None else device
+        if key not in UNIT_KEYS:
+            return w.detach().to(dev, copy=True)
+        wp = plans["mlp"] if key in ("A", "B") else plans["attn"]
+        g = C.all_gather_units(w.detach(), mesh.model)
+        return _unpack_unit(g.reshape((-1,) + tuple(w.shape[1:])), wp,
+                            mesh.replica).to(dev)
+
+    out = tr.tree_map(lambda x: None, packed)
+    with torch.no_grad():
+        for path, w in tr.leaves_with_path(packed):
+            tr.set_path(out, path, leaf(path, w))
     return out
 
 
@@ -367,6 +446,116 @@ def make_reference_loss(cfg: NTPModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# forward on one (replica, rank) process: unit leaves (buf, *unit),
+# activations (B, S, d); the local math is the emulated code at D = n1 = 1
+
+def _rank_view(lp) -> Dict:
+    return {k: (v[None] if k in UNIT_KEYS else v) for k, v in lp.items()}
+
+
+def _attn_rank(lp, h, cfg: NTPModelConfig, group):
+    """The attention block of one rank's kv-group slots, between the
+    Megatron pair: its output is summed over the model group."""
+    y = _attn_local(_rank_view(lp), C.copy_to_model(h, group)[None], cfg, 1)
+    return C.reduce_from_model(y[0], group)
+
+
+def _mlp_rank(lp, h, group):
+    y = _mlp_local(_rank_view(lp), C.copy_to_model(h, group)[None], 1)
+    return C.reduce_from_model(y[0], group)
+
+
+def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group):
+    """One rank's forward over its replica's local batch. tokens: (B, S+1)
+    int64; sample_mask: (B,) f32. Returns the replica's (token-loss total,
+    token count), scalars (every rank of the replica computes the same)."""
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    x = params["embed"][inp]
+    for lp in params["layers"]:
+        x = x + _attn_rank(lp, _rms(x, lp["ln1"]), cfg, group)
+        x = x + _mlp_rank(lp, _rms(x, lp["ln2"]), group)
+    total, count = _tail_totals(params["final_norm"], params["head"], x[None],
+                                tgt[None], sample_mask[None])
+    return total[0], count[0]
+
+
+def rank_grad_norm(grads, mesh: RankMesh) -> torch.Tensor:
+    """The global gradient norm from one rank's synced gradients: unit
+    leaves summed over the model group (every replica holds the same synced
+    units, so one replica's are counted), replicated leaves counted once."""
+    unit = rep = None
+    for path, g in tr.leaves_with_path(grads):
+        # no gradient-sized temporary (embed's and head's are GBs a rank)
+        sq = torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+        if tr.leaf_key(path) in UNIT_KEYS:
+            unit = sq if unit is None else unit + sq
+        else:
+            rep = sq if rep is None else rep + sq
+    return torch.sqrt(rep + C.psum(unit, mesh.model))
+
+
+def make_rank_train_step(
+    cfg: NTPModelConfig,
+    fplan,
+    mesh: RankMesh,
+    *,
+    mode: Union[Mode, str] = Mode.NTP,
+    local_batch: int = 4,
+    optimizer: Optional[Optimizer] = None,
+    local_batches=None,
+):
+    """The step of one (replica, rank) process, with the reference's
+    contract ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``params`` is this rank's packed tree (`pack_rank_params`),
+    ``batch`` the GLOBAL (D*local_batch, S+1) token array, of which the
+    rank takes its replica's rows. ``loss`` and ``grad_norm`` are the global
+    ones, equal on every rank. The gradient sync is the sequential per-leaf
+    one (`core.overlap.make_sync_grads` on the mesh)."""
+    fplan = _pp1(fplan)
+    if (fplan.d, fplan.n1) != tuple(mesh):
+        raise ValueError(f"plan {fplan} does not fit mesh {tuple(mesh)}")
+    mode = Mode.coerce(mode)
+    optimizer = optimizer or sgd(1e-2)
+    lb = _validated_local_batches(local_batches, fplan, mode, local_batch,
+                                  fplan.d)
+    d = mesh.replica
+    masks = _sample_masks(lb)
+
+    def loss_and_grads(params, batch):
+        """Global loss and this rank's pre-sync gradients: unit leaves its
+        replica's share for its slots, replicated leaves its replica's
+        share (the Megatron pair makes them equal over the model group)."""
+        dev = params["embed"].device
+        rows = batch.shape[0] // fplan.d
+        tokens = torch.as_tensor(batch[d * rows:(d + 1) * rows],
+                                 device=dev).long()
+        mask = masks(rows, dev)[d]
+        leaves = _grad_leaves(params)
+        total, count = _rank_totals(cfg, leaves, tokens, mask, mesh.model)
+        tc = C.psum(torch.stack([total.detach(), count]), mesh.data)
+        denom = torch.clamp(tc[1], min=1.0)
+        grads = torch.autograd.grad(total / denom, tr.leaves(leaves))
+        return tc[0] / denom, _unflatten_like(leaves, grads)
+
+    from repro_torch.core import overlap as ov
+
+    sync_grads = ov.make_sync_grads(cfg, fplan, mode=mode, mesh=mesh)
+
+    def step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch)
+        grads = sync_grads(grads)
+        params, opt_state, metrics = optimizer.update(
+            grads, opt_state, params, grad_norm=rank_grad_norm(grads, mesh))
+        return params, opt_state, dict(metrics, loss=loss)
+
+    step.overlap = False
+    step.collectives = sync_grads.collectives
+    step.grads_fn = loss_and_grads
+    step.sync_fn = sync_grads
+    return step
+
+
+# ---------------------------------------------------------------------------
 # train step builder
 
 def _norm_weights(grads, d_axis: int):
@@ -494,7 +683,23 @@ def make_ntp_train_step(
     (`core.overlap.make_overlapped_train_step`): the backward is layer-
     chunked and each chunk's bucket sync is issued while the previous
     chunk's backward runs. ``local_batches`` overrides the per-replica
-    usable samples (bounds-checked); default is the mode's own rule."""
+    usable samples (bounds-checked); default is the mode's own rule.
+
+    On a `launch.mesh.RankMesh` the step is this process's rank step
+    (`make_rank_train_step`: pp=1, sequential sync)."""
+    if isinstance(mesh, RankMesh):
+        if overlap:
+            raise NotImplementedError(
+                "the overlapped sync on process groups (backward hooks, "
+                "async all_reduce per bucket) is not ported yet: ROADMAP "
+                "Queue 1, 'overlapped sync on process groups'")
+        if microbatches != 1:
+            raise NotImplementedError(
+                "microbatches on process groups come with pp>1 there: "
+                "ROADMAP Queue 1, 'pp>1 in the port'")
+        return make_rank_train_step(
+            cfg, fplan, mesh, mode=mode, local_batch=local_batch,
+            optimizer=optimizer, local_batches=local_batches)
     if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
         fplan = fplan.stages[0]
     if mesh is not None and tuple(mesh) != (fplan.d, fplan.n1):

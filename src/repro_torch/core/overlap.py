@@ -176,7 +176,8 @@ def _bucket_syncers(staged: nu.StagedPlan, stage_plans, mode):
     return issue, complete
 
 
-def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False):
+def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
+                    mesh=None):
     """The gradient-sync body shared by the step builders: each layer's unit
     grads reshard → psum('data') → reshard under its own stage's plan; a
     healthy stage (or a non-NTP mode) takes the plain sum over replicas.
@@ -186,7 +187,17 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False):
     ``bucketed=False`` is the sequential per-leaf route; ``bucketed=True``
     fuses each (stage, plan-kind) group into one flat payload via the bucket
     kernels. The returned callable carries ``.collectives`` (static launch
-    count) and ``.bucketed``."""
+    count) and ``.bucketed``.
+
+    On a `launch.mesh.RankMesh` ``mesh`` the sync is this process's
+    (`_make_rank_sync`): pp=1, per leaf."""
+    if mesh is not None:
+        if bucketed:
+            raise NotImplementedError(
+                "the bucketed, overlapped sync on process groups is not "
+                "ported yet: ROADMAP Queue 1, 'overlapped sync on process "
+                "groups'")
+        return _make_rank_sync(cfg, staged, mode, mesh)
     staged = nu.as_staged(staged)
     mode = nt.Mode.coerce(mode)
     stage_of = layer_stages(cfg.n_layers, staged.pp)
@@ -233,6 +244,48 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False):
     sync_grads.collectives = sync_collectives(cfg, staged, mode,
                                               bucketed=True)
     sync_grads.bucketed = True
+    return sync_grads
+
+
+def _make_rank_sync(cfg, plan, mode, mesh):
+    """The sequential per-leaf sync of one (replica, rank) process, in
+    flatten order on every rank (a collective order every rank shares):
+    each unit leaf's gradient (buf, *unit) reshards → sums over data →
+    reshards (`core.reshard.ntp_sync_gradient_rank`) on a degraded NTP
+    plan, and sums over data otherwise — ``.collectives`` of them, as
+    `sync_collectives(bucketed=False)` counts; then each replicated leaf
+    (held whole by every rank, its replica's share) sums over data:
+    ``.replicated_collectives`` more all-reduces. Gradients are synced in
+    place where the route allows."""
+    plan = nt._pp1(plan)
+    mode = nt.Mode.coerce(mode)
+    plans = nt._plans(cfg, plan)
+    degraded = mode is nt.Mode.NTP and not plan.healthy
+
+    def sync_unit(key, g):
+        if not degraded:
+            return rs.uniform_sync_gradient_rank(g, mesh)
+        wp = plans["attn" if key in _ATTN_KEYS else "mlp"]
+        return rs.ntp_sync_gradient_rank(g.reshape(wp.buf, -1), wp,
+                                         mesh).reshape(g.shape)
+
+    @torch.no_grad()
+    def sync_grads(grads):
+        out = tr.tree_map(lambda g: g, grads)
+        leaves = list(tr.leaves_with_path(grads))
+        for path, g in leaves:
+            if tr.leaf_key(path) in nt.UNIT_KEYS:
+                tr.set_path(out, path, sync_unit(tr.leaf_key(path), g))
+        for path, g in leaves:
+            if tr.leaf_key(path) not in nt.UNIT_KEYS:
+                tr.set_path(out, path,
+                            rs.uniform_sync_gradient_rank(g, mesh))
+        return out
+
+    sync_grads.collectives = sync_collectives(cfg, plan, mode,
+                                              bucketed=False)
+    sync_grads.replicated_collectives = 3 + 2 * cfg.n_layers
+    sync_grads.bucketed = False
     return sync_grads
 
 

@@ -1,0 +1,116 @@
+"""The (data, model) mesh as process groups (port of
+`repro/launch/mesh.py::make_test_mesh`).
+
+The reference lays its devices out as a ``("data", "model")`` jax mesh and
+runs the training step under shard_map. The port's process path runs one
+process per (replica, rank): global rank ``replica * n_model + rank``, as
+the reference's row-major mesh. Each process joins two groups:
+
+* ``model`` — the ``n_model`` processes of its replica, the scale-up domain
+  (the reshard all-to-all and the Megatron pair's all-reduce);
+* ``data`` — the ``n_data`` processes holding the same model rank of every
+  replica (the gradient sum, ``psum('data')``).
+
+The groups are plain `new_subgroups_by_enumeration` groups: a 2-D
+`DeviceMesh` binds one device to each process, and on one card every
+process of a gloo run shares ``cuda:0``. ``backend`` is the caller's choice,
+never inferred: ``"nccl"`` needs one CUDA device per process and raises
+with fewer; ``"gloo"`` takes CPU tensors, or CUDA tensors on a shared card.
+`make_staged_mesh` (per-stage groups) waits for the pipeline slice
+(ROADMAP Queue 1 item 3).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Union
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("gloo", "nccl")
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """This process's place in a (data=n_data, model=n_model) mesh of
+    processes, its two groups and its device."""
+
+    n_data: int
+    n_model: int
+    replica: int
+    rank: int
+    data: dist.ProcessGroup
+    model: dist.ProcessGroup
+    device: torch.device
+    backend: str
+
+    def __iter__(self):
+        """``tuple(mesh)`` is the mesh shape ``(n_data, n_model)``, as the
+        emulated path's ``mesh`` argument."""
+        return iter((self.n_data, self.n_model))
+
+    @property
+    def global_rank(self) -> int:
+        return self.replica * self.n_model + self.rank
+
+
+def check_backend(backend: str, world: int,
+                  device: Union[str, torch.device]) -> torch.device:
+    """The device a process of a ``world``-process run on ``backend`` uses
+    (before any rank is known: CUDA index 0 stands for the local rank's
+    card under NCCL). Raises for an unknown backend, for NCCL on the CPU,
+    and for NCCL with fewer CUDA devices than processes (NCCL refuses two
+    ranks on one device)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: use one of {BACKENDS}")
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the ranks on the CPU")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("backend 'nccl' needs CUDA tensors: use "
+                             "backend='gloo' for device='cpu'")
+        if torch.cuda.device_count() < world:
+            raise RuntimeError(
+                f"backend 'nccl' needs one CUDA device per process: {world} "
+                f"processes, {torch.cuda.device_count()} devices (use "
+                f"backend='gloo' to share one card)")
+    return dev
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4, *, backend: str,
+                   device: Union[str, torch.device]) -> RankMesh:
+    """This process's `RankMesh` over the initialized default group of
+    ``n_data * n_model`` processes (`launch.spawn`). Every process must call
+    it, in the same order as every other group it makes. Under NCCL each
+    process takes the card of its local rank; under gloo every process uses
+    ``device`` as given."""
+    if not dist.is_initialized():
+        raise RuntimeError("no default process group: start the ranks with "
+                           "repro_torch.launch.spawn (or torchrun)")
+    world = n_data * n_model
+    if dist.get_world_size() != world:
+        raise ValueError(f"mesh ({n_data}, {n_model}) needs {world} "
+                         f"processes, the group has {dist.get_world_size()}")
+    if dist.get_backend() != backend:
+        raise ValueError(f"the default group runs {dist.get_backend()!r}, "
+                         f"the mesh asks for {backend!r}")
+    dev = check_backend(backend, world, device)
+    g = dist.get_rank()
+    replica, rank = divmod(g, n_model)
+    if backend == "nccl":
+        dev = torch.device("cuda", g % torch.cuda.device_count())
+    elif dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    model, _ = dist.new_subgroups_by_enumeration(
+        [[d * n_model + r for r in range(n_model)] for d in range(n_data)],
+        backend=backend, group_desc="model")
+    data, _ = dist.new_subgroups_by_enumeration(
+        [[d * n_model + r for d in range(n_data)] for r in range(n_model)],
+        backend=backend, group_desc="data")
+    return RankMesh(n_data, n_model, replica, rank, data, model, dev, backend)

@@ -18,6 +18,12 @@ Examples:
       --pp 2 --microbatches 2 --steps 4 --fail-at 2 --fail-stage 1 \\
       --seq-len 16 --batch 2
 
+  # ranks as processes: 2 replicas x TP 2 in 4 spawned processes on gloo
+  # (CPU tensors here; --device cuda puts all four on one card), or the
+  # same under torchrun (RANK / WORLD_SIZE in the environment)
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
+      --nproc 4 --mesh 2x2 --backend gloo --steps 6 --fail-at 3
+
   # replay a mixed failure trace (fail -> boost -> repair, stragglers,
   # degraded links, SDC quarantine and rollback) under NTP-PW, with
   # canonical checkpoints and a telemetry stream
@@ -28,7 +34,10 @@ Examples:
 
 The (data, model) mesh is emulated on one device: ``--devices N`` sets the
 emulated ranks, as a (2, N/2) mesh; ``--pp`` splits the layers into
-pipeline stages, every rank playing each stage in turn. The uniform
+pipeline stages, every rank playing each stage in turn. ``--nproc N --mesh
+DxN1 --backend {gloo,nccl}`` runs each (replica, rank) as a process of one
+process group instead (`launch.spawn`; pp=1, fail/repair, the sequential
+sync); rank 0 prints. The uniform
 arch-stack launcher (``--arch``) and the global allocator
 (``--allocator greedy``) wait for their slices (ROADMAP).
 """
@@ -101,6 +110,16 @@ def main(argv=None) -> dict:
                     help="emulated ranks of the (2, n/2) mesh (default 8)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain kernel versions)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="run the ranks as N processes of one process group "
+                         "(spawned, or joined under torchrun)")
+    ap.add_argument("--mesh", default=None, metavar="DxN1",
+                    help="the (data, model) mesh of --nproc processes "
+                         "(default 2x(N/2))")
+    ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                    help="process-group backend of --nproc (required with "
+                         "it): nccl needs one card per process, gloo shares "
+                         "one card or runs on the CPU")
     args = ap.parse_args(argv)
     if not args.ntp:
         ap.error("only --ntp is ported: the uniform arch-stack launcher "
@@ -135,6 +154,10 @@ def main(argv=None) -> dict:
             args.trace_mix_kwargs = parse_trace_mix(args.trace_mix)
         except ValueError as e:
             ap.error(f"--trace-mix: {e}")
+    if args.nproc:
+        return _run_ranks(ap, args)
+    if args.mesh or args.backend:
+        ap.error("--mesh and --backend need --nproc")
     if args.telemetry:
         from repro_torch import telemetry
 
@@ -157,9 +180,7 @@ def _run_ntp(args) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels.mode import resolve_device
     from repro_torch.optim import AdamWConfig, adamw
-    from repro_torch.runtime import (
-        FailureEvent, NTPModelConfig, NTPSession, power_policy,
-    )
+    from repro_torch.runtime import NTPSession, power_policy
 
     dev = resolve_device(args.device)
     n_dev = args.devices or 8
@@ -170,11 +191,7 @@ def _run_ntp(args) -> dict:
             f"--fail-replica {args.fail_replica} out of range for 2 DP replicas"
         )
     n1 = n_dev // 2
-    cfg = NTPModelConfig(
-        d_model=256, n_kv_groups=2 * n1, q_per_kv=2, head_dim=32,
-        d_ff=max(512, 128 * n1), unit_rows=128,
-        n_layers=max(2, 2 * args.pp), vocab=2048,
-    )
+    cfg = _model(args, n1)
     policy_name = args.power_policy or ("ntp" if args.trace is not None
                                         else None)
     session = NTPSession.create(
@@ -201,6 +218,13 @@ def _run_ntp(args) -> dict:
     )
     if args.trace is not None:
         return _run_ntp_trace(args, session, pipe)
+    return _train_loop(args, session, pipe, print)
+
+
+def _train_loop(args, session, pipe, log) -> dict:
+    """Steps with the optional injected failure, log lines through
+    ``log``, checkpoints; returns the per-step losses and the final plan."""
+    from repro_torch.runtime import FailureEvent
 
     losses = []
     t0 = time.time()
@@ -212,14 +236,14 @@ def _run_ntp(args) -> dict:
             )
             stage_s = (f"stage={args.fail_stage}, "
                        if args.fail_stage is not None else "")
-            print(f"*** step {i}: FailureEvent(replica={args.fail_replica}, "
-                  f"{stage_s}n_gpus={args.fail_gpus}) "
-                  f"-> plan {plan} mode {session.mode.value}")
+            log(f"*** step {i}: FailureEvent(replica={args.fail_replica}, "
+                f"{stage_s}n_gpus={args.fail_gpus}) "
+                f"-> plan {plan} mode {session.mode.value}")
         metrics = session.step(pipe._batch_np(i))
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:
             srel = metrics.get("stage_rel_iter_time")
-            print(
+            log(
                 f"step {i:5d}  loss {losses[-1]:.4f}  "
                 f"gnorm {float(metrics['grad_norm']):.3f}  "
                 + (f"stage_rel {tuple(round(r, 3) for r in srel)}  "
@@ -228,11 +252,87 @@ def _run_ntp(args) -> dict:
             )
         if args.ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
             session.save(args.ckpt)
-            print(f"  saved canonical checkpoint -> {args.ckpt}")
+            log(f"  saved canonical checkpoint -> {args.ckpt}")
     if args.ckpt:
         session.save(args.ckpt)
-        print(f"final canonical checkpoint -> {args.ckpt}")
+        log(f"final canonical checkpoint -> {args.ckpt}")
     return {"losses": losses, "plan": session.plan}
+
+
+def _model(args, n1: int):
+    from repro_torch.runtime import NTPModelConfig
+
+    return NTPModelConfig(
+        d_model=256, n_kv_groups=2 * n1, q_per_kv=2, head_dim=32,
+        d_ff=max(512, 128 * n1), unit_rows=128,
+        n_layers=max(2, 2 * args.pp), vocab=2048,
+    )
+
+
+# a run of the ranks as processes is killed after this long
+RANKS_DEADLINE_S = 3600.0
+
+
+def _run_ranks(ap, args) -> dict:
+    """``--nproc``: check the flags, then run `_rank_main` in every process
+    (spawned, or this one under torchrun); returns rank 0's result (this
+    process's own under torchrun)."""
+    from repro_torch.launch.spawn import spawn
+
+    if args.backend is None:
+        ap.error("--nproc needs --backend gloo or --backend nccl")
+    try:
+        d, n1 = (int(x) for x in (args.mesh or f"2x{args.nproc // 2}")
+                 .lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh}: expected DxN1, e.g. 2x2")
+    if d < 1 or n1 < 1 or d * n1 != args.nproc:
+        ap.error(f"--mesh {d}x{n1} is not --nproc {args.nproc} processes")
+    if args.fail_at is not None and not 0 <= args.fail_replica < d:
+        ap.error(f"--fail-replica {args.fail_replica} out of range for {d} "
+                 "replicas")
+    for flag, on in (("--pp", args.pp > 1), ("--overlap on",
+                                             args.overlap == "on"),
+                     ("--trace", args.trace is not None),
+                     ("--power-policy", args.power_policy is not None),
+                     ("--spares", args.spares > 0),
+                     ("--telemetry", args.telemetry is not None),
+                     ("--devices", args.devices > 0)):
+        if on:
+            ap.error(f"{flag} is not ported to the process path yet "
+                     "(ROADMAP Queue 1, item 3)")
+    args.mesh_shape = (d, n1)
+    device = args.device or "cuda"
+    out = spawn(_rank_main, args.nproc, backend=args.backend, device=device,
+                deadline_s=RANKS_DEADLINE_S, args=(args, device))
+    return out[0]
+
+
+def _rank_main(args, device) -> dict:
+    """One (replica, rank) process of ``--nproc``: the mesh, the session
+    and the steps; global rank 0 prints."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.runtime import NTPSession
+
+    d, n1 = args.mesh_shape
+    mesh = make_test_mesh(d, n1, backend=args.backend, device=device)
+    log = print if mesh.global_rank == 0 else (lambda *a, **k: None)
+    session = NTPSession.create(
+        _model(args, n1), mesh, local_batch=args.batch,
+        optimizer=adamw(AdamWConfig(lr=args.lr)),
+        generator=torch.Generator(device=mesh.device).manual_seed(args.seed),
+    )
+    log(f"ntp prototype: processes {args.nproc} (mesh data={d} model={n1}, "
+        f"{args.backend})  plan {session.plan}  device {mesh.device}",
+        flush=True)
+    pipe = SyntheticLMPipeline(
+        DataConfig(session.cfg.vocab, args.seq_len, d * args.batch,
+                   seed=args.seed))
+    return _train_loop(args, session, pipe, log)
 
 
 def _run_ntp_trace(args, session, pipe) -> dict:

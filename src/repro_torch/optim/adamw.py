@@ -58,11 +58,13 @@ def global_norm(tree, norm_weights=None) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0,
-                 norm_weights=None):
+                 norm_weights=None, grad_norm=None):
     """Returns (params, state, metrics); params and moments are updated in
-    place (see the module docstring)."""
+    place (see the module docstring). ``grad_norm``, when given, is the
+    global norm to clip by (the process path sums it over ranks)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, norm_weights)
+    gnorm = global_norm(grads, norm_weights) if grad_norm is None \
+        else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

@@ -12,6 +12,9 @@ what moved and is bit-identical to the reference's on the same trees.
 `transition_staged_trees` does the same stage by stage for a pipeline-
 parallel job: each stage's layers move under that stage's own plans, so a
 stage-local event moves nothing of any other stage.
+`transition_rank_trees` is the per-rank form on a `launch.mesh.RankMesh`:
+each process moves its own slots, and the messages of every unit leaf to
+one peer travel in one `all_to_all_units` over the replica's model group.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.configs.shapes import stage_boundaries
+from repro_torch.core import collectives as C
 from repro_torch.core import nonuniform as nu
 from repro_torch.reshard import planner
 from repro_torch.reshard.twin import TransferStats, apply_plan
@@ -69,13 +73,7 @@ def transition_trees(
     plans = {s.k: replica_transition_plans(s.k, old, new)
              for s in set(specs.values())}
     n1, d_axis = old.n1, old.d
-
-    groups: Dict[int, List[Tuple[int, tr.Path, torch.Tensor]]] = {}
-    for ti, t in enumerate(trees):
-        for path, leaf in tr.leaves_with_path(t):
-            spec = specs.get(tr.leaf_key(path))
-            if spec is not None:
-                groups.setdefault(spec.k, []).append((ti, path, leaf))
+    groups = _unit_groups(cfg, trees)
 
     outs = [tr.tree_map(lambda x: None, t) for t in trees]
     with torch.no_grad():
@@ -104,6 +102,131 @@ def transition_trees(
                 if tr.leaf_key(path) not in specs:
                     tr.set_path(outs[ti], path, leaf.clone())
     return outs, stats
+
+
+def _unit_groups(cfg, trees):
+    """{k: [(tree index, path, leaf), ...]} of every unit leaf of
+    ``trees``, in flatten order (the order every rank shares)."""
+    specs = ntp_unit_specs(cfg)
+    groups: Dict[int, List[Tuple[int, tr.Path, torch.Tensor]]] = {}
+    for ti, t in enumerate(trees):
+        for path, leaf in tr.leaves_with_path(t):
+            spec = specs.get(tr.leaf_key(path))
+            if spec is not None:
+                groups.setdefault(spec.k, []).append((ti, path, leaf))
+    return groups
+
+
+def _rank_ledger(groups, plans, n1: int) -> TransferStats:
+    """The whole mesh's `TransferStats` of a transition, computed from the
+    plans and one rank's leaf shapes (every rank's buffers share them):
+    `apply_plan`'s accounting, replica by replica."""
+    stats = TransferStats()
+    for k, members in groups.items():
+        leaves = [leaf for _, _, leaf in members]
+        for d, p in enumerate(plans[k]):
+            stats.stayed_units += p.n_stay * len(leaves)
+            stats.dense_bytes += sum(n1 * x.numel() * x.element_size()
+                                     for x in leaves)
+            for s, t in p.pairs:
+                n_units = int(((p.move_src_rank == s)
+                               & (p.move_dst_rank == t)).sum())
+                key = (d, s, t)
+                if key not in stats.per_pair:
+                    stats.messages += 1
+                stats.moved_units += n_units * len(leaves)
+                stats.per_pair[key] = stats.per_pair.get(key, 0) + n_units
+                stats.bytes_moved += sum(n_units * x[0].numel()
+                                         * x.element_size() for x in leaves)
+    return stats
+
+
+def transition_rank_trees(
+    cfg, trees: Sequence[Dict], old: nu.FailurePlan, new: nu.FailurePlan,
+    mesh,
+) -> Tuple[List[Dict], TransferStats]:
+    """`transition_trees` on one (replica, rank) process (a collective of
+    every process): its unit leaves (src_buf, *unit) become (dst_buf,
+    *unit) under ``new``. Stays are rank-local slot renames; the movers of
+    every unit leaf of every tree to one peer form one message, all of them
+    sent by one `all_to_all_units` over the replica's model group (one per
+    dtype when the trees mix dtypes), zero-length where nothing moves.
+    Replicated leaves pass through as they are (not copied: the caller
+    drops its old trees). Returns the trees and the whole mesh's
+    `TransferStats`, equal to the emulated transition's."""
+    if old.n1 != mesh.n_model or old.d != mesh.n_data:
+        raise ValueError(f"plan {old} does not fit mesh {tuple(mesh)}")
+    groups = _unit_groups(cfg, trees)
+    plans = {k: replica_transition_plans(k, old, new) for k in groups}
+    stats = _rank_ledger(groups, plans, mesh.n_model)
+    d, r, n = mesh.replica, mesh.rank, mesh.n_model
+    outs = [tr.tree_map(lambda x: x, t) for t in trees]
+    with torch.no_grad():
+        fresh = {}
+        for k, members in groups.items():
+            p = plans[k][d]
+            stay = p.stay_rank == r
+            for ti, path, leaf in members:
+                if leaf.shape[0] != p.src_buf:
+                    raise ValueError(f"leaf {tuple(leaf.shape)} is not "
+                                     f"packed at buf={p.src_buf}")
+                o = leaf.new_zeros((p.dst_buf,) + tuple(leaf.shape[1:]))
+                o[_rows(p.stay_dst_slot[stay], o)] = \
+                    leaf[_rows(p.stay_src_slot[stay], o)]
+                fresh[(ti, path)] = o
+        for dtype in sorted({m[2].dtype for ms in groups.values()
+                             for m in ms}, key=str):
+            _exchange(groups, plans, fresh, dtype, d, r, n, mesh.model)
+        for (ti, path), o in fresh.items():
+            tr.set_path(outs[ti], path, o)
+    return outs, stats
+
+
+def _rows(slots, like) -> torch.Tensor:
+    return torch.as_tensor(slots, device=like.device).long()
+
+
+def _moves(p, src: int, dst: int):
+    sel = (p.move_src_rank == src) & (p.move_dst_rank == dst)
+    return p.move_src_slot[sel], p.move_dst_slot[sel]
+
+
+def _exchange(groups, plans, fresh, dtype, d, r, n, group) -> None:
+    """One all-to-all of every ``dtype`` unit leaf's movers: rank r's
+    message to peer j holds, family by family and leaf by leaf, the rows of
+    the units moving r -> j (flattened); it scatters what it receives from
+    each peer into ``fresh``."""
+    members = {k: [m for m in ms if m[2].dtype == dtype]
+               for k, ms in groups.items()}
+    send, send_counts, recv_counts = [], [], []
+    for j in range(n):               # a plan never moves a unit to itself
+        sent = received = 0
+        for k, ms in members.items():
+            src_slots = _moves(plans[k][d], r, j)[0]
+            n_in = len(_moves(plans[k][d], j, r)[1])
+            for _, _, leaf in ms:
+                e = leaf[0].numel()
+                if len(src_slots):
+                    send.append(leaf.index_select(
+                        0, _rows(src_slots, leaf)).reshape(-1))
+                sent += len(src_slots) * e
+                received += n_in * e
+        send_counts.append(sent)
+        recv_counts.append(received)
+    like = next(m[2] for ms in members.values() for m in ms)
+    flat = torch.cat(send) if send else like.new_zeros((0,))
+    recv = C.all_to_all_units(flat, send_counts, recv_counts, group)
+    off = 0
+    for j in range(n):
+        for k, ms in members.items():
+            dst_slots = _moves(plans[k][d], j, r)[1]
+            for ti, path, leaf in ms:
+                size = len(dst_slots) * leaf[0].numel()
+                if size:
+                    o = fresh[(ti, path)]
+                    o[_rows(dst_slots, o)] = recv[off:off + size].reshape(
+                        (len(dst_slots),) + tuple(leaf.shape[1:]))
+                off += size
 
 
 def transition_params(

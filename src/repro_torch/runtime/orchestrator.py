@@ -269,6 +269,10 @@ class TraceRunner:
         on_event: Optional[Callable[[LifecycleEvent, FailurePlan], None]] = None,
         drain_every: int = 16,
     ):
+        if getattr(session, "rank_mesh", None) is not None:
+            raise NotImplementedError(
+                "TraceRunner: trace replay on process groups is not ported "
+                "yet (ROADMAP Queue 1: 'lifecycle on process groups')")
         self.session = session
         self.schedule = sorted(schedule, key=lambda e: e.step)
         self.verify = verify

@@ -42,6 +42,16 @@ in ``session.last_rollback``); each clear/repair unwinds its onset exactly.
 `save`/`restore` write and read canonical checkpoints in the reference's
 format; a snapshot is the same canonical trees, kept in host memory.
 
+On a `launch.mesh.RankMesh` (``mesh=make_test_mesh(...)`` in each process
+of a `launch.spawn` run) the session is one (replica, rank) process of the
+job: it holds its own packed slots, steps with `make_rank_train_step`,
+moves its slots with `transition_rank_trees` and gathers canonical weights
+over its replica's model group. Every process applies the same events in
+the same order (the health ledger is replicated), and a failed rank stays
+in its groups holding pad slots, as on the reference's fixed mesh. It runs
+pp=1 fail/repair with the sequential sync; the rest of the lifecycle there
+raises `NotImplementedError` naming its ROADMAP row.
+
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP row):
 the global allocator (`allocator=`) and the uniform arch backend
 (`from_arch`).
@@ -65,10 +75,12 @@ from repro_torch.core.overlap import coerce_overlap
 from repro_torch.core.policies import WorkloadGeometry, staged_rel_iter_times
 from repro_torch.core.power import PowerModel
 from repro_torch.kernels import mode as kmode
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.optim import AdamWConfig, Optimizer, adamw
 from repro_torch.runtime.events import (
-    DEGRADATION_EVENTS, ClusterHealth, LifecycleEvent, SdcSuspectEvent,
-    StagedHealth, event_kind, plan_from_health, staged_plan_from_health,
+    DEGRADATION_EVENTS, ClusterHealth, FailureEvent, LifecycleEvent,
+    RecoveryEvent, SdcSuspectEvent, StagedHealth, event_kind,
+    plan_from_health, staged_plan_from_health,
 )
 
 
@@ -76,6 +88,9 @@ def _not_ported(what: str, row: str) -> NotImplementedError:
     return NotImplementedError(
         f"NTPSession: {what} is not ported to repro_torch yet "
         f"(ROADMAP Queue 1: {row})")
+
+
+LIFECYCLE_ROW = "'lifecycle on process groups'"
 
 
 class NTPSession:
@@ -89,7 +104,7 @@ class NTPSession:
     def create(
         cls,
         cfg: NTPModelConfig,
-        mesh: Sequence[int] = (2, 4),
+        mesh: Union[Sequence[int], RankMesh] = (2, 4),
         *,
         health: Optional[Union[ClusterHealth, StagedHealth]] = None,
         plan: Optional[Union[FailurePlan, StagedPlan]] = None,
@@ -120,13 +135,23 @@ class NTPSession:
         scale-up domain lost the GPU. Seed it with a `StagedHealth` or a
         `StagedPlan` (a plain one is refused: it does not say which stage
         is hit); a pp=1 staged seed is unwrapped, so ``pp=1`` is the
-        unstaged session."""
+        unstaged session.
+
+        ``mesh`` may be this process's `RankMesh` (a process-group run): the
+        session is then its (replica, rank) part, on the mesh's device."""
         if allocator is not None:
             raise _not_ported("the global repack allocator (allocator=)",
                               "'session spares and allocator'")
-        self = object.__new__(cls)
+        rank_mesh = mesh if isinstance(mesh, RankMesh) else None
+        if rank_mesh is not None:
+            _RankSession.refuse(pp=pp, microbatches=microbatches,
+                                overlap=coerce_overlap(overlap),
+                                power_policy=power_policy, spares=spares)
+        self = object.__new__(cls if rank_mesh is None else _RankSession)
         self._cfg = cfg
-        self._device = kmode.resolve_device(device)
+        self._rank_mesh = rank_mesh
+        self._device = rank_mesh.device if rank_mesh is not None else \
+            kmode.resolve_device(device)
         self._mode = Mode.coerce(mode)
         self._local_batch = local_batch
         self._optimizer = optimizer or adamw(AdamWConfig(lr=1e-2))
@@ -203,7 +228,7 @@ class NTPSession:
         self._plan = packed
         canonical = params if params is not None else nt.init_canonical(
             cfg, generator, device=self._device)
-        self._params = nt.pack_params(cfg, canonical, self._plan)
+        self._params = self._pack(canonical)
         self._opt = self._optimizer.init(self._params)
         self._events: List[LifecycleEvent] = []
         self._decide()
@@ -243,6 +268,12 @@ class NTPSession:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def rank_mesh(self) -> Optional[RankMesh]:
+        """This process's `RankMesh` on a process-group run, else None (the
+        emulated mesh)."""
+        return self._rank_mesh
 
     @property
     def overlap(self) -> bool:
@@ -595,11 +626,15 @@ class NTPSession:
         else:
             lbs = None  # the builder's default rule — binary path unchanged
         self._step_fn = nt.make_ntp_train_step(
-            self._cfg, self._plan, self._mesh, mode=self._mode,
+            self._cfg, self._plan, self._rank_mesh or self._mesh,
+            mode=self._mode,
             local_batch=self._local_batch, optimizer=self._optimizer,
             local_batches=lbs, microbatches=self._microbatches,
             overlap=self._overlap,
         )
+
+    def _pack(self, canonical: Dict) -> Dict:
+        return nt.pack_params(self._cfg, canonical, self._plan)
 
     def _param_trees(self):
         """The optimizer's param-like keys, and [params, *those trees]."""
@@ -653,3 +688,90 @@ class NTPSession:
                 if k in self._optimizer.param_like else v)
             for k, v in canonical_opt.items()
         }
+
+
+class _RankSession(NTPSession):
+    """`NTPSession` as one (replica, rank) process of a process-group run
+    (`NTPSession.create(cfg, mesh=RankMesh, ...)`): pp=1, fail/repair, the
+    sequential sync; everything else raises naming its ROADMAP row."""
+
+    @staticmethod
+    def refuse(*, pp, microbatches, overlap, power_policy, spares) -> None:
+        if pp != 1 or microbatches != 1:
+            raise _not_ported("pp>1 (and microbatches) on process groups",
+                              "'pp>1 in the port'")
+        if overlap:
+            raise _not_ported("the overlapped sync on process groups",
+                              "'overlapped sync on process groups'")
+        if power_policy is not None:
+            raise _not_ported("a power policy on process groups",
+                              LIFECYCLE_ROW)
+        if spares:
+            raise _not_ported("spares on process groups", LIFECYCLE_ROW)
+
+    def _pack(self, canonical: Dict) -> Dict:
+        m = self._rank_mesh
+        return nt.pack_rank_params(self._cfg, canonical, self._plan,
+                                   m.replica, m.rank)
+
+    def canonical_params(self, replica: int = 0, device=None):
+        """Replica ``replica``'s dense canonical weights, gathered over its
+        model group (a collective of that replica's processes), on
+        ``device`` (default: the session's; the CPU keeps the card at one
+        gathered leaf). Processes of other replicas return None and issue
+        no collective."""
+        if replica != self._rank_mesh.replica:
+            return None
+        return nt.unpack_rank_params(self._cfg, self._params, self._plan,
+                                     self._rank_mesh, device)
+
+    def apply(self, event: LifecycleEvent):
+        """`NTPSession.apply` for `FailureEvent` and `RecoveryEvent`; every
+        process must apply the same events in the same order."""
+        if not isinstance(event, (FailureEvent, RecoveryEvent)):
+            raise _not_ported(f"{event_kind(event)} events on process groups "
+                              "(degradation, quarantine and rollback)",
+                              LIFECYCLE_ROW)
+        return super().apply(event)
+
+    def save(self, path: str) -> None:
+        """Replica 0's params and optimizer state in canonical layout
+        (gathered over its model group to the host), written by global rank
+        0 in the reference's format; every process returns once the file is
+        written."""
+        m = self._rank_mesh
+        if m.replica == 0:
+            state = {"params": self.canonical_params(0, device="cpu"),
+                     "opt": {k: (nt.unpack_rank_params(
+                         self._cfg, v, self._plan, m, device="cpu")
+                         if k in self._optimizer.param_like else v)
+                         for k, v in self._opt.items()}}
+            if m.rank == 0:
+                save_checkpoint(path, state, step=self.opt_step)
+        torch.distributed.barrier()
+
+    def restore(self, path: str) -> int:
+        raise _not_ported("restore on process groups", LIFECYCLE_ROW)
+
+    def snapshot(self) -> None:
+        raise _not_ported("snapshots (quarantine rollback) on process "
+                          "groups", LIFECYCLE_ROW)
+
+    def rollback(self) -> int:
+        raise _not_ported("rollback on process groups", LIFECYCLE_ROW)
+
+    def measure_sync(self, batch):
+        raise _not_ported("measure_sync on process groups", LIFECYCLE_ROW)
+
+    def _transition(self, old: FailurePlan, new: FailurePlan) -> None:
+        """This process's slots of params and every param-like optimizer
+        tree move through one all-to-all (`transition_rank_trees`); the
+        ledger is the whole mesh's."""
+        from repro_torch.reshard.transition import transition_rank_trees
+
+        opt_keys, trees = self._param_trees()
+        moved, stats = transition_rank_trees(self._cfg, trees, old, new,
+                                             self._rank_mesh)
+        self._params = moved[0]
+        self._opt = dict(self._opt, **dict(zip(opt_keys, moved[1:])))
+        self.last_transition = stats

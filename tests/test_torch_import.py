@@ -18,6 +18,7 @@ PORT_MODULES = [
     "repro_torch.configs",
     "repro_torch.configs.shapes",
     "repro_torch.core.availability",
+    "repro_torch.core.collectives",
     "repro_torch.core.failure_model",
     "repro_torch.core.nonuniform",
     "repro_torch.core.ntp_train",
@@ -38,8 +39,10 @@ PORT_MODULES = [
     "repro_torch.kernels.reshard_pack",
     "repro_torch.kernels.rmsnorm",
     "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_decode",
+    "repro_torch.launch.spawn",
     "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.common",
