@@ -143,9 +143,28 @@ Phases (any failure exits non-zero):
    compute_mode, step ms by regime (max over ranks) beside the emulated
    step, each transition's ms and bytes, rank 0's collective calls and
    bytes a step, each rank's peak memory, what gloo staged (nothing).
+   (c) The lifecycle over processes: the same model, mesh, batch and SGD
+   with overlap on, `power_policy("ntp_pw")` and quarantine, a snapshot at
+   step 0, through `LIFE_STEPS` steps of `_life_chain` (replica 1 fails,
+   a link degrades and is repaired, an SDC suspicion rolls back to the
+   snapshot under TP (1, 2) and clears, the repair, a straggler and its
+   clear), first as the emulated (2, 2) session in this process (its
+   canonical params at step 0 and at the end under `build/`), then as 4
+   spawned ranks. Checks: every rank's loss within 1e-5 of the emulated;
+   every step's local batches and `PowerDecision` equal; every ledger
+   equal to the emulated and to `expected_transfer`; rank 0's canonical
+   params right after the rollback bit-identical to step 0's, at the end
+   within 1e-4 of the emulated; bucket_pack and bucket_unpack launched
+   once a bucket on every step by every rank, reshard_pack on degraded
+   steps only. Printed: step ms by regime (max over ranks) beside (b)'s,
+   the per-leaf and bucketed syncs alone on the degraded plan, apply ms
+   per event, snapshot and rollback ms and host bytes a rank, collective
+   calls and bytes a step, peak memory a rank, the part's seconds.
    Then the per-rank reshard_pack (one rank's MLP gradient leaf under the
    degraded plan's pre-sync tables) against its plain version, timed in
-   turns with `src[idx]` and `index_select`;
+   turns with `src[idx]` and `index_select`, and the per-rank
+   bucket_pack / bucket_unpack (one rank's MLP bucket under that plan)
+   against theirs, `torch.cat` and `split` + `.contiguous()`;
 11. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2 and process paths, each counted
    from zero just before it), then the device line.
@@ -153,6 +172,7 @@ Phases (any failure exits non-zero):
 import contextlib
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -2304,12 +2324,14 @@ def launcher_phase():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-RANKS_KERNELS = ("reshard_pack",)
+RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
 # phase 10's chain on the (2, 2) mesh of processes: replica 1 loses a GPU
 # before step 3 (TP (1, 2): packing puts it in replica 0) and is repaired
 # before step 6
 RANKS_EVENTS = {3: ("fail", 1), 6: ("repair", 0)}
 RANKS_LR, RANKS_LB = 1e-2, 4
+# the degraded step after which part (b) measures its (per-leaf) sync
+RANKS_SYNC_AFTER = 5
 
 
 def _ranks_event(i):
@@ -2337,8 +2359,6 @@ def ranks_reference(torch, dev, cfg, seq, steps, directory):
     and step ms."""
     from concurrent.futures import ThreadPoolExecutor
 
-    import numpy as np
-
     from repro_torch import tree as tr
     from repro_torch.core import ntp_train as nt
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
@@ -2353,16 +2373,11 @@ def ranks_reference(torch, dev, cfg, seq, steps, directory):
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * RANKS_LB,
                                           seed=0))
 
-    def write(tag, leaves):
-        os.makedirs(os.path.join(directory, tag))
-        for i, leaf in enumerate(leaves):
-            np.save(os.path.join(directory, tag, f"{i}.npy"), leaf.numpy())
-
     losses, ms, writes = [], [], []
     with ThreadPoolExecutor(max_workers=1) as pool:
         def keep(tag):
             leaves = [t.cpu() for t in tr.leaves(s.canonical_params(0))]
-            writes.append(pool.submit(write, tag, leaves))
+            writes.append(pool.submit(_write_leaves, directory, tag, leaves))
 
         for i in range(steps):
             if i in RANKS_EVENTS:
@@ -2494,6 +2509,8 @@ def rank_worker(cfg, seq, steps, directory, device):
         out["regime"].append(_plan_regime(s.plan))
         out["counts"].append(C.counts())
         out["packs"].append(mode.launches()["reshard_pack"] - before)
+        if i == RANKS_SYNC_AFTER:
+            out["sync"] = s.measure_sync(pipe._batch_np(i))
     out["launches"] = mode.launches()
     check_canonical("end")
     out["canonical"] = [c.result() for c in checks] or None
@@ -2511,8 +2528,10 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=9):
     """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths (4
     layers) on a (2, 2) mesh of 4 processes, gloo on this card, through
     fail → repair with SGD, held to the emulated session run first on the
-    same seed, chain and batches. Returns the ranks' launch counts summed
-    (and, on the card, the per-rank reshard_pack row). ``cfg``/``seq``/
+    same seed, chain and batches (parts (a) and (b)); then part (c), the
+    lifecycle with overlap on (`lifecycle_part`). Returns the ranks' launch
+    counts of (b) and (c)
+    summed (and, on the card, the per-rank kernel rows). ``cfg``/``seq``/
     ``steps`` and a CPU ``dev`` let the phase be rehearsed small on the
     CPU."""
     import shutil
@@ -2557,6 +2576,8 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=9):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     r0 = ranks[0]
+    b_steps = [(regime, max(r["step_ms"][i] for r in ranks))
+               for i, regime in enumerate(r0["regime"])]
     print(f"  gloo takes {dev.type} tensors for {', '.join(r0['takes'])}: "
           f"staged through host buffers: none", flush=True)
     print(f"  4 ranks spawned, run and joined in {wall:.1f} s; set-up "
@@ -2603,10 +2624,17 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=9):
     launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
     check(launches["reshard_pack"] > 0 or dev.type != "cuda",
           f"reshard_pack never launched: {launches}")
+    del ranks
+    print("  (c) the lifecycle over processes, overlap on, NTP-PW, "
+          "quarantine, at full width", flush=True)
+    life = lifecycle_part(torch, dev, cfg, seq, b_steps, r0["sync"])
+    launches = {k: launches[k] + life.get(k, 0) for k in launches}
     if dev.type != "cuda":
         return launches, None
-    return launches, rank_reshard_row(torch, dev, cfg,
-                                      FailurePlan(2, (1, 2)))
+    plan = FailurePlan(2, (1, 2))
+    return launches, dict(reshard_pack=rank_reshard_row(torch, dev, cfg,
+                                                        plan),
+                          **rank_bucket_rows(torch, dev, cfg, plan))
 
 
 def rank_reshard_row(torch, dev, cfg, plan):
@@ -2654,6 +2682,413 @@ def rank_reshard_row(torch, dev, cfg, plan):
     del xp, ix
     torch.cuda.empty_cache()
     return row
+
+
+def rank_bucket_rows(torch, dev, cfg, plan):
+    """bucket_pack / bucket_unpack at the process path's largest bucket:
+    one rank's MLP bucket of one layer (A and B, ``buf`` rows of
+    3584·128 elems each) under ``plan``; bit-exact against the plain
+    versions, timed in turns with `torch.cat` and `split` +
+    `.contiguous()`, as phase 3's rows."""
+    from repro_torch.core import nonuniform as nu
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
+
+    n_rows = nu.weight_plan(cfg.k_ff, plan).buf
+    widths = (cfg.d_model * cfg.unit_rows,) * 2
+    g = torch.Generator(device=dev).manual_seed(11)
+    leaves = [torch.randn((n_rows, w), generator=g, device=dev)
+              for w in widths]
+    flat = bucket_pack(leaves)
+    parts = bucket_unpack(flat, widths)
+    torch.cuda.synchronize()
+    check(torch.equal(flat, ref.bucket_pack_ref(leaves)) and all(
+        torch.equal(p, w) for p, w in zip(
+            parts, ref.bucket_unpack_ref(flat, widths))),
+        "per-rank bucket_pack / bucket_unpack are not bit-exact")
+    del parts
+    bd = bound_ms(2 * n_rows * sum(widths) * 4, 0, "float32")
+    rows = {}
+    for name, kern, plain_fn, libs in (
+            ("bucket_pack", lambda: bucket_pack(leaves),
+             lambda: ref.bucket_pack_ref(leaves),
+             {"torch.cat": lambda: torch.cat(leaves, dim=1)}),
+            ("bucket_unpack", lambda: bucket_unpack(flat, widths),
+             lambda: ref.bucket_unpack_ref(flat, widths),
+             {"split+contiguous": lambda: [
+                 t.contiguous() for t in torch.split(flat, widths, dim=1)]})):
+        plain = time_ms(plain_fn, 10)
+        t = in_turns(torch, kern, libs, reps=10, calls=2)
+        report_turns(name, f"per rank, MLP TP {plan.replica_tp} "
+                     f"{n_rows}x{sum(widths)} (2 leaves)", "float32", 0.0,
+                     0.0, t, plain, bd)
+        rows[name] = table_row(0.0, t, plain, bd)
+    del leaves, flat
+    torch.cuda.empty_cache()
+    return rows
+
+
+# phase 10 (c): the lifecycle chain on the (2, 2) mesh of processes, every
+# event kind with its inverse, in order within a step. Step 1: replica 1's
+# GPU fails (TP (1, 2): its domain packs into replica 0) and the failed
+# domain's link degrades; 2: an SDC suspicion on replica 1 (domain 0)
+# quarantines it and rolls back to the step-0 snapshot under TP (1, 2);
+# 3: its clear and the link's repair; 4: the repair (TP (2, 2)) and a
+# straggler; 5: the straggler's clear. 6 steps.
+LIFE_STEPS = 6
+
+
+def _life_chain():
+    from repro_torch.runtime import (
+        FailureEvent, LinkDegradeEvent, LinkRepairEvent, RecoveryEvent,
+        SdcClearEvent, SdcSuspectEvent, StragglerClearEvent, StragglerEvent,
+    )
+
+    return {1: [FailureEvent(step=1, replica=1),
+                LinkDegradeEvent(step=1, domain=1, bw_frac=0.5)],
+            2: [SdcSuspectEvent(step=2, replica=1)],
+            3: [SdcClearEvent(step=3, replica=1),
+                LinkRepairEvent(step=3, domain=1, bw_frac=0.5)],
+            4: [RecoveryEvent(step=4, replica=0),
+                StragglerEvent(step=4, domain=0, slowdown=2.0)],
+            5: [StragglerClearEvent(step=5, domain=0, slowdown=2.0)]}
+
+
+# the degraded step after which part (c) measures its (bucketed) sync;
+# part (b) measures its per-leaf one after RANKS_SYNC_AFTER, both at TP (1, 2)
+LIFE_SYNC_AFTER = 3
+# each rank's share of the card in part (c): 4 x 0.235 of 79.18 GiB, the
+# rest for the four CUDA contexts
+LIFE_MEMORY_SHARE = 0.235
+
+
+def _life_session(torch, cfg, mesh, dev):
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession, power_policy
+
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    kw = dict(device=dev) if mesh == (2, 2) else {}
+    return NTPSession.create(cfg, mesh, local_batch=RANKS_LB,
+                             optimizer=sgd(RANKS_LR), params=canon,
+                             overlap=True, power_policy=power_policy("ntp_pw"),
+                             quarantine=True, **kw)
+
+
+def _write_leaves(directory, tag, leaves):
+    import numpy as np
+
+    os.makedirs(os.path.join(directory, tag))
+    for i, leaf in enumerate(leaves):
+        np.save(os.path.join(directory, tag, f"{i}.npy"), leaf.numpy())
+
+
+def lifecycle_reference(torch, dev, cfg, seq, steps, directory):
+    """Phase 10 (c), first: the emulated (2, 2) session, overlap on, NTP-PW,
+    quarantine, snapshot at step 0, through the chain on the card; its
+    canonical params at step 0 and at the end go to ``directory`` (one
+    .npy a leaf) on a thread. Returns its losses, per-step decisions and
+    per-event records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import tree as tr
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+
+    s = _life_session(torch, cfg, (2, 2), dev)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * RANKS_LB,
+                                          seed=0))
+    chain = _life_chain()
+    out = {"loss": [], "decision": [], "events": []}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        writes = []
+
+        def keep(tag):
+            leaves = [t.cpu() for t in tr.leaves(s.canonical_params(0))]
+            writes.append(pool.submit(_write_leaves, directory, tag, leaves))
+
+        keep("start")
+        s.snapshot()
+        for i in range(steps):
+            for ev in chain.get(i, ()):
+                old = s.plan
+                s.apply(ev)
+                out["events"].append(_life_event(i, ev, old, s))
+            out["loss"].append(float(s.step(pipe._batch_np(i))["loss"]))
+            out["decision"].append((tuple(s.local_batches),
+                                    s.power_decision))
+        keep("end")
+        out["healthy_end"] = s.health.healthy and s.health.degraded is None
+        for w in writes:
+            w.result()
+    del s
+    return out
+
+
+def _life_event(i, ev, old, s):
+    """What an apply did: (step, kind, old plan, new plan, ledger when the
+    plan changed, rolled back)."""
+    from repro_torch.runtime import event_kind
+
+    return (i, event_kind(ev), old, s.plan,
+            s.last_transition.as_dict() if s.plan != old else None,
+            s.last_rollback)
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def lifecycle_worker(cfg, seq, steps, directory, device):
+    """Phase 10 (c): one (replica, rank) process of the (2, 2) gloo mesh
+    on the card: the overlap-on NTP-PW session through the lifecycle
+    chain, snapshot at step 0; each step and apply timed (host clock after
+    a device sync), its collectives and kernel launches counted; the syncs
+    timed alone on the degraded plan; rank 0 checks its replica's
+    canonical params right after the rollback (against step 0, bit for
+    bit) and at the end (against the emulated run)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(2, 2, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    if cuda:
+        # four caching allocators share the card: each frees its own cache
+        # before it takes more than its share (the side stream's pool
+        # would otherwise sit on memory another rank needs)
+        torch.cuda.set_per_process_memory_fraction(LIFE_MEMORY_SHARE, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    s = _life_session(torch, cfg, mesh, dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * RANKS_LB,
+                                          seed=0))
+    chain = _life_chain()
+
+    def timed(fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(torch, dev)
+        return r, (time.perf_counter() - t0) * 1e3
+
+    _, snap_ms = timed(s.snapshot)
+    out = {"snapshot": (snap_ms, _tree_bytes(s._snapshot[1])), "loss": [],
+           "decision": [], "step_ms": [], "regime": [], "plan": [],
+           "counts": [], "launches": [], "events": [], "apply_ms": [],
+           "chunks":
+           len(s.step_fn.chunks)}
+    checks = {}
+
+    def check_canonical(tag):
+        """Rank 0: max |its replica's canonical params - the emulated run's
+        under ``tag``|, gathered and compared one leaf at a time (replica
+        0's ranks gather; the host holds one leaf a rank)."""
+        if mesh.replica != 0:
+            return
+        err = 0.0
+        for i, (_, leaf) in enumerate(nt.rank_canonical_leaves(
+                cfg, s.params, s.plan, mesh, "cpu")):
+            if mesh.rank == 0:
+                want = np.load(os.path.join(directory, tag, f"{i}.npy"))
+                err = max(err, float(leaf.sub_(torch.from_numpy(want))
+                                     .abs_().max()))
+            del leaf
+        if mesh.rank == 0:
+            checks[tag] = err
+        _release_host_cache(torch)
+
+    mode.reset_launches()
+    total = {}
+    for i in range(steps):
+        for ev in chain.get(i, ()):
+            old = s.plan
+            _, ms = timed(lambda: s.apply(ev))
+            out["events"].append(_life_event(i, ev, old, s))
+            out["apply_ms"].append(ms)
+            if s.plan != old:
+                _release_host_cache(torch)
+            if s.last_rollback:
+                check_canonical("start")
+                _, out["rollback_ms"] = timed(s.rollback)   # same plan
+        C.reset_counts()
+        before = mode.launches()
+        m, ms = timed(lambda: s.step(pipe._batch_np(i)))
+        out["loss"].append(float(m["loss"]))
+        out["decision"].append((tuple(s.local_batches), s.power_decision))
+        out["step_ms"].append(ms)
+        out["regime"].append(_regime(s))
+        out["plan"].append(s.plan)
+        out["counts"].append(C.counts())
+        after = mode.launches()
+        out["launches"].append({k: after[k] - before[k]
+                                for k in RANKS_KERNELS})
+        total = after
+        if i == LIFE_SYNC_AFTER:
+            out["sync"] = (s.measure_sync(pipe._batch_np(i)),
+                           s.plan.replica_tp)
+    out["total_launches"] = {k: total.get(k, 0) for k in RANKS_KERNELS}
+    check_canonical("end")
+    out["canonical"] = checks
+    out["collectives"] = (s.step_fn.collectives,
+                          s.step_fn.replicated_collectives)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9,
+                      torch.cuda.max_memory_reserved(dev) / 1e9) if cuda \
+        else (0.0, 0.0)
+    out["alloc_retries"] = torch.cuda.memory_stats(dev).get(
+        "num_alloc_retries") if cuda else 0
+    out["host_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    stats = getattr(torch.cuda, "host_memory_stats", dict)() if cuda else {}
+    out["pinned_bytes"] = stats.get("allocated_bytes.peak")
+    out["rank"] = (mesh.replica, mesh.rank)
+    return out
+
+
+def _release_host_cache(torch):
+    """Return the pinned host blocks no collective holds any more (gloo
+    stages each CUDA tensor it sums or sends through one, kept cached,
+    rounded up to a power of two): four ranks share this host's memory,
+    and a transition's or a gather's staging blocks are not needed again
+    soon."""
+    if torch.cuda.is_available():
+        torch._C._host_emptyCache()
+
+
+def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
+    """Phase 10 (c): the emulated overlap-on (2, 2) session through the
+    lifecycle chain in this process, its canonical params at step 0 and at
+    the end written under `build/`; the card freed; then 4 spawned ranks
+    through the same chain (`lifecycle_worker`). Checks: every rank's loss
+    within 1e-5 of the emulated; every step's local batches and
+    `PowerDecision` equal to the emulated; every transition's ledger equal
+    to the emulated and its bytes to `expected_transfer`; one rollback, and
+    rank 0's canonical params right after it bit-identical to step 0's; at
+    the end within 1e-4 of the emulated; on the card bucket_pack and
+    bucket_unpack launched once a bucket on every step by every rank (2
+    unit buckets and 1 rep bucket a chunk), reshard_pack on degraded steps
+    only. Returns the ranks' launch counts summed."""
+    import shutil
+
+    from repro_torch.launch.spawn import spawn
+
+    t_part = time.perf_counter()
+    steps = LIFE_STEPS
+    tmp = scratch_dir()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        t0 = time.perf_counter()
+        ref = lifecycle_reference(torch, dev, cfg, seq, steps, tmp)
+        check(ref["healthy_end"], "the chain does not end pristine")
+        print(f"  emulated (2, 2) session, overlap on: {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s with its checkpoints",
+              flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ranks = spawn(lifecycle_worker, 4, backend="gloo", device=dev.type,
+                      deadline_s=900,
+                      args=(cfg, seq, steps, tmp, dev.type))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    r0 = ranks[0]
+    cuda = dev.type == "cuda"
+    print(f"  4 ranks spawned, run and joined in {wall:.1f} s", flush=True)
+    for r in ranks:
+        err = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
+        print(f"  rank {r['rank']}: max |loss - emulated| {err:.3e}, peak "
+              f"{r['peak_gb'][0]:.2f} GB allocated, {r['peak_gb'][1]:.2f} GB "
+              f"reserved, host peak {r['host_gb']:.2f} GB resident ("
+              + ("pinned peak not measured" if r["pinned_bytes"] is None else
+                 f"{r['pinned_bytes'] / 1e9:.2f} GB pinned at peak") + "); "
+              f"snapshot {r['snapshot'][0]:.1f} ms, "
+              f"{r['snapshot'][1]} B of host memory; allocator retries "
+              f"{r['alloc_retries']}; a second rollback at "
+              f"the same plan {r['rollback_ms']:.1f} ms", flush=True)
+        check(err <= 1e-5, f"rank {r['rank']} loss off the emulated by {err}")
+        check(r["decision"] == ref["decision"],
+              f"rank {r['rank']}: local batches / PowerDecision differ from "
+              "the emulated")
+        check([e[:5] for e in r["events"]] == [e[:5] for e in ref["events"]]
+              and [e[5] for e in r["events"]] == [e[5] for e in ref["events"]],
+              f"rank {r['rank']}: events / ledgers differ from the emulated")
+    print(f"  losses {', '.join(f'{x:.5f}' for x in r0['loss'])}")
+    n_buckets = 3 * r0["chunks"]
+    for i, regime in enumerate(r0["regime"]):
+        step_ms = max(r["step_ms"][i] for r in ranks)
+        lb, dec = r0["decision"][i]
+        counts = ", ".join(f"{op}/{g} {c} calls {b} B" for (op, g), (c, b)
+                           in sorted(r0["counts"][i].items()))
+        launched = [r["launches"][i] for r in ranks]
+        print(f"  step {i} ({regime}): {step_ms:.1f} ms (max over ranks); "
+              f"local batches {lb}, policy {dec.method if dec else None}, "
+              f"boost {max(dec.boost) if dec else 1.0:.3f}; rank 0: "
+              f"{counts}; launches a rank {launched[0]}", flush=True)
+        if cuda:
+            check(all(l["bucket_pack"] == l["bucket_unpack"] == n_buckets
+                      for l in launched),
+                  f"step {i}: bucket launches {launched}, want {n_buckets} "
+                  "a rank")
+            check(all((l["reshard_pack"] > 0) == (not r0["plan"][i].healthy)
+                      for l in launched),
+                  f"step {i}: reshard_pack launches {launched} in a "
+                  f"{regime} step")
+    for k, ev in enumerate(r0["events"]):
+        i, kind, old, new, ledger, rolled = ev
+        ms = max(r["apply_ms"][k] for r in ranks)
+        line = (f"  step {i}: {kind}: {old.replica_tp} -> {new.replica_tp}, "
+                f"apply {ms:.1f} ms (max over ranks)")
+        if ledger is not None:
+            want = _expected_bytes(cfg, old, new)
+            line += (f", {ledger['bytes_moved']} B in {ledger['messages']} "
+                     f"messages (expected {want} B)")
+            check(ledger["bytes_moved"] == want,
+                  f"transition bytes {ledger} != {want}")
+        if rolled:
+            err = r0["canonical"]["start"]
+            line += (f", rolled back to the step-0 snapshot: rank 0's "
+                     f"canonical params off step 0's by {err:.3e}")
+            check(err == 0.0, "the rollback is not bit-exact")
+        print(line, flush=True)
+    check(sum(e[5] for e in r0["events"]) == 1, "one rollback expected")
+    sync, tp = r0["sync"]
+    print(f"  measure_sync at TP {tp} (sync_s, max over ranks): bucketed "
+          f"(overlap on) {sync['sync_s'] * 1e3:.1f} ms, "
+          f"{sync['collectives']} unit collectives; per-leaf (part (b), "
+          f"overlap off) {b_sync['sync_s'] * 1e3:.1f} ms, "
+          f"{b_sync['collectives']}; a healthy step's unit collectives {r0['collectives'][0]} + "
+          f"replicated {r0['collectives'][1]}", flush=True)
+    b_by = {}
+    for regime, ms in b_steps:
+        b_by.setdefault(regime, []).append(ms)
+    c_by = {}
+    for i, regime in enumerate(r0["regime"]):
+        c_by.setdefault(regime, []).append(max(r["step_ms"][i]
+                                               for r in ranks))
+    print("  step ms by regime, overlap on (c): " + "; ".join(
+        f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in c_by.items())
+        + " | overlap off (b): " + "; ".join(
+        f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in b_by.items()),
+        flush=True)
+    print(f"  end: canonical params of rank 0 within "
+          f"{r0['canonical']['end']:.3e} of the emulated", flush=True)
+    check(r0["canonical"]["end"] <= 1e-4, "final canonical params off")
+    launches = {k: sum(r["total_launches"][k] for r in ranks)
+                for k in RANKS_KERNELS}
+    print(f"  part (c): {time.perf_counter() - t_part:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -2845,8 +3280,8 @@ def main() -> int:
 
     print("phase 10: ranks as processes: NTP training at qwen2-7b widths on "
           "a (2, 2) mesh of 4 processes, gloo on this card, through "
-          "fail->repair", flush=True)
-    ranks_launches, rank_row = ranks_phase(torch, dev)
+          "fail->repair, then the lifecycle with overlap on", flush=True)
+    ranks_launches, rank_rows = ranks_phase(torch, dev)
 
     print("phase 11: kernels table", flush=True)
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
@@ -2858,9 +3293,10 @@ def main() -> int:
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=replaces, launches=n, **rows[name]))
-    print(f"  reshard_pack per rank (process path): launches "
-          f"{ranks_launches['reshard_pack']}, " + ", ".join(
-              f"{k} {v}" for k, v in rank_row.items()), flush=True)
+    for name, row in rank_rows.items():
+        print(f"  {name} per rank (process path): launches "
+              f"{ranks_launches[name]}, " + ", ".join(
+                  f"{k} {v}" for k, v in row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Collectives of the process path (the port's counterpart of the
 `jax.lax` collectives the reference calls inside shard_map).
 
-* `psum` / `psum_` — ``jax.lax.psum`` over a group: `all_reduce` (sum).
+* `psum` / `psum_` — ``jax.lax.psum`` over a group: `all_reduce` (sum);
+  `psum_async_` issues it and returns a handle (the overlapped sync's).
 * the Megatron pair, for per-rank autograd: `copy_to_model` is the identity
   forward and an all-reduce over the model group backward (at a block's
   input); `reduce_from_model` is an all-reduce forward and the identity
@@ -60,6 +61,32 @@ def psum_(x: torch.Tensor, group) -> torch.Tensor:
     _count("all_reduce", group, x.numel() * x.element_size())
     dist.all_reduce(x, group=group)
     return x
+
+
+class Pending:
+    """An in-flight `psum_async_`: ``wait()`` blocks until the sum has
+    landed in the tensor (on CUDA: until the current stream may read it)
+    and returns the tensor. The handle keeps the tensor alive until then,
+    and drops the backend's work (with whatever it staged, e.g. gloo's
+    pinned host copy of a CUDA tensor) once waited on."""
+
+    __slots__ = ("_work", "_x")
+
+    def __init__(self, work, x: torch.Tensor):
+        self._work, self._x = work, x
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        self._work = None
+        return self._x
+
+
+def psum_async_(x: torch.Tensor, group) -> Pending:
+    """`psum_` issued without waiting (``async_op=True``), counted when it is
+    issued: ``x`` (contiguous) must not be read or written before the
+    handle's ``wait()``, which returns it summed over ``group``."""
+    _count("all_reduce", group, x.numel() * x.element_size())
+    return Pending(dist.all_reduce(x, group=group, async_op=True), x)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

@@ -39,8 +39,9 @@ wrapped in the Megatron pair (`core.collectives`), and autograd runs per
 rank. Each rank's loss for autograd is its replica's token-loss total over
 the GLOBAL count (totals and counts summed over ``data``, as the reference
 sums them), so its gradients are its replica's share of the global
-gradient; the sync (`core.overlap.make_sync_grads` on the mesh) sums them
-over ``data``.
+gradient; the sync (`core.overlap.make_sync_grads` on the mesh, or the
+overlapped bucketed one of `core.overlap.make_overlapped_rank_train_step`)
+sums them over ``data``.
 
 Also the DP-DROP baseline and a dense single-logical-copy reference
 (`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) waits
@@ -279,30 +280,36 @@ def pack_rank_params(cfg: NTPModelConfig, canonical: Dict, plan,
     return out
 
 
-def unpack_rank_params(cfg: NTPModelConfig, packed: Dict, plan,
-                       mesh: RankMesh, device=None) -> Dict:
-    """This process's replica's canonical weights from its packed tree:
-    every unit leaf is gathered over the replica's model group (a
-    collective: every process of the replica calls it, leaf by leaf in
-    flatten order). Each leaf lands on ``device`` (default: where it lies)
-    as soon as it is gathered, so the card holds one gathered leaf at a
-    time when ``device`` is the CPU."""
+def rank_canonical_leaves(cfg: NTPModelConfig, packed: Dict, plan,
+                          mesh: RankMesh, device=None):
+    """This process's replica's canonical weights from its packed tree,
+    one ``(path, leaf)`` at a time in flatten order: every unit leaf is
+    gathered over the replica's model group (a collective: every process of
+    the replica walks the leaves together). Each leaf lands on ``device``
+    (default: where it lies) as soon as it is gathered, so a caller that
+    drops each leaf holds one at a time."""
     plans = _plans(cfg, _pp1(plan))
-
-    def leaf(path, w):
-        key = tr.leaf_key(path)
-        dev = w.device if device is None else device
-        if key not in UNIT_KEYS:
-            return w.detach().to(dev, copy=True)
-        wp = plans["mlp"] if key in ("A", "B") else plans["attn"]
-        g = C.all_gather_units(w.detach(), mesh.model)
-        return _unpack_unit(g.reshape((-1,) + tuple(w.shape[1:])), wp,
-                            mesh.replica).to(dev)
-
-    out = tr.tree_map(lambda x: None, packed)
     with torch.no_grad():
         for path, w in tr.leaves_with_path(packed):
-            tr.set_path(out, path, leaf(path, w))
+            key = tr.leaf_key(path)
+            dev = w.device if device is None else device
+            if key not in UNIT_KEYS:
+                yield path, w.detach().to(dev, copy=True)
+                continue
+            wp = plans["mlp"] if key in ("A", "B") else plans["attn"]
+            g = C.all_gather_units(w.detach(), mesh.model)
+            yield path, _unpack_unit(g.reshape((-1,) + tuple(w.shape[1:])),
+                                     wp, mesh.replica).to(dev)
+
+
+def unpack_rank_params(cfg: NTPModelConfig, packed: Dict, plan,
+                       mesh: RankMesh, device=None) -> Dict:
+    """This process's replica's canonical weights from its packed tree
+    (`rank_canonical_leaves` collected; a collective of the replica). With
+    ``device`` the CPU the card holds one gathered leaf at a time."""
+    out = tr.tree_map(lambda x: None, packed)
+    for path, leaf in rank_canonical_leaves(cfg, packed, plan, mesh, device):
+        tr.set_path(out, path, leaf)
     return out
 
 
@@ -465,6 +472,30 @@ def _mlp_rank(lp, h, group):
     return C.reduce_from_model(y[0], group)
 
 
+def _rank_layer(lp, x, cfg: NTPModelConfig, group):
+    """One transformer layer on one rank: x (B, S, d), replicated."""
+    x = x + _attn_rank(lp, _rms(x, lp["ln1"]), cfg, group)
+    return x + _mlp_rank(lp, _rms(x, lp["ln2"]), group)
+
+
+def _rank_tail(final_norm, head, x, tgt, sample_mask):
+    """The replica's (token-loss total, token count), scalars, from the last
+    layer's output x (B, S, d)."""
+    total, count = _tail_totals(final_norm, head, x[None], tgt[None],
+                                sample_mask[None])
+    return total[0], count[0]
+
+
+def _rank_tokens(batch, mesh: RankMesh, masks, device):
+    """This rank's replica's rows of the global batch (int64 on ``device``)
+    and their (B,) sample mask."""
+    rows = batch.shape[0] // mesh.n_data
+    d = mesh.replica
+    tokens = torch.as_tensor(batch[d * rows:(d + 1) * rows],
+                             device=device).long()
+    return tokens, masks(rows, device)[d]
+
+
 def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group):
     """One rank's forward over its replica's local batch. tokens: (B, S+1)
     int64; sample_mask: (B,) f32. Returns the replica's (token-loss total,
@@ -472,11 +503,9 @@ def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group):
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     x = params["embed"][inp]
     for lp in params["layers"]:
-        x = x + _attn_rank(lp, _rms(x, lp["ln1"]), cfg, group)
-        x = x + _mlp_rank(lp, _rms(x, lp["ln2"]), group)
-    total, count = _tail_totals(params["final_norm"], params["head"], x[None],
-                                tgt[None], sample_mask[None])
-    return total[0], count[0]
+        x = _rank_layer(lp, x, cfg, group)
+    return _rank_tail(params["final_norm"], params["head"], x, tgt,
+                      sample_mask)
 
 
 def rank_grad_norm(grads, mesh: RankMesh) -> torch.Tensor:
@@ -516,20 +545,15 @@ def make_rank_train_step(
         raise ValueError(f"plan {fplan} does not fit mesh {tuple(mesh)}")
     mode = Mode.coerce(mode)
     optimizer = optimizer or sgd(1e-2)
-    lb = _validated_local_batches(local_batches, fplan, mode, local_batch,
-                                  fplan.d)
-    d = mesh.replica
-    masks = _sample_masks(lb)
+    masks = _sample_masks(_validated_local_batches(
+        local_batches, fplan, mode, local_batch, fplan.d))
 
     def loss_and_grads(params, batch):
         """Global loss and this rank's pre-sync gradients: unit leaves its
         replica's share for its slots, replicated leaves its replica's
         share (the Megatron pair makes them equal over the model group)."""
-        dev = params["embed"].device
-        rows = batch.shape[0] // fplan.d
-        tokens = torch.as_tensor(batch[d * rows:(d + 1) * rows],
-                                 device=dev).long()
-        mask = masks(rows, dev)[d]
+        tokens, mask = _rank_tokens(batch, mesh, masks,
+                                    params["embed"].device)
         leaves = _grad_leaves(params)
         total, count = _rank_totals(cfg, leaves, tokens, mask, mesh.model)
         tc = C.psum(torch.stack([total.detach(), count]), mesh.data)
@@ -550,6 +574,7 @@ def make_rank_train_step(
 
     step.overlap = False
     step.collectives = sync_grads.collectives
+    step.replicated_collectives = sync_grads.replicated_collectives
     step.grads_fn = loss_and_grads
     step.sync_fn = sync_grads
     return step
@@ -686,20 +711,21 @@ def make_ntp_train_step(
     usable samples (bounds-checked); default is the mode's own rule.
 
     On a `launch.mesh.RankMesh` the step is this process's rank step
-    (`make_rank_train_step`: pp=1, sequential sync)."""
+    (pp=1): `make_rank_train_step` (sequential sync), or with ``overlap``
+    `core.overlap.make_overlapped_rank_train_step`."""
     if isinstance(mesh, RankMesh):
-        if overlap:
-            raise NotImplementedError(
-                "the overlapped sync on process groups (backward hooks, "
-                "async all_reduce per bucket) is not ported yet: ROADMAP "
-                "Queue 1, 'overlapped sync on process groups'")
         if microbatches != 1:
             raise NotImplementedError(
                 "microbatches on process groups come with pp>1 there: "
                 "ROADMAP Queue 1, 'pp>1 in the port'")
-        return make_rank_train_step(
-            cfg, fplan, mesh, mode=mode, local_batch=local_batch,
-            optimizer=optimizer, local_batches=local_batches)
+        if overlap:
+            from repro_torch.core import overlap as ov
+
+            build = ov.make_overlapped_rank_train_step
+        else:
+            build = make_rank_train_step
+        return build(cfg, fplan, mesh, mode=mode, local_batch=local_batch,
+                     optimizer=optimizer, local_batches=local_batches)
     if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
         fplan = fplan.stages[0]
     if mesh is not None and tuple(mesh) != (fplan.d, fplan.n1):

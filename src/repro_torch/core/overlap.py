@@ -28,6 +28,18 @@
   grads before the optimizer) and `record_stream` (so the caching allocator
   does not hand a block to another stream while a kernel still reads it).
 
+On a `launch.mesh.RankMesh` (one process per (replica, rank)) the same
+order runs for real (`make_overlapped_rank_train_step`, pp=1): a chunk's
+unit buckets pack this rank's ``(buf, ΣE)`` slots with one `bucket_pack`
+launch, reshard over the model group when degraded, and start an async
+all-reduce over ``data`` (`collectives.psum_async_`); completing waits on
+it, reshards back and unpacks with one `bucket_unpack` launch. Each chunk
+also sums its ``ln1``/``ln2`` grads as one rows-1 "rep bucket" over
+``data``; ``embed``, ``head`` and ``final_norm`` are summed in place (no
+bucket copies GBs of ``embed``/``head``). The Megatron pair already makes
+the replicated grads equal over ``model``, so the reference's ``ct/n1``
+seed and its ('data', 'model') psum stay unported there too.
+
 Emulation note — the ``ct/n1`` seed is NOT ported. The reference's
 overlapped step runs AD *inside* shard_map, where jax transposes ``psum``
 to ``psum``; it therefore seeds the cotangent ``ct/n1`` on every model rank
@@ -48,6 +60,7 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.configs.shapes import layer_stages, stage_boundaries
+from repro_torch.core import collectives as C
 from repro_torch.core import nonuniform as nu
 from repro_torch.core import ntp_train as nt
 from repro_torch.core import reshard as rs
@@ -189,14 +202,13 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
     kernels. The returned callable carries ``.collectives`` (static launch
     count) and ``.bucketed``.
 
-    On a `launch.mesh.RankMesh` ``mesh`` the sync is this process's
-    (`_make_rank_sync`): pp=1, per leaf."""
+    On a `launch.mesh.RankMesh` ``mesh`` the sync is this process's, pp=1:
+    per leaf (`_make_rank_sync`) or bucketed (`_make_rank_bucketed_sync`);
+    it also carries ``.replicated_collectives``, the all-reduces of the
+    replicated leaves, counted apart."""
     if mesh is not None:
         if bucketed:
-            raise NotImplementedError(
-                "the bucketed, overlapped sync on process groups is not "
-                "ported yet: ROADMAP Queue 1, 'overlapped sync on process "
-                "groups'")
+            return _make_rank_bucketed_sync(cfg, staged, mode, mesh)
         return _make_rank_sync(cfg, staged, mode, mesh)
     staged = nu.as_staged(staged)
     mode = nt.Mode.coerce(mode)
@@ -289,6 +301,112 @@ def _make_rank_sync(cfg, plan, mode, mesh):
     return sync_grads
 
 
+_REP_KEYS = ("ln1", "ln2")
+_TOP_KEYS = ("final_norm", "head", "embed")
+
+
+def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
+    """(issue, complete) of one rank's chunk syncs. ``issue(ci, layers)``
+    takes chunk ``ci``'s layer grads (``layers[l][key]``) and, for each of
+    its unit buckets (attn, mlp), packs the leaves ``(buf, *unit)`` into one
+    ``(buf, ΣE)`` flat (one `bucket_pack` launch), runs the pre-sync
+    `reshard_rank` on a degraded NTP plan and starts the sum over ``data``;
+    then the same for its rep bucket (``ln1``/``ln2`` as rows-1 flats,
+    summed only). ``complete(state)`` waits on each sum, runs the post-sync
+    reshard when degraded, unpacks (one `bucket_unpack` launch a bucket)
+    and returns ``[((layer, key), grad), ...]``. Every rank issues the
+    same collectives in the same order."""
+    plans = nt._plans(cfg, plan)
+    degraded = mode is nt.Mode.NTP and not plan.healthy
+    buckets = [
+        tuple(Bucket(0, kind, tuple((l, k) for l in range(lo, hi)
+                                    for k in keys))
+              for kind, keys in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS)))
+        for lo, hi in chunks
+    ]
+
+    def pack(arrs, rows):
+        shapes = tuple(a.shape for a in arrs)
+        flats = [a.reshape(rows or a.shape[0], -1).contiguous() for a in arrs]
+        return bucket_pack(flats), tuple(f.shape[1] for f in flats), shapes
+
+    def unpack(flat, widths, shapes):
+        return [p.reshape(s) for p, s in zip(bucket_unpack(flat, widths),
+                                             shapes)]
+
+    @torch.no_grad()
+    def issue(ci, layers):
+        """Takes (pops) chunk ``ci``'s grads out of ``layers``: each leaf is
+        freed once its bucket is packed."""
+        lo, hi = chunks[ci]
+        units = []
+        for b in buckets[ci]:
+            flat, widths, shapes = pack([layers[l].pop(k)
+                                         for l, k in b.leaves], None)
+            if degraded:
+                flat = rs.reshard_rank(flat, plans[b.kind].pre, mesh)
+            units.append((b, C.psum_async_(flat, mesh.data), widths, shapes))
+        rep_keys = [(l, k) for l in range(lo, hi) for k in _REP_KEYS]
+        flat, widths, shapes = pack([layers[l].pop(k) for l, k in rep_keys],
+                                    1)
+        return units, (rep_keys, C.psum_async_(flat, mesh.data), widths,
+                       shapes)
+
+    @torch.no_grad()
+    def complete(state):
+        units, (rep_keys, rep, rep_widths, rep_shapes) = state
+        out = []
+        for b, pending, widths, shapes in units:
+            flat = pending.wait()
+            if degraded:
+                flat = rs.reshard_rank(flat, plans[b.kind].post, mesh)
+            out.extend(zip(b.leaves, unpack(flat, widths, shapes)))
+        out.extend(zip(rep_keys, unpack(rep.wait(), rep_widths, rep_shapes)))
+        return out
+
+    return issue, complete
+
+
+def _make_rank_bucketed_sync(cfg, plan, mode, mesh):
+    """The standalone bucketed sync of one (replica, rank) process, the
+    rank twin of ``make_sync_grads(bucketed=True)`` on the overlapped
+    step's buckets (`chunk_ranges`; one chunk of every layer would stage
+    GBs a bucket): each chunk's two unit buckets and its rep bucket issued
+    in the step's order, a chunk completed once the next is issued, then
+    ``final_norm``, ``head`` and ``embed`` summed over data in place, one
+    after another. It consumes ``grads`` (each layer leaf is freed once
+    packed; the layer dicts come back holding the synced leaves), as the
+    per-leaf rank sync sums in place. ``.collectives`` counts the unit
+    buckets as `sync_collectives(bucketed=True, chunks=)` does;
+    ``.replicated_collectives`` the rep buckets and the three in-place
+    sums."""
+    plan = nt._pp1(plan)
+    mode = nt.Mode.coerce(mode)
+    chunks = chunk_ranges(cfg.n_layers, 1)
+    issue, complete = _rank_chunk_syncers(cfg, plan, mode, mesh, chunks)
+
+    @torch.no_grad()
+    def sync_grads(grads):
+        layers = grads["layers"]
+        done, pending = [], None
+        for ci in reversed(range(len(chunks))):
+            state = issue(ci, layers)
+            if pending is not None:
+                done += complete(pending)
+            pending = state
+        done += complete(pending)
+        for (l, k), g in done:
+            layers[l][k] = g
+        return dict({k: C.psum_(grads[k].contiguous(), mesh.data)
+                     for k in _TOP_KEYS}, layers=layers)
+
+    sync_grads.collectives = sync_collectives(cfg, plan, mode, bucketed=True,
+                                              chunks=chunks)
+    sync_grads.replicated_collectives = len(chunks) + len(_TOP_KEYS)
+    sync_grads.bucketed = True
+    return sync_grads
+
+
 class _SideStream:
     """Runs the sync on a second CUDA stream beside the backward; on the CPU
     everything runs in order on the host and this does nothing."""
@@ -308,6 +426,7 @@ class _SideStream:
         self.side.wait_stream(self.main)
         for t in inputs:
             t.record_stream(self.side)
+        t = inputs = None   # what ``fn`` frees is freed
         with torch.cuda.stream(self.side):
             return fn()
 
@@ -454,4 +573,128 @@ def make_overlapped_train_step(
     step.sync_fn = make_sync_grads(cfg, staged, mode=mode, bucketed=True)
     step.sync_off_fn = make_sync_grads(cfg, staged, mode=mode,
                                        bucketed=False)
+    return step
+
+
+def make_overlapped_rank_train_step(
+    cfg,
+    fplan,
+    mesh,
+    *,
+    mode=nt.Mode.NTP,
+    local_batch: int = 4,
+    optimizer: Optional[Optimizer] = None,
+    local_batches=None,
+):
+    """Overlapped twin of `ntp_train.make_rank_train_step` on one (replica,
+    rank) process (pp=1), the per-rank form of the reference's
+    `make_overlapped_train_step`: same contract and probes as the
+    emulated overlapped step, ``loss`` and ``grad_norm`` the global ones,
+    equal on every rank, and values equal to the sequential rank step's up
+    to the order of f32 sums.
+
+    The forward runs chunk by chunk on `chunk_ranges` (each chunk on a
+    detached, grad-requiring input, its layers between the Megatron pair);
+    the backward runs chunk by chunk with `torch.autograd.grad`. The tail's
+    ``final_norm``/``head`` grads start their sums over data first; each
+    chunk's buckets are issued as soon as its grads exist and completed
+    after the next (earlier) chunk's backward has been issued; ``embed`` is
+    summed last, once ``head``'s sum has landed. The sync runs on a second
+    CUDA stream (`_SideStream`); every in-flight flat stays referenced by
+    its handle until waited on."""
+    plan = nt._pp1(fplan)
+    if (plan.d, plan.n1) != tuple(mesh):
+        raise ValueError(f"plan {plan} does not fit mesh {tuple(mesh)}")
+    mode = nt.Mode.coerce(mode)
+    optimizer = optimizer or sgd(1e-2)
+    masks = nt._sample_masks(nt._validated_local_batches(
+        local_batches, plan, mode, local_batch, plan.d))
+    chunks = chunk_ranges(cfg.n_layers, 1)
+    issue, complete = _rank_chunk_syncers(cfg, plan, mode, mesh, chunks)
+
+    def loss_and_grads(params, batch):
+        dev = params["embed"].device
+        tokens, mask = nt._rank_tokens(batch, mesh, masks, dev)
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+        leaves = nt._grad_leaves(params)
+
+        # ---- forward: embed | chunk_0 … chunk_{C-1} | tail
+        x0 = leaves["embed"][inp]
+        x = x0
+        chunk_io = []
+        for lo, hi in chunks:
+            xin = x.detach().requires_grad_(True)
+            xx = xin
+            for l in range(lo, hi):
+                xx = nt._rank_layer(leaves["layers"][l], xx, cfg, mesh.model)
+            chunk_io.append((xin, xx))
+            x = xx
+        x_tail = x.detach().requires_grad_(True)
+        total, count = nt._rank_tail(leaves["final_norm"], leaves["head"],
+                                     x_tail, tgt, mask)
+        tc = C.psum(torch.stack([total.detach(), count]), mesh.data)
+        denom = torch.clamp(tc[1], min=1.0)
+
+        # ---- backward with a one-chunk-deep in-flight sync pipeline
+        g_fn, g_head, dx = torch.autograd.grad(
+            total / denom, [leaves["final_norm"], leaves["head"], x_tail])
+        stream = _SideStream(dev)
+        tail = stream.run(lambda: [C.psum_async_(g.contiguous(), mesh.data)
+                                   for g in (g_fn, g_head)], (g_fn, g_head))
+        del g_fn, g_head
+        g_layers = [dict() for _ in range(cfg.n_layers)]
+        synced = []
+        pending = None
+        for ci in reversed(range(len(chunks))):
+            lo, hi = chunks[ci]
+            xin, xout = chunk_io[ci]
+            keys = [(l, k) for l in range(lo, hi)
+                    for k in sorted(leaves["layers"][l])]
+            grads = torch.autograd.grad(
+                xout, [leaves["layers"][l][k] for l, k in keys] + [xin],
+                grad_outputs=dx)
+            dx = grads[-1]
+            for (l, k), g in zip(keys, grads):
+                g_layers[l][k] = g
+            del grads
+            if pending is not None:
+                synced.append(stream.run(lambda p=pending: complete(p), ()))
+            pending = stream.run(
+                lambda ci=ci: issue(ci, g_layers),
+                [g_layers[l][k] for l, k in keys])
+        synced.append(stream.run(lambda p=pending: complete(p), ()))
+        del pending
+        (g_embed,) = torch.autograd.grad(x0, [leaves["embed"]],
+                                         grad_outputs=dx)
+        # head's sum lands before embed's starts: gloo stages a CUDA
+        # tensor through pinned host memory, and one GB-sized staging
+        # buffer a rank is enough
+        g_fn, g_head = stream.run(lambda: [p.wait() for p in tail], ())
+        g_embed = stream.run(
+            lambda: C.psum_(g_embed.contiguous(), mesh.data), (g_embed,))
+        outs = [g_embed, g_fn, g_head]
+        for done in synced:
+            for (l, k), g in done:
+                g_layers[l][k] = g
+                outs.append(g)
+        stream.join(outs)
+        grads = {"embed": g_embed, "head": g_head, "final_norm": g_fn,
+                 "layers": g_layers}
+        return tc[0] / denom, grads
+
+    def step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch)
+        params, opt_state, metrics = optimizer.update(
+            grads, opt_state, params, grad_norm=nt.rank_grad_norm(grads, mesh))
+        return params, opt_state, dict(metrics, loss=loss)
+
+    step.overlap = True
+    step.chunks = chunks
+    step.collectives = sync_collectives(cfg, plan, mode, bucketed=True,
+                                        chunks=chunks)
+    step.replicated_collectives = len(chunks) + len(_TOP_KEYS)
+    step.grads_fn = loss_and_grads
+    step.sync_fn = make_sync_grads(cfg, plan, mode=mode, bucketed=True,
+                                   mesh=mesh)
+    step.sync_off_fn = make_sync_grads(cfg, plan, mode=mode, mesh=mesh)
     return step

@@ -68,9 +68,11 @@ def reshard_rank(x: torch.Tensor, tables: StackedTables,
     r, n, s_max = mesh.rank, mesh.n_model, tables.s_max
     xp = zero_pad_slot(x, axis=0)
     send = reshard_pack(xp.reshape(buf + 1, -1), t["send"][r])
+    out = xp[t["stay"][r]]
+    del xp                  # the padded copy goes before the receive buffer
     recv = C.all_to_all_units(send.reshape(n * s_max, -1), [s_max] * n,
                               [s_max] * n, mesh.model)
-    out = xp[t["stay"][r]]
+    del send
     if len(t["recv_src"][r]):                   # pad (== buf) drops
         out[t["recv_dst"][r]] = recv.reshape(
             n * s_max, *x.shape[1:])[t["recv_src"][r]]

@@ -24,6 +24,13 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
       --nproc 4 --mesh 2x2 --backend gloo --steps 6 --fail-at 3
 
+  # the same processes through a mixed trace, overlapped sync, NTP-PW,
+  # checkpoints and telemetry (rank 0 writes the files)
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
+      --nproc 4 --mesh 2x2 --backend gloo --overlap on --steps 12 \\
+      --trace 200 --trace-seed 136 --trace-mix straggler=2,link=2,sdc=1 \\
+      --power-policy ntp_pw --ckpt /tmp/ckpt.npz --telemetry /tmp/run.jsonl
+
   # replay a mixed failure trace (fail -> boost -> repair, stragglers,
   # degraded links, SDC quarantine and rollback) under NTP-PW, with
   # canonical checkpoints and a telemetry stream
@@ -36,8 +43,9 @@ The (data, model) mesh is emulated on one device: ``--devices N`` sets the
 emulated ranks, as a (2, N/2) mesh; ``--pp`` splits the layers into
 pipeline stages, every rank playing each stage in turn. ``--nproc N --mesh
 DxN1 --backend {gloo,nccl}`` runs each (replica, rank) as a process of one
-process group instead (`launch.spawn`; pp=1, fail/repair, the sequential
-sync); rank 0 prints. The uniform
+process group instead (`launch.spawn`; pp=1, every other flag as above;
+``--mesh``, not ``--devices``, sizes it); rank 0 prints and writes the
+telemetry stream, the other ranks record into memory. The uniform
 arch-stack launcher (``--arch``) and the global allocator
 (``--allocator greedy``) wait for their slices (ROADMAP).
 """
@@ -291,16 +299,12 @@ def _run_ranks(ap, args) -> dict:
     if args.fail_at is not None and not 0 <= args.fail_replica < d:
         ap.error(f"--fail-replica {args.fail_replica} out of range for {d} "
                  "replicas")
-    for flag, on in (("--pp", args.pp > 1), ("--overlap on",
-                                             args.overlap == "on"),
-                     ("--trace", args.trace is not None),
-                     ("--power-policy", args.power_policy is not None),
-                     ("--spares", args.spares > 0),
-                     ("--telemetry", args.telemetry is not None),
-                     ("--devices", args.devices > 0)):
-        if on:
-            ap.error(f"{flag} is not ported to the process path yet "
-                     "(ROADMAP Queue 1, item 3)")
+    if args.pp > 1:
+        ap.error("--pp > 1 with --nproc is not ported yet (ROADMAP Queue 1, "
+                 "'pp>1 in the port')")
+    if args.devices:
+        ap.error("--devices sizes the emulated mesh; --mesh DxN1 sizes a "
+                 "--nproc run")
     args.mesh_shape = (d, n1)
     device = args.device or "cuda"
     out = spawn(_rank_main, args.nproc, backend=args.backend, device=device,
@@ -310,35 +314,58 @@ def _run_ranks(ap, args) -> dict:
 
 def _rank_main(args, device) -> dict:
     """One (replica, rank) process of ``--nproc``: the mesh, the session
-    and the steps; global rank 0 prints."""
+    and the steps (or the trace); global rank 0 prints and writes the
+    telemetry stream, the other ranks record into memory."""
     import torch
 
+    from repro_torch import telemetry
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.optim import AdamWConfig, adamw
-    from repro_torch.runtime import NTPSession
+    from repro_torch.runtime import NTPSession, power_policy
 
     d, n1 = args.mesh_shape
     mesh = make_test_mesh(d, n1, backend=args.backend, device=device)
-    log = print if mesh.global_rank == 0 else (lambda *a, **k: None)
-    session = NTPSession.create(
-        _model(args, n1), mesh, local_batch=args.batch,
-        optimizer=adamw(AdamWConfig(lr=args.lr)),
-        generator=torch.Generator(device=mesh.device).manual_seed(args.seed),
-    )
-    log(f"ntp prototype: processes {args.nproc} (mesh data={d} model={n1}, "
-        f"{args.backend})  plan {session.plan}  device {mesh.device}",
-        flush=True)
-    pipe = SyntheticLMPipeline(
-        DataConfig(session.cfg.vocab, args.seq_len, d * args.batch,
-                   seed=args.seed))
-    return _train_loop(args, session, pipe, log)
+    rank0 = mesh.global_rank == 0
+    log = print if rank0 else (lambda *a, **k: None)
+    if args.telemetry:
+        if rank0:
+            telemetry.configure(jsonl=args.telemetry)
+        else:
+            telemetry.configure(memory=True)
+    try:
+        policy_name = args.power_policy or ("ntp" if args.trace is not None
+                                            else None)
+        session = NTPSession.create(
+            _model(args, n1), mesh, local_batch=args.batch,
+            optimizer=adamw(AdamWConfig(lr=args.lr)),
+            generator=torch.Generator(
+                device=mesh.device).manual_seed(args.seed),
+            overlap=args.overlap,
+            power_policy=power_policy(policy_name) if policy_name else None,
+            spares=args.spares, quarantine=args.quarantine == "on",
+        )
+        log(f"ntp prototype: processes {args.nproc} (mesh data={d} "
+            f"model={n1}, {args.backend})  plan {session.plan}"
+            + (f"  overlap {args.overlap}" if args.overlap == "on" else "")
+            + (f"  policy {policy_name}" if policy_name else "")
+            + (f"  spares {args.spares}" if args.spares else "")
+            + f"  device {mesh.device}", flush=True)
+        pipe = SyntheticLMPipeline(
+            DataConfig(session.cfg.vocab, args.seq_len, d * args.batch,
+                       seed=args.seed))
+        if args.trace is not None:
+            return _run_ntp_trace(args, session, pipe, log)
+        return _train_loop(args, session, pipe, log)
+    finally:
+        if args.telemetry:
+            telemetry.shutdown()
 
 
-def _run_ntp_trace(args, session, pipe) -> dict:
+def _run_ntp_trace(args, session, pipe, log=print) -> dict:
     """Replay a sampled failure/recovery trace against the live session via
-    the lifecycle orchestrator. The runner goes in chunks that end at every
-    log step and every checkpoint step."""
+    the lifecycle orchestrator, printing through ``log``. The runner goes in
+    chunks that end at every log step and every checkpoint step."""
     from collections import Counter
 
     from repro_torch.core.failure_model import FailureTraceConfig
@@ -356,7 +383,7 @@ def _run_ntp_trace(args, session, pipe) -> dict:
         pp=pp,
     )
     kinds = Counter(event_kind(s.event) for s in schedule)
-    print(f"trace: {len(schedule)} events over {args.steps} steps "
+    log(f"trace: {len(schedule)} events over {args.steps} steps "
           f"({', '.join(f'{k}={n}' for k, n in sorted(kinds.items()))})")
 
     t0 = time.time()
@@ -364,7 +391,7 @@ def _run_ntp_trace(args, session, pipe) -> dict:
     def on_event(ev, plan):
         site = (f"stage {ev.stage} domain {ev.domain}"
                 if ev.stage is not None else f"domain {ev.domain}")
-        print(f"*** step {ev.step}: {event_kind(ev)} {site} -> "
+        log(f"*** step {ev.step}: {event_kind(ev)} {site} -> "
               f"plan {plan}  local_batches {session.local_batches}")
 
     runner = TraceRunner(session, schedule, on_event=on_event)
@@ -382,21 +409,21 @@ def _run_ntp_trace(args, session, pipe) -> dict:
             h = hist[-1]
             extra = (f"  boost {h['power_boost']:.2f}  rel_iter "
                      f"{h['rel_iter_time']:.3f}" if "power_boost" in h else "")
-            print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
+            log(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
                   f"gnorm {h['grad_norm']:.3f}  tp {h['replica_tp']}{extra}  "
                   f"({time.time() - t0:.1f}s)", flush=True)
         if ckpt_every and stop % ckpt_every == 0 and stop < args.steps:
             session.save(args.ckpt)
-            print(f"  saved canonical checkpoint -> {args.ckpt}")
+            log(f"  saved canonical checkpoint -> {args.ckpt}")
     s = runner.summary()
     by_kind = ", ".join(f"{k}={v}" for k, v in sorted(
         s["events_by_kind"].items()))
     roll = f", rollbacks {s['rollbacks']}" if s.get("rollbacks") else ""
-    print(f"lifecycle: {by_kind or 'no events'}{roll}, "
+    log(f"lifecycle: {by_kind or 'no events'}{roll}, "
           f"goodput {s['goodput']:.3f}, final plan {s['final_plan']}")
     if args.ckpt:
         session.save(args.ckpt)
-        print(f"final canonical checkpoint -> {args.ckpt}")
+        log(f"final canonical checkpoint -> {args.ckpt}")
     return {"losses": [h["loss"] for h in runner.history],
             "plan": session.plan, "summary": s}
 

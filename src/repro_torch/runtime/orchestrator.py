@@ -251,6 +251,14 @@ class TraceRunner:
     dense reference keeps a host copy of its own step-0 state and rolls back
     to the same point.
 
+    On a process-group session (a `_RankSession`) every process runs the
+    same runner: each replays the schedule, keeps the same history and
+    goodput gauges and honours ``drain_every`` alike. ``verify=True`` keeps
+    the dense reference (and its rollback copy) on global rank 0 only; the
+    canonical checks gather replica 0 over its model group (every process
+    of replica 0 takes part, replica 1's issue nothing) and rank 0
+    compares.
+
     With telemetry active every consumed event becomes an
     ``orchestrator.event`` span (phase marks plan → execute → verified; the
     session's ``session.transition`` span nests inside) and every step
@@ -269,10 +277,6 @@ class TraceRunner:
         on_event: Optional[Callable[[LifecycleEvent, FailurePlan], None]] = None,
         drain_every: int = 16,
     ):
-        if getattr(session, "rank_mesh", None) is not None:
-            raise NotImplementedError(
-                "TraceRunner: trace replay on process groups is not ported "
-                "yet (ROADMAP Queue 1: 'lifecycle on process groups')")
         self.session = session
         self.schedule = sorted(schedule, key=lambda e: e.step)
         self.verify = verify
@@ -293,11 +297,16 @@ class TraceRunner:
             # arm the quarantine rollback target before any step runs —
             # without a snapshot an SdcSuspectEvent only zeroes the batch
             session.snapshot()
+        mesh = getattr(session, "rank_mesh", None)
+        # the process that holds the dense reference and checks against it
+        self._checks = verify and (mesh is None or mesh.global_rank == 0)
         if verify:
             if session.opt_step != 0:
                 raise ValueError("verify=True needs a fresh (step-0) session")
+            canonical = session.canonical_params()
+        if self._checks:
             self._ref_loss = nt.make_reference_loss(session.cfg)
-            self._ref_params = session.canonical_params()
+            self._ref_params = canonical
             self._ref_opt = session.optimizer.init(self._ref_params)
             if has_sdc:
                 # the dense reference rolls back to the SAME restore point
@@ -324,8 +333,10 @@ class TraceRunner:
             else h.resolve_domain(ev)
         )
 
-    def _check_canonical(self, where: str) -> float:
+    def _check_canonical(self, where: str) -> Optional[float]:
         got = self.session.canonical_params()
+        if not self._checks:
+            return None
         with torch.no_grad():
             err = float(torch.stack([
                 (a - b).abs().max() for a, b in
@@ -414,23 +425,27 @@ class TraceRunner:
             rec["rollback"] = True
             sp.set(rollback=True)
             if self.verify:
-                self._ref_params, self._ref_opt = _to_device(
-                    self._ref_snapshot, self.session.device)
-                rec["canonical_err"] = self._check_canonical(
-                    f"step {step} (sdc quarantine rollback)"
-                )
-                sp.mark("verified")
+                if self._checks:
+                    self._ref_params, self._ref_opt = _to_device(
+                        self._ref_snapshot, self.session.device)
+                self._verified(rec, sp, self._check_canonical(
+                    f"step {step} (sdc quarantine rollback)"))
         if self.verify and new_plan != old_plan:
-            rec["canonical_err"] = self._check_canonical(
-                f"step {step} ({rec['kind']} transition {old_plan} -> {new_plan})"
-            )
-            sp.mark("verified")
+            self._verified(rec, sp, self._check_canonical(
+                f"step {step} ({rec['kind']} transition {old_plan} -> "
+                f"{new_plan})"))
         self.transitions.append(rec)
         sp.set(outcome="applied", old_plan=str(old_plan),
                new_plan=str(new_plan))
         if self.on_event is not None:
             self.on_event(ev, new_plan)
         return [ev]
+
+    @staticmethod
+    def _verified(rec, sp, err: Optional[float]) -> None:
+        if err is not None:
+            rec["canonical_err"] = err
+        sp.mark("verified")
 
     # ------------------------------------------------------------------ run
 
@@ -485,13 +500,14 @@ class TraceRunner:
                           policy=policy)
             if self.verify:
                 self._drain()  # the dense-reference compare needs host values
-                rl = self._ref_step(batch)
-                diff = abs(rec["loss"] - rl)
-                assert diff < self.atol, (
-                    f"step {i}: NTP loss {rec['loss']:.6f} diverged from dense "
-                    f"reference {rl:.6f} (|diff| {diff:.3e})"
-                )
-                rec["ref_loss"] = rl
+                if self._checks:
+                    rl = self._ref_step(batch)
+                    diff = abs(rec["loss"] - rl)
+                    assert diff < self.atol, (
+                        f"step {i}: NTP loss {rec['loss']:.6f} diverged from "
+                        f"dense reference {rl:.6f} (|diff| {diff:.3e})"
+                    )
+                    rec["ref_loss"] = rl
             elif len(self._undrained) >= self.drain_every:
                 self._drain()
         self._next_step = first + steps

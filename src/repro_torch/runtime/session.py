@@ -44,13 +44,17 @@ format; a snapshot is the same canonical trees, kept in host memory.
 
 On a `launch.mesh.RankMesh` (``mesh=make_test_mesh(...)`` in each process
 of a `launch.spawn` run) the session is one (replica, rank) process of the
-job: it holds its own packed slots, steps with `make_rank_train_step`,
-moves its slots with `transition_rank_trees` and gathers canonical weights
-over its replica's model group. Every process applies the same events in
-the same order (the health ledger is replicated), and a failed rank stays
-in its groups holding pad slots, as on the reference's fixed mesh. It runs
-pp=1 fail/repair with the sequential sync; the rest of the lifecycle there
-raises `NotImplementedError` naming its ROADMAP row.
+job: it holds its own packed slots, steps with `make_rank_train_step` (or,
+with ``overlap``, `core.overlap.make_overlapped_rank_train_step`), moves
+its slots with `transition_rank_trees` and gathers canonical weights over
+its replica's model group. Every process applies the same events in the
+same order (the health ledger, the power policy and the spares are host
+decisions on the replicated ledger), and a failed rank stays in its groups
+holding pad slots, as on the reference's fixed mesh. Snapshots are per
+rank (each keeps a host copy of its own slots and their plan; a rollback
+under another plan runs `transition_rank_trees`), checkpoints canonical.
+pp>1 (and microbatches) there raise `NotImplementedError` naming their
+ROADMAP row.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP row):
 the global allocator (`allocator=`) and the uniform arch backend
@@ -78,8 +82,8 @@ from repro_torch.kernels import mode as kmode
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.optim import AdamWConfig, Optimizer, adamw
 from repro_torch.runtime.events import (
-    DEGRADATION_EVENTS, ClusterHealth, FailureEvent, LifecycleEvent,
-    RecoveryEvent, SdcSuspectEvent, StagedHealth, event_kind,
+    DEGRADATION_EVENTS, ClusterHealth, LifecycleEvent, SdcSuspectEvent,
+    StagedHealth, event_kind,
     plan_from_health, staged_plan_from_health,
 )
 
@@ -88,9 +92,6 @@ def _not_ported(what: str, row: str) -> NotImplementedError:
     return NotImplementedError(
         f"NTPSession: {what} is not ported to repro_torch yet "
         f"(ROADMAP Queue 1: {row})")
-
-
-LIFECYCLE_ROW = "'lifecycle on process groups'"
 
 
 class NTPSession:
@@ -143,10 +144,9 @@ class NTPSession:
             raise _not_ported("the global repack allocator (allocator=)",
                               "'session spares and allocator'")
         rank_mesh = mesh if isinstance(mesh, RankMesh) else None
-        if rank_mesh is not None:
-            _RankSession.refuse(pp=pp, microbatches=microbatches,
-                                overlap=coerce_overlap(overlap),
-                                power_policy=power_policy, spares=spares)
+        if rank_mesh is not None and (pp != 1 or microbatches != 1):
+            raise _not_ported("pp>1 (and microbatches) on process groups",
+                              "'pp>1 in the port'")
         self = object.__new__(cls if rank_mesh is None else _RankSession)
         self._cfg = cfg
         self._rank_mesh = rank_mesh
@@ -692,22 +692,8 @@ class NTPSession:
 
 class _RankSession(NTPSession):
     """`NTPSession` as one (replica, rank) process of a process-group run
-    (`NTPSession.create(cfg, mesh=RankMesh, ...)`): pp=1, fail/repair, the
-    sequential sync; everything else raises naming its ROADMAP row."""
-
-    @staticmethod
-    def refuse(*, pp, microbatches, overlap, power_policy, spares) -> None:
-        if pp != 1 or microbatches != 1:
-            raise _not_ported("pp>1 (and microbatches) on process groups",
-                              "'pp>1 in the port'")
-        if overlap:
-            raise _not_ported("the overlapped sync on process groups",
-                              "'overlapped sync on process groups'")
-        if power_policy is not None:
-            raise _not_ported("a power policy on process groups",
-                              LIFECYCLE_ROW)
-        if spares:
-            raise _not_ported("spares on process groups", LIFECYCLE_ROW)
+    (`NTPSession.create(cfg, mesh=RankMesh, ...)`, pp=1): its own packed
+    slots, every event kind, overlap on or off, per-rank snapshots."""
 
     def _pack(self, canonical: Dict) -> Dict:
         m = self._rank_mesh
@@ -724,15 +710,6 @@ class _RankSession(NTPSession):
             return None
         return nt.unpack_rank_params(self._cfg, self._params, self._plan,
                                      self._rank_mesh, device)
-
-    def apply(self, event: LifecycleEvent):
-        """`NTPSession.apply` for `FailureEvent` and `RecoveryEvent`; every
-        process must apply the same events in the same order."""
-        if not isinstance(event, (FailureEvent, RecoveryEvent)):
-            raise _not_ported(f"{event_kind(event)} events on process groups "
-                              "(degradation, quarantine and rollback)",
-                              LIFECYCLE_ROW)
-        return super().apply(event)
 
     def save(self, path: str) -> None:
         """Replica 0's params and optimizer state in canonical layout
@@ -751,17 +728,109 @@ class _RankSession(NTPSession):
         torch.distributed.barrier()
 
     def restore(self, path: str) -> int:
-        raise _not_ported("restore on process groups", LIFECYCLE_ROW)
+        """Every process reads the canonical checkpoint and packs its own
+        slots under the CURRENT plan (`pack_rank_params`), no collective;
+        equal bit for bit to the emulated session's `restore` sliced at
+        this (replica, rank). Returns the saved step."""
+        like = tr.tree_map(lambda t: t.to("meta"),
+                           {"params": self._params, "opt": self._opt})
+        like = {"params": self._canonical_like(like["params"]),
+                "opt": {k: (self._canonical_like(v)
+                            if k in self._optimizer.param_like else v)
+                        for k, v in like["opt"].items()}}
+        tree, step = load_checkpoint(path, like, device="cpu")
+        state = {"params": self._pack(tree["params"]),
+                 "opt": {k: (self._pack(v)
+                             if k in self._optimizer.param_like else v)
+                         for k, v in tree["opt"].items()}}
+        del tree
+        self._params = self._opt = None
+        state = tr.tree_map(lambda t: t.to(self._device), state)
+        self._params, self._opt = state["params"], state["opt"]
+        return step if step is not None else self.opt_step
 
     def snapshot(self) -> None:
-        raise _not_ported("snapshots (quarantine rollback) on process "
-                          "groups", LIFECYCLE_ROW)
+        """This process's restore point: a host copy of ITS OWN slots —
+        params and every optimizer leaf — and the plan they are packed
+        under. No collective."""
+        self._snapshot = (self._plan, tr.tree_map(
+            lambda t: t.detach().to("cpu", copy=True),
+            {"params": self._params, "opt": self._opt}))
 
     def rollback(self) -> int:
-        raise _not_ported("rollback on process groups", LIFECYCLE_ROW)
+        """Restore this process's latest `snapshot()` into the CURRENT
+        plan's packing: its slots are copied back in place under the same
+        plan, and otherwise moved from the snapshot's plan to the live one
+        by `transition_rank_trees` (a collective of every process; pure row
+        copies with zero pad slots, so the result equals `pack_rank_params`
+        of the snapshot's canonical weights bit for bit). Returns the
+        restored optimizer step."""
+        if self._snapshot is None:
+            raise RuntimeError(
+                "no restore point: call session.snapshot() before relying "
+                "on SDC rollback"
+            )
+        plan, host = self._snapshot
+        live = {"params": self._params, "opt": self._opt}
+        if plan == self._plan:
+            with torch.no_grad():
+                for t, h in zip(tr.leaves(live), tr.leaves(host)):
+                    t.copy_(h)
+        else:
+            from repro_torch.reshard.transition import transition_rank_trees
 
-    def measure_sync(self, batch):
-        raise _not_ported("measure_sync on process groups", LIFECYCLE_ROW)
+            self._params = self._opt = live = None   # free the card first
+            dev = self._device
+            state = tr.tree_map(lambda t: t.to(dev, copy=True), host)
+            opt = state["opt"]
+            keys = [k for k in self._optimizer.param_like if k in opt]
+            moved, _ = transition_rank_trees(
+                self._cfg, [state["params"]] + [opt[k] for k in keys], plan,
+                self._plan, self._rank_mesh)
+            self._params = moved[0]
+            self._opt = dict(opt, **dict(zip(keys, moved[1:])))
+        self.last_rollback = True
+        return self.opt_step
+
+    def measure_sync(self, batch) -> Dict[str, Any]:
+        """`NTPSession.measure_sync` on this process: ``grads_fn`` once,
+        then the step's ``sync_fn`` (a collective) under a ``train.sync``
+        span, timed after a barrier; ``sync_s`` is the max over every
+        process, taken after the timed window."""
+        step = self._step_fn
+        tel = telemetry.get()
+        _, grads = step.grads_fn(self._params, batch)
+        label = "on" if step.overlap else "off"
+        torch.distributed.barrier()
+        with tel.span("train.sync", overlap=label, backend="ntp") as sp:
+            sp.mark("issued")
+            _sync_device(self._device)
+            t0 = time.perf_counter()
+            step.sync_fn(grads)
+            _sync_device(self._device)
+            sync_s = time.perf_counter() - t0
+            sp.mark("completed")
+            worst = torch.tensor([sync_s], dtype=torch.float64,
+                                 device=self._device)
+            torch.distributed.all_reduce(worst,
+                                         op=torch.distributed.ReduceOp.MAX)
+            attrs = {"collectives": int(step.collectives),
+                     "sync_s": float(worst), "exposed_s": float(worst)}
+            sp.set(**attrs)
+        return dict(attrs, overlap=label)
+
+    def _canonical_like(self, packed: Dict) -> Dict:
+        """`meta` tensors of the canonical shapes of a packed rank tree."""
+        plans = nt._plans(self._cfg, self._plan)
+
+        def leaf(path, t):
+            key = tr.leaf_key(path)
+            if key not in nt.UNIT_KEYS:
+                return t
+            k = plans["mlp" if key in ("A", "B") else "attn"].k
+            return t.new_empty((k,) + tuple(t.shape[1:]))
+
+        return tr.tree_map_with_path(leaf, packed)
 
     def _transition(self, old: FailurePlan, new: FailurePlan) -> None:
         """This process's slots of params and every param-like optimizer
@@ -775,3 +844,8 @@ class _RankSession(NTPSession):
         self._params = moved[0]
         self._opt = dict(self._opt, **dict(zip(opt_keys, moved[1:])))
         self.last_transition = stats
+
+
+def _sync_device(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

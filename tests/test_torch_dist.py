@@ -31,9 +31,7 @@ from repro_torch.launch.mesh import check_backend, make_test_mesh
 from repro_torch.launch.spawn import RankError, spawn
 from repro_torch.optim import AdamWConfig, adamw, sgd
 from repro_torch.reshard.transition import expected_transfer
-from repro_torch.runtime import (
-    FailureEvent, NTPSession, RecoveryEvent, StragglerEvent, TraceRunner,
-)
+from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
 
 KW = dict(d_model=64, n_kv_groups=4, q_per_kv=2, head_dim=16, d_ff=256,
           unit_rows=64, n_layers=2, vocab=128)
@@ -107,8 +105,8 @@ def _counting_reshard_pack():
 
 
 def _rank_fast(canon_np, ckpt):
-    """One 2×2 process: pack checks, refusals, the SGD chain, canonical
-    params of its replica, a checkpoint."""
+    """One 2×2 process: pack checks, the pp>1 refusal, the SGD chain,
+    canonical params of its replica, a checkpoint."""
     from repro_torch.convert import ntp_params_from_jax
 
     mesh = make_test_mesh(2, 2, backend="gloo", device="cpu")
@@ -122,15 +120,12 @@ def _rank_fast(canon_np, ckpt):
             if tr.leaf_key(path) in nt.UNIT_KEYS:
                 b = b.reshape(2, 2, -1, *b.shape[2:])[mesh.replica, mesh.rank]
             packs.append(torch.equal(a, b))
-    for kw in (dict(overlap=True), dict(pp=2), dict(spares=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NTPSession.create(cfg, mesh, params=canon, **kw)
+    # pp>1 waits for its slice; the rest of the lifecycle runs here
+    # (tests/test_torch_dist_lifecycle.py)
+    with pytest.raises(NotImplementedError, match="'pp>1 in the port'"):
+        NTPSession.create(cfg, mesh, params=canon, pp=2)
     s = NTPSession.create(cfg, mesh, local_batch=LB, optimizer=sgd(LR),
                           params=canon)
-    for call in (s.snapshot, lambda: s.apply(StragglerEvent(replica=0)),
-                 lambda: TraceRunner(s, [])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     record = _counting_reshard_pack()
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, SEQ, 2 * LB, seed=0))
     out = _train(s, pipe, CHAIN, STEPS, record)

@@ -165,6 +165,56 @@ def test_chip_schedule_is_pinned():
     assert slim[6][3] == slim[7][3] and slim[6][3] > 1
 
 
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_lifecycle_chain_is_pinned():
+    """The hand chain chip_smoke.py's phase 10 (c) drives over 4 processes
+    (the sampled `TRACE` needs 8 GPUs in domains of 4): every event kind
+    and its inverse in 6 steps; through an emulated (2, 2) overlap-on
+    NTP-PW session it degrades to TP (1, 2), quarantines replica 1 and
+    rolls back once under that plan, and ends pristine."""
+    smoke = _chip_smoke()
+    chain = smoke._life_chain()
+    assert smoke.LIFE_STEPS == 6
+    assert {i: [(type(e).__name__, e.replica, e.domain,
+                 getattr(e, "slowdown", getattr(e, "bw_frac", None)))
+                for e in evs] for i, evs in chain.items()} == {
+        1: [("FailureEvent", 1, None, None),
+            ("LinkDegradeEvent", None, 1, 0.5)],
+        2: [("SdcSuspectEvent", 1, None, None)],
+        3: [("SdcClearEvent", 1, None, None),
+            ("LinkRepairEvent", None, 1, 0.5)],
+        4: [("RecoveryEvent", 0, None, None),
+            ("StragglerEvent", None, 0, 2.0)],
+        5: [("StragglerClearEvent", None, 0, 2.0)]}
+    cfg = nt.NTPModelConfig(n_layers=2, **KW)
+    s = NTPSession.create(cfg, (2, 2), local_batch=LB, optimizer=sgd(0.05),
+                          params=_canonical(cfg), device="cpu", overlap=True,
+                          power_policy=power_policy("ntp_pw"))
+    s.snapshot()
+    seen = []
+    for i in range(smoke.LIFE_STEPS):
+        for ev in chain.get(i, ()):
+            s.apply(ev)
+            seen.append((i, s.plan.replica_tp, s.last_rollback,
+                         s.quarantined))
+        s.step(_pipe(cfg)._batch_np(i))
+    assert seen == [(1, (1, 2), False, ()), (1, (1, 2), False, ()),
+                    (2, (1, 2), True, (1,)), (3, (1, 2), False, ()),
+                    (3, (1, 2), False, ()), (4, (2, 2), False, ()),
+                    (4, (2, 2), False, ()), (5, (2, 2), False, ())]
+    assert s.health.healthy and s.health.degraded is None
+
+
 # ------------------------------------------------------------- session
 
 def _canonical(cfg, seed=0):
