@@ -125,7 +125,9 @@ Phases (any failure exits non-zero):
    1`, then phase 7's trace with `--power-policy ntp_pw --ckpt ...
    --ckpt-every 4 --telemetry ... --steps 12`: the checkpoint loads and
    every telemetry event is on the schema; then `--nproc 4 --mesh 2x2
-   --backend gloo --steps 8 --fail-at 3` (four processes on this card);
+   --backend gloo --steps 8 --fail-at 3` (four processes on this card) and
+   `--nproc 8 --pp 2 --mesh 2x2 --microbatches 2 --fail-stage 1 --seq-len
+   64 --batch 2` (the README's staged mesh of eight processes);
 10. ranks as processes: the training cell's model (qwen2-7b widths, 4
    layers) on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
    rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 9 steps,
@@ -165,17 +167,41 @@ Phases (any failure exits non-zero):
    turns with `src[idx]` and `index_select`, and the per-rank
    bucket_pack / bucket_unpack (one rank's MLP bucket under that plan)
    against theirs, `torch.cat` and `split` + `.contiguous()`;
-11. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training, trace, pp=2 and process paths, each counted
-   from zero just before it), then the device line.
+11. pp=2 ranks as processes: the model at qwen2-7b widths with one layer a
+   stage on a pp=2 x (2, 2) staged mesh (`launch.mesh.make_staged_mesh`)
+   of 8 processes, gloo, all on cuda:0, each holding its stage's share
+   (`embed` on stage 0, `head` and `final_norm` on stage 1), each capped at
+   its stage's `PP_RANKS_MEMORY_SHARE` of the card; SGD lr 1e-2, local batch 4,
+   microbatches 2, sequence 256, overlap on; a healthy step,
+   `FailureEvent(replica=1, stage=1)` (stage 1 to TP (1, 2), stage 0
+   untouched) and two steps, the repair and one step. The emulated pp=2
+   session runs first on the same seed, chain and batches and is freed
+   before the spawn. Checks: every process's loss within 1e-5 of the
+   emulated, local batches equal; each transition's ledger equal to the
+   emulated and its bytes to `expected_transfer`, stage 0's processes
+   sending nothing and stage 1's one all-to-all each; every step's
+   hand-off bytes (summed over the processes) equal to
+   `handoff_accounting`; each stage's canonical params within 1e-5 of the
+   emulated at the end; bucket_pack / bucket_unpack once a bucket a step
+   on every process, reshard_pack on stage 1's degraded steps only.
+   Printed: step ms by regime, each transition's ms and bytes by stage,
+   the launches by process, peak device memory and host RSS by process;
+   then the per-rank reshard_pack and bucket rows at this shape;
+12. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace, pp=2, process and pp=2 process
+   paths, each counted from zero just before it), then the device line.
+
+``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
+reports which tensors its point-to-point `send`/`recv` take.
 """
 import contextlib
+import dataclasses
 import json
 import os
-import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
@@ -2265,8 +2291,8 @@ def syncs_outside_apply(torch, session, fn):
 def launcher_phase():
     """Phase 9: the training launcher at its defaults on the card, with an
     injected failure, then at pp=2 with microbatches and a stage-addressed
-    failure, then replaying phase 7's trace with checkpoints and a
-    telemetry stream."""
+    failure, then as 4 processes, pp=1 and pp=2 (a staged mesh), then
+    replaying phase 7's trace with checkpoints and a telemetry stream."""
     import shutil
 
     import numpy as np
@@ -2294,6 +2320,15 @@ def launcher_phase():
           "launcher --nproc 4: non-finite losses")
     check(out["plan"].replica_tp == (1, 2),
           f"launcher --nproc 4 plan {out['plan']}")
+    # the README's staged-mesh command: 2 stages of (2, 2), 8 processes
+    out = train_main(["--ntp", "--nproc", "8", "--pp", "2", "--mesh", "2x2",
+                      "--backend", "gloo", "--microbatches", "2", "--steps",
+                      "4", "--fail-at", "2", "--fail-stage", "1",
+                      "--seq-len", "64", "--batch", "2", "--log-every", "1"])
+    check(len(out["losses"]) == 4 and np.isfinite(out["losses"]).all(),
+          "launcher --nproc 8 --pp 2: non-finite losses")
+    check(out["plan"].stage_tp == ((2, 1), (2, 2)),
+          f"launcher --nproc 8 --pp 2 plan {out['plan']}")
 
     tmp = scratch_dir()
     try:
@@ -2760,6 +2795,8 @@ LIFE_SYNC_AFTER = 3
 # each rank's share of the card in part (c): 4 x 0.235 of 79.18 GiB, the
 # rest for the four CUDA contexts
 LIFE_MEMORY_SHARE = 0.235
+# how often a rank worker's thread samples its resident host memory
+HOST_SAMPLE_S = 0.01
 
 
 def _life_session(torch, cfg, mesh, dev):
@@ -2871,12 +2908,15 @@ def lifecycle_worker(cfg, seq, steps, directory, device):
                                           seed=0))
     chain = _life_chain()
 
+    host = _HostPeak()
+
     def timed(fn):
         _sync(torch, dev)
         t0 = time.perf_counter()
         r = fn()
         _sync(torch, dev)
-        return r, (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms
 
     _, snap_ms = timed(s.snapshot)
     out = {"snapshot": (snap_ms, _tree_bytes(s._snapshot[1])), "loss": [],
@@ -2943,11 +2983,43 @@ def lifecycle_worker(cfg, seq, steps, directory, device):
         else (0.0, 0.0)
     out["alloc_retries"] = torch.cuda.memory_stats(dev).get(
         "num_alloc_retries") if cuda else 0
-    out["host_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    out["host_gb"] = host.stop()
     stats = getattr(torch.cuda, "host_memory_stats", dict)() if cuda else {}
     out["pinned_bytes"] = stats.get("allocated_bytes.peak")
     out["rank"] = (mesh.replica, mesh.rank)
     return out
+
+
+def _host_rss_gb():
+    """This process's resident memory now, in GB (``/proc/self/statm``).
+    A spawned rank is forked from this script and then exec'd, and
+    ``ru_maxrss`` keeps the parent's resident size from before the exec
+    (the chip machine's kernel has no ``VmHWM``), so the rank workers take
+    their peak from `_HostPeak`."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class _HostPeak:
+    """The maximum of `_host_rss_gb` from construction to `stop`, sampled
+    every ``HOST_SAMPLE_S`` by a daemon thread, so a peak inside a step
+    (gloo's host staging of a sum) shows to within the interval."""
+
+    def __init__(self):
+        self.peak = _host_rss_gb()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._done.wait(HOST_SAMPLE_S):
+            self.peak = max(self.peak, _host_rss_gb())
+
+    def stop(self) -> float:
+        self._done.set()
+        self._thread.join()
+        self.peak = max(self.peak, _host_rss_gb())
+        return self.peak
 
 
 def _release_host_cache(torch):
@@ -3009,7 +3081,8 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
         err = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
         print(f"  rank {r['rank']}: max |loss - emulated| {err:.3e}, peak "
               f"{r['peak_gb'][0]:.2f} GB allocated, {r['peak_gb'][1]:.2f} GB "
-              f"reserved, host peak {r['host_gb']:.2f} GB resident ("
+              f"reserved, host peak {r['host_gb']:.2f} GB resident (sampled "
+              f"every {HOST_SAMPLE_S * 1e3:.0f} ms; "
               + ("pinned peak not measured" if r["pinned_bytes"] is None else
                  f"{r['pinned_bytes'] / 1e9:.2f} GB pinned at peak") + "); "
               f"snapshot {r['snapshot'][0]:.1f} ms, "
@@ -3089,6 +3162,320 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
     print(f"  part (c): {time.perf_counter() - t_part:.1f} s; launches "
           f"{launches}", flush=True)
     return launches
+
+
+# phase 11: pp=2 ranks as processes, a staged mesh (`make_staged_mesh`) of
+# pp x D x N1 gloo processes on this card, one layer a stage. The chain:
+# a healthy step; the last replica's stage 1 loses a GPU (TP (1, 2) there,
+# stage 0 untouched) and two steps; the repair and one step.
+PP_RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
+PP_RANKS_STEPS = 4
+PP_RANKS_MB = 2
+# each process's share of the card by stage (stage 1 holds `head` and the
+# microbatch logits, and packs a degraded layer wider): 4 x (0.10 + 0.125)
+# of 79.18 GiB, the rest for the nine CUDA contexts
+PP_RANKS_MEMORY_SHARE = (0.10, 0.125)
+
+
+def _pp_ranks_chain(n_data):
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    return {1: FailureEvent(step=1, replica=n_data - 1, stage=1, n_gpus=1),
+            3: RecoveryEvent(step=3, replica=0, stage=1, n_gpus=1)}
+
+
+def _pp_ranks_session(torch, cfg, mesh, dev, canon):
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    kw = dict(device=dev) if isinstance(mesh, tuple) else {}
+    return NTPSession.create(cfg, mesh, local_batch=RANKS_LB,
+                             optimizer=sgd(RANKS_LR), params=canon, pp=2,
+                             microbatches=PP_RANKS_MB, overlap=True, **kw)
+
+
+def pp_ranks_reference(torch, dev, cfg, seq, mesh, directory):
+    """Phase 11, first: the emulated pp=2 session on the card through the
+    chain (overlap on, microbatches 2); its canonical params at the end go
+    to ``directory`` (one .npy a leaf, flatten order). Returns its losses,
+    step ms and per-event records."""
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    s = _pp_ranks_session(torch, cfg, mesh, dev, canon)
+    del canon
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq,
+                                          mesh[0] * RANKS_LB, seed=0))
+    chain = _pp_ranks_chain(mesh[0])
+    out = {"loss": [], "ms": [], "events": [], "local_batches": []}
+    for i in range(PP_RANKS_STEPS):
+        if i in chain:
+            old = s.plan
+            s.apply(chain[i])
+            out["events"].append((i, old, s.plan,
+                                  s.last_transition.as_dict(),
+                                  dict(s.last_transition.per_pair)))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out["loss"].append(float(s.step(pipe._batch_np(i))["loss"]))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["local_batches"].append(tuple(s.local_batches))
+    _write_leaves(directory, "end",
+                  [t.cpu() for t in tr.leaves(s.canonical_params(0))])
+    del s
+    return out
+
+
+def pp_rank_worker(cfg, seq, mesh_shape, directory, device):
+    """Phase 11: one (stage, replica, rank) process of the staged gloo mesh
+    on the card: its stage's share drawn from the seed, the chain with
+    overlap on and microbatches 2, each step and apply timed (host clock
+    after a device sync), its collectives and kernel launches counted;
+    replica 0's rank 0 of each stage checks its stage's canonical params
+    at the end against the emulated run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.core import collectives as C
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_staged_mesh
+
+    d, n1 = mesh_shape
+    mesh = make_staged_mesh(2, d, n1, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.set_per_process_memory_fraction(
+            PP_RANKS_MEMORY_SHARE[mesh.stage], dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev, pp=2, stage=mesh.stage)
+    s = _pp_ranks_session(torch, cfg, mesh, dev, canon)
+    del canon
+    if cuda:
+        torch.cuda.empty_cache()
+    _sync(torch, dev)
+    out = {"setup_s": time.perf_counter() - t0, "loss": [], "step_ms": [],
+           "regime": [], "counts": [], "launches": [], "events": [],
+           "local_batches": [], "handoff": []}
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, d * RANKS_LB,
+                                          seed=0))
+    chain = _pp_ranks_chain(d)
+
+    host = _HostPeak()
+
+    def timed(fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms
+
+    mode.reset_launches()
+    for i in range(PP_RANKS_STEPS):
+        if i in chain:
+            old = s.plan
+            C.reset_counts()
+            _, ms = timed(lambda: s.apply(chain[i]))
+            out["events"].append((i, old, s.plan, ms,
+                                  s.last_transition.as_dict(),
+                                  dict(s.last_transition.per_pair),
+                                  C.counts()))
+            _release_host_cache(torch)
+        C.reset_counts()
+        before = mode.launches()
+        m, ms = timed(lambda: s.step(pipe._batch_np(i)))
+        out["loss"].append(float(m["loss"]))
+        out["step_ms"].append(ms)
+        out["regime"].append(_regime(s))
+        out["counts"].append(C.counts())
+        out["local_batches"].append(tuple(s.local_batches))
+        out["handoff"].append((m["pipeline_ticks"], m["handoff"]))
+        after = mode.launches()
+        out["launches"].append({k: after[k] - before[k]
+                                for k in PP_RANKS_KERNELS})
+    out["total_launches"] = {k: mode.launches()[k] for k in PP_RANKS_KERNELS}
+    # this stage's canonical params, gathered over its model groups to the
+    # host one leaf at a time (no traffic between stages); replica 0's rank
+    # 0 of each stage compares them with the emulated run's
+    index = {p: i for i, (p, _) in enumerate(tr.leaves_with_path(
+        nt.canonical_like(cfg)))}
+    err = 0.0 if mesh.replica == 0 and mesh.rank == 0 else None
+    if mesh.replica == 0:
+        for path, leaf in nt.rank_canonical_leaves(
+                cfg, s.params, s.plan, mesh, "cpu"):
+            if err is not None:
+                want = np.load(os.path.join(directory, "end",
+                                            f"{index[path]}.npy"))
+                err = max(err, float(leaf.sub_(torch.from_numpy(want))
+                                     .abs_().max()))
+            del leaf
+    _release_host_cache(torch)
+    out["canonical"] = err
+    out["collectives"] = (s.step_fn.collectives,
+                          s.step_fn.replicated_collectives)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9,
+                      torch.cuda.max_memory_reserved(dev) / 1e9) if cuda \
+        else (0.0, 0.0)
+    out["host_gb"] = host.stop()
+    out["rank"] = (mesh.stage, mesh.replica, mesh.rank)
+    return out
+
+
+def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
+    """Phase 11: pp=2 ranks as processes. The NTP prototype at qwen2-7b
+    widths with one layer a stage on a pp=2 x ``mesh`` staged mesh of gloo
+    processes on this card (`launch.mesh.make_staged_mesh`; each process
+    holds its stage's share: `embed` on stage 0, `head` and `final_norm` on
+    stage 1), overlap on, microbatches 2, through the chain, held to the
+    emulated pp=2 session run first on the same seed, chain and batches.
+    Checks: every process's loss within 1e-5 of the emulated; local
+    batches equal; each transition's ledger equal to the emulated and its
+    bytes to `expected_transfer`, stage 0's processes sending nothing and
+    each of stage 1's one all-to-all; every step's hand-off bytes, summed
+    over the processes, equal to `handoff_accounting`'s table; each
+    stage's canonical params within 1e-5 of the emulated at the end;
+    bucket_pack and bucket_unpack launched once a bucket on every step by
+    every process, reshard_pack by stage 1's on its degraded steps only.
+    Returns the processes' launch counts summed (and, on the card, the
+    per-rank kernel rows at this shape). ``cfg``/``seq``/``mesh`` and a
+    CPU ``dev`` let the phase be rehearsed small on the CPU."""
+    import shutil
+
+    from repro_torch.core.nonuniform import FailurePlan
+    from repro_torch.launch.spawn import spawn
+
+    cfg = cfg or dataclasses.replace(qwen_widths(), n_layers=2)
+    cuda = dev.type == "cuda"
+    n = 2 * mesh[0] * mesh[1]
+    tmp = scratch_dir()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    t_part = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        ref = pp_ranks_reference(torch, dev, cfg, seq, mesh, tmp)
+        print(f"  emulated pp=2 x {mesh} session: {PP_RANKS_STEPS} steps in "
+              f"{time.perf_counter() - t0:.1f} s with its checkpoint, step "
+              f"ms {', '.join(f'{m:.1f}' for m in ref['ms'])}", flush=True)
+        if cuda:
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info(dev)
+            print(f"  card memory free before the spawn {free / 1e9:.2f} of "
+                  f"{total / 1e9:.2f} GB", flush=True)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ranks = spawn(pp_rank_worker, n, backend="gloo", device=dev.type,
+                      deadline_s=900, args=(cfg, seq, mesh, tmp, dev.type))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    r0 = ranks[0]
+    print(f"  {n} processes spawned, run and joined in {wall:.1f} s; set-up "
+          f"(the stage's share drawn + packed) "
+          f"{max(r['setup_s'] for r in ranks):.1f} s", flush=True)
+    for r in ranks:
+        err = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
+        print(f"  process (stage, replica, rank) {r['rank']}: max |loss - "
+              f"emulated| {err:.3e}, peak {r['peak_gb'][0]:.2f} GB "
+              f"allocated, {r['peak_gb'][1]:.2f} GB reserved, host peak "
+              f"{r['host_gb']:.2f} GB resident (sampled every "
+              f"{HOST_SAMPLE_S * 1e3:.0f} ms)", flush=True)
+        check(err <= 1e-5, f"process {r['rank']} loss off the emulated by "
+              f"{err}")
+        check(r["local_batches"] == ref["local_batches"],
+              f"process {r['rank']}: local batches differ from the emulated")
+    print(f"  losses {', '.join(f'{x:.5f}' for x in r0['loss'])}")
+    by_regime = {}
+    for i, regime in enumerate(r0["regime"]):
+        step_ms = max(r["step_ms"][i] for r in ranks)
+        by_regime.setdefault(regime, []).append(step_ms)
+        ticks, table = r0["handoff"][i]
+        fwd = sum(r["counts"][i].get(("send_next", "stage"), (0, 0))[1]
+                  for r in ranks)
+        bwd = sum(r["counts"][i].get(("send_prev", "stage"), (0, 0))[1]
+                  for r in ranks)
+        launched = [r["launches"][i] for r in ranks]
+        print(f"  step {i} ({regime}): {step_ms:.1f} ms (max over processes;"
+              f" emulated {ref['ms'][i]:.1f}); {ticks} ticks; hand-off "
+              f"{fwd} B forward + {bwd} B backward (table "
+              f"{table['fwd_bytes']} + {table['bwd_bytes']}); launches "
+              f"{launched[0]} (stage 0), {launched[-1]} (stage 1)",
+              flush=True)
+        check((fwd, bwd) == (table["fwd_bytes"], table["bwd_bytes"]),
+              f"step {i}: hand-off bytes ({fwd}, {bwd}) != table {table}")
+        if cuda:
+            stage1_degraded = "degraded" in regime
+            for r, l in zip(ranks, launched):
+                check(l["bucket_pack"] == l["bucket_unpack"] == 3,
+                      f"step {i}: process {r['rank']} bucket launches {l}")
+                check((l["reshard_pack"] > 0)
+                      == (stage1_degraded and r["rank"][0] == 1),
+                      f"step {i}: process {r['rank']} reshard_pack {l} in a "
+                      f"{regime} step")
+    for k, (i, old, new, _, st, pairs, _) in enumerate(r0["events"]):
+        ms = max(r["events"][k][3] for r in ranks)
+        _, _, _, ref_st, ref_pairs = ref["events"][k]
+        want = _expected_bytes(cfg, old, new)
+        per_stage = {}
+        for key, units in pairs.items():
+            per_stage[key[0]] = per_stage.get(key[0], 0) + units
+        sent = {r["rank"]: r["events"][k][6].get(("all_to_all", "model"),
+                                                 (0, 0)) for r in ranks}
+        print(f"  step {i}: {_tp(old)} -> {_tp(new)}: apply {ms:.1f} ms (max "
+              f"over processes), {st['bytes_moved']} B in {st['messages']} "
+              f"messages (expected {want} B), units moved by stage "
+              f"{per_stage}; all-to-all (calls, B) by process {sent}",
+              flush=True)
+        check(st == ref_st and pairs == ref_pairs,
+              "the transition ledger differs from the emulated")
+        check(st["bytes_moved"] == want, f"transition bytes {st} != {want}")
+        check(set(per_stage) == {1}, "the transition is not stage-local")
+        check(all(r["events"][k][4] == st for r in ranks),
+              "processes disagree on the transition ledger")
+        for r in ranks:
+            counts = r["events"][k][6]
+            if r["rank"][0] == 0:
+                check(counts == {}, f"stage 0 process {r['rank']} sent "
+                      f"{counts} in a stage-1 transition")
+            else:
+                check(list(counts) == [("all_to_all", "model")]
+                      and counts[("all_to_all", "model")][0] == 1,
+                      f"a transition sends one all-to-all: {counts}")
+    print("  step ms by regime (max over processes): " + "; ".join(
+        f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in by_regime.items()),
+        flush=True)
+    errs = {r["rank"][0]: r["canonical"] for r in ranks
+            if r["canonical"] is not None}
+    print(f"  end: canonical params by stage within {errs} of the emulated",
+          flush=True)
+    check(len(errs) == 2 and max(errs.values()) <= 1e-5,
+          "final canonical params off")
+    launches = {k: sum(r["total_launches"][k] for r in ranks)
+                for k in PP_RANKS_KERNELS}
+    by_proc = {r["rank"]: r["total_launches"] for r in ranks}
+    print(f"  phase 11: {time.perf_counter() - t_part:.1f} s; launches "
+          f"{launches}; by process {by_proc}; unit collectives a step "
+          f"(whole mesh) {r0['collectives'][0]}, replicated a process "
+          f"{r0['collectives'][1]}", flush=True)
+    if cuda:
+        check(all(launches[k] > 0 for k in PP_RANKS_KERNELS),
+              f"a kernel of the pp=2 process path never launched: {launches}")
+        plan = FailurePlan(2, (1, 2))
+        rows = dict(reshard_pack=rank_reshard_row(torch, dev, cfg, plan),
+                    **rank_bucket_rows(torch, dev, cfg, plan))
+        return launches, rows
+    return launches, None
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -3175,10 +3562,31 @@ def gloo_probe_worker():
     return out
 
 
+def gloo_p2p_worker(where):
+    """One of 2 ranks of `gloo_probe`'s send/recv line: rank 0 sends a
+    29 MB activation-sized tensor on ``where`` to rank 1 (mean seconds of
+    2, the receive checked), and rank 1 returns whether it arrived."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((2, 256, 3584, 4), 1.0 + dist.get_rank(), device=where)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        if dist.get_rank() == 0:
+            dist.send(x, 1)
+        else:
+            dist.recv(x, 0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 2, bool((x == 1.0).all())
+
+
 def gloo_probe():
     """``--gloo-probe``: gloo's rate on this card between 2 and among 4
-    processes (`gloo_probe_worker`, slowest rank), then exit."""
-    from repro_torch.launch.spawn import spawn
+    processes (`gloo_probe_worker`, slowest rank), then what its `send` /
+    `recv` take: CPU tensors, and CUDA tensors in a run of their own (a
+    refusal or a wrong receive is reported, not raised), then exit."""
+    from repro_torch.launch.spawn import RankError, spawn
 
     for world in (2, 4):
         ranks = spawn(gloo_probe_worker, world, backend="gloo",
@@ -3186,6 +3594,32 @@ def gloo_probe():
         print(f"  gloo, {world} processes on cuda:0, 512 MB: " + ", ".join(
             f"{k} {max(r[k] for r in ranks):.3f} s" for k in ranks[0]),
             flush=True)
+    for where in ("cpu", "cuda"):
+        try:
+            ranks = spawn(gloo_p2p_worker, 2, backend="gloo", device="cuda",
+                          deadline_s=120, args=(where,))
+            took = (f"taken, {max(r[0] for r in ranks):.4f} s a 29 MB send"
+                    f", received {'right' if ranks[1][1] else 'WRONG'}")
+        except RankError as e:
+            took = (f"refused: rank {e.rank} failed (exit code "
+                    f"{e.exitcode}): "
+                    + e.detail.strip().splitlines()[-1][:200])
+        except TimeoutError as e:
+            took = f"refused: {e}"
+        print(f"  gloo send/recv of {where} tensors: {took}", flush=True)
+    return 0
+
+
+def pp_ranks_only(torch):
+    """``--pp-ranks``: build the kernels and run phase 11 alone, then
+    exit (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    launches, rows = pp_ranks_phase(torch, torch.device("cuda"))
+    for name, row in rows.items():
+        print(f"  {name} per rank at pp=2: launches {launches[name]}, "
+              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
     return 0
 
 
@@ -3221,6 +3655,8 @@ def main() -> int:
         return bucket_host_cost_against(torch, sys.argv[2])
     if sys.argv[1:2] == ["--gloo-probe"]:
         return gloo_probe()
+    if sys.argv[1:2] == ["--pp-ranks"]:
+        return pp_ranks_only(torch)
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
@@ -3283,11 +3719,18 @@ def main() -> int:
           "fail->repair, then the lifecycle with overlap on", flush=True)
     ranks_launches, rank_rows = ranks_phase(torch, dev)
 
-    print("phase 11: kernels table", flush=True)
+    print("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
+          "widths, one layer a stage, on a pp=2 x (2, 2) staged mesh of 8 "
+          "processes, gloo on this card, through a stage-1 fail->repair",
+          flush=True)
+    pp_ranks_launches, pp_rank_rows = pp_ranks_phase(torch, dev)
+
+    print("phase 12: kernels table", flush=True)
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
-             (ranks_launches, RANKS_KERNELS))
+             (ranks_launches, RANKS_KERNELS),
+             (pp_ranks_launches, PP_RANKS_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -3296,6 +3739,10 @@ def main() -> int:
     for name, row in rank_rows.items():
         print(f"  {name} per rank (process path): launches "
               f"{ranks_launches[name]}, " + ", ".join(
+                  f"{k} {v}" for k, v in row.items()), flush=True)
+    for name, row in pp_rank_rows.items():
+        print(f"  {name} per rank at pp=2 (staged mesh): launches "
+              f"{pp_ranks_launches[name]}, " + ", ".join(
                   f"{k} {v}" for k, v in row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

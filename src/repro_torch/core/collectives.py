@@ -14,6 +14,10 @@
 * `all_to_all_units` — ``jax.lax.all_to_all`` with per-peer split sizes
   (`all_to_all_single`), the reshard's and the transitions' message route.
 * `all_gather_units` — the canonical gather of a replica's unit buffers.
+* `StageLink` — the pipeline hand-off of a staged mesh, ``jax.lax.ppermute``
+  over ``stage`` and its transpose: `send_next` / `recv_prev` carry a
+  boundary activation to the same (replica, rank) of the next stage,
+  `send_prev` / `recv_next` its cotangent back.
 
 Every call adds one to its (op, group) counter and its payload bytes to the
 same counter (`counts`, `reset_counts`): an all-reduce's tensor, an
@@ -24,7 +28,12 @@ input. A group is named by its ``group_desc`` (``"model"`` / ``"data"`` for
 Every collective takes the tensors where they lie: gloo takes CUDA tensors
 for `all_reduce`, `all_to_all_single` with uneven splits and `all_gather`
 (probed on an H100 with torch 2.11, `chip_smoke.py` phase 10 checks it each
-run), so nothing is staged through host buffers here.
+run), so nothing is staged through host buffers there. Gloo's point-to-point
+`send` / `recv` take CPU tensors only, so on gloo `StageLink` stages a CUDA
+activation through a pinned host buffer it keeps per shape and reuses
+(chosen by the mesh's backend name; NCCL sends device tensors as they are).
+The hand-off's ops are counted under ``(op, "stage")``: ``send_next`` /
+``recv_prev`` forward, ``send_prev`` / ``recv_next`` backward.
 """
 from __future__ import annotations
 
@@ -116,6 +125,71 @@ def all_gather_units(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty((n,) + tuple(x.shape))
     dist.all_gather(list(out.unbind(0)), x, group=group)
     return out
+
+
+def broadcast_stage_(x: torch.Tensor, src_stage: int, mesh) -> torch.Tensor:
+    """In-place broadcast of ``x`` (contiguous) from this (replica, rank)'s
+    process of stage ``src_stage`` to its processes of every stage (the
+    ``stage`` group of a staged mesh); returns ``x``."""
+    _count("broadcast", mesh.pipe, x.numel() * x.element_size())
+    dist.broadcast(x, mesh.stage_peer(src_stage), group=mesh.pipe)
+    return x
+
+
+class StageLink:
+    """The point-to-point hand-off of one process of a staged mesh
+    (`launch.mesh.make_staged_mesh`): its peers are the same (replica,
+    rank) of stages ``stage - 1`` and ``stage + 1``. Sends and receives
+    block, and every pair of peers issues them in the same order, so the
+    schedule (`core.pp_submesh`) alone orders them. On gloo a CUDA tensor
+    goes through a pinned host buffer of its shape, made once and reused
+    by every later call of the same shape and direction."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+        self._host = mesh.backend == "gloo"
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+
+    def _staging(self, x: torch.Tensor, way: str) -> torch.Tensor:
+        key = (way, tuple(x.shape), x.dtype)
+        if key not in self._buffers:
+            self._buffers[key] = torch.empty(x.shape, dtype=x.dtype,
+                                             pin_memory=True)
+        return self._buffers[key]
+
+    def _send(self, x: torch.Tensor, stage: int, op: str) -> None:
+        x = x.detach().contiguous()
+        _count(op, self._mesh.pipe, x.numel() * x.element_size())
+        if self._host and x.is_cuda:
+            x = self._staging(x, op).copy_(x)
+        dist.send(x, self._mesh.stage_peer(stage))
+
+    def _recv(self, like: torch.Tensor, stage: int, op: str) -> torch.Tensor:
+        _count(op, self._mesh.pipe, like.numel() * like.element_size())
+        if self._host and like.is_cuda:
+            buf = self._staging(like, op)
+            dist.recv(buf, self._mesh.stage_peer(stage))
+            return buf.to(like.device)
+        out = torch.empty_like(like, memory_format=torch.contiguous_format)
+        dist.recv(out, self._mesh.stage_peer(stage))
+        return out
+
+    def send_next(self, y: torch.Tensor) -> None:
+        """Hand ``y`` (a boundary activation) to the next stage."""
+        self._send(y, self._mesh.stage + 1, "send_next")
+
+    def recv_prev(self, like: torch.Tensor) -> torch.Tensor:
+        """The previous stage's boundary activation, a fresh tensor of
+        ``like``'s shape, dtype and device."""
+        return self._recv(like, self._mesh.stage - 1, "recv_prev")
+
+    def send_prev(self, dx: torch.Tensor) -> None:
+        """Hand ``dx`` (the cotangent of this stage's input) back."""
+        self._send(dx, self._mesh.stage - 1, "send_prev")
+
+    def recv_next(self, like: torch.Tensor) -> torch.Tensor:
+        """The next stage's cotangent of this stage's output."""
+        return self._recv(like, self._mesh.stage + 1, "recv_next")
 
 
 class _CopyToModel(torch.autograd.Function):

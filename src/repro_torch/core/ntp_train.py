@@ -43,6 +43,15 @@ gradient; the sync (`core.overlap.make_sync_grads` on the mesh, or the
 overlapped bucketed one of `core.overlap.make_overlapped_rank_train_step`)
 sums them over ``data``.
 
+Pipeline parallelism on process groups takes one of the reference's two
+routes, chosen by the mesh alone (`make_ntp_train_step`): on a 2-D
+`RankMesh` every process holds every layer, each packed under its own
+stage's plan, and walks the microbatches through the layers one after
+another (the stage-sequential step); on a staged mesh
+(`launch.mesh.make_staged_mesh`) each process holds its own stage's layers
+only and the step is `core.pp_submesh.make_submesh_train_step`, a real
+pipeline with the activations handed between stages.
+
 Also the DP-DROP baseline and a dense single-logical-copy reference
 (`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) waits
 for a later slice (ROADMAP Queue 1).
@@ -58,7 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as tr
-from repro_torch.configs.shapes import layer_stages
+from repro_torch.configs.shapes import layer_stages, stage_boundaries
 from repro_torch.core import collectives as C
 from repro_torch.core import nonuniform as nu
 from repro_torch.kernels import mode as kmode
@@ -119,18 +128,39 @@ class NTPModelConfig:
 
 
 UNIT_KEYS = ("wq", "wk", "wv", "wo", "A", "B")
+TOP_KEYS = ("embed", "final_norm", "head")
 
 
 # ---------------------------------------------------------------------------
 # canonical (dense) params + packing
 
+def stage_share(cfg: NTPModelConfig, pp: int, stage: Optional[int]):
+    """(layer ids, top-level keys) a process of pipeline stage ``stage``
+    holds on a staged mesh: its stage's layers, ``embed`` on stage 0, and
+    ``final_norm`` and ``head`` on the last stage. ``stage=None`` (or
+    pp=1) is every layer and every key."""
+    if stage is None or pp == 1:
+        return range(cfg.n_layers), TOP_KEYS
+    b = stage_boundaries(cfg.n_layers, pp)
+    top = (("embed",) if stage == 0 else ()) + \
+        (("final_norm", "head") if stage == pp - 1 else ())
+    return range(b[stage], b[stage + 1]), top
+
+
 def init_canonical(cfg: NTPModelConfig, generator: torch.Generator = None,
-                   *, device=None) -> Dict:
+                   *, device=None, pp: int = 1,
+                   stage: Optional[int] = None) -> Dict:
     """Random canonical weights drawn from ``generator`` on ``device`` (CUDA
     unless ``device="cpu"``), at the reference's scales. Tests that compare
     with the reference feed it the reference's own values instead
-    (`convert.ntp_params_from_jax`)."""
+    (`convert.ntp_params_from_jax`).
+
+    With ``stage`` only that stage's share (`stage_share`) is kept: every
+    leaf is still drawn, in the same order, so the kept values equal the
+    whole tree's, and each other leaf is dropped as soon as it is drawn
+    (absent top-level keys; ``{}`` for another stage's layer)."""
     dev = kmode.resolve_device(device)
+    own, top = stage_share(cfg, pp, stage)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
     d, g, q, h = cfg.d_model, cfg.n_kv_groups, cfg.q_per_kv, cfg.head_dim
@@ -154,12 +184,38 @@ def init_canonical(cfg: NTPModelConfig, generator: torch.Generator = None,
             "B": randn(cfg.k_ff, cfg.unit_rows, d, scale=cfg.d_ff ** -0.5),
         }
 
-    return {
-        "embed": randn(cfg.vocab, d, scale=0.02),
-        "head": randn(d, cfg.vocab, scale=d ** -0.5),
-        "final_norm": ones(d),
-        "layers": [layer() for _ in range(cfg.n_layers)],
-    }
+    out = {}
+    for key, draw in (("embed", lambda: randn(cfg.vocab, d, scale=0.02)),
+                      ("head", lambda: randn(d, cfg.vocab, scale=d ** -0.5)),
+                      ("final_norm", lambda: ones(d))):
+        leaf = draw()
+        if key in top:
+            out[key] = leaf
+        del leaf
+    layers = []
+    for i in range(cfg.n_layers):
+        lp = layer()
+        layers.append(lp if i in own else {})
+        del lp
+    out["layers"] = layers
+    return out
+
+
+def canonical_like(cfg: NTPModelConfig, dtype=torch.float32) -> Dict:
+    """``meta`` tensors of the canonical tree's shapes (no memory)."""
+    d, g, q, h = cfg.d_model, cfg.n_kv_groups, cfg.q_per_kv, cfg.head_dim
+
+    def t(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return {"embed": t(cfg.vocab, d), "head": t(d, cfg.vocab),
+            "final_norm": t(d),
+            "layers": [{"ln1": t(d), "ln2": t(d), "wq": t(g, d, q * h),
+                        "wk": t(g, d, h), "wv": t(g, d, h),
+                        "wo": t(g, q * h, d),
+                        "A": t(cfg.k_ff, d, cfg.unit_rows),
+                        "B": t(cfg.k_ff, cfg.unit_rows, d)}
+                       for _ in range(cfg.n_layers)]}
 
 
 def _plans(cfg: NTPModelConfig, fplan: nu.FailurePlan):
@@ -243,32 +299,39 @@ def unpack_params(cfg: NTPModelConfig, packed: Dict, fplan,
     return out
 
 
-def _pp1(plan) -> nu.FailurePlan:
-    """The process path's plan: a `FailurePlan` (a pp=1 `StagedPlan` is
-    unwrapped); pp>1 on process groups waits for its slice."""
-    if isinstance(plan, nu.StagedPlan):
-        if plan.pp != 1:
-            raise NotImplementedError(
-                "pp>1 on process groups (per-stage groups, core/pp_submesh) "
-                "is not ported yet: ROADMAP Queue 1, 'pp>1 in the port'")
-        plan = plan.stages[0]
-    return plan
+def _kind(key: str) -> str:
+    return "mlp" if key in ("A", "B") else "attn"
+
+
+def _rank_stage(mesh):
+    """The stage a process of ``mesh`` holds alone (staged mesh), else None
+    (a 2-D mesh: every layer)."""
+    return mesh.stage if getattr(mesh, "pp", 1) > 1 else None
 
 
 def pack_rank_params(cfg: NTPModelConfig, canonical: Dict, plan,
-                     replica: int, rank: int) -> Dict:
+                     replica: int, rank: int,
+                     stage: Optional[int] = None) -> Dict:
     """Canonical -> the packed tree of one (replica, rank) process: unit
     leaves ``(buf, *unit)``, equal to slice ``[replica, rank]`` of
     `pack_params`' ``(D, n1, buf, *unit)`` view; replicated leaves copied.
-    A failed rank holds only pad slots (zeros)."""
-    plans = _plans(cfg, _pp1(plan))
+    A failed rank holds only pad slots (zeros). Under a `StagedPlan` each
+    layer packs under its own stage's plan; with ``stage`` (a process of a
+    staged mesh) only that stage's share is packed (`stage_share`: other
+    layers are ``{}``), and ``canonical`` needs to hold only that share."""
+    lplans = _layer_plans(cfg, plan)
+    own, top = stage_share(cfg, nu.as_staged(plan).pp, stage)
     with torch.no_grad():
-        out = {k: canonical[k].clone() for k in ("embed", "head", "final_norm")}
+        out = {k: canonical[k].clone() for k in top}
         out["layers"] = []
-        for lp in canonical["layers"]:
+        for li, plans in enumerate(lplans):
+            if li not in own:
+                out["layers"].append({})
+                continue
+            lp = canonical["layers"][li]
             layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
             for k in UNIT_KEYS:
-                wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
+                wp = plans[_kind(k)]
                 sl = wp.comp_slots[replica, rank]
                 pos = np.nonzero(sl >= 0)[0]
                 w = lp[k]
@@ -280,15 +343,24 @@ def pack_rank_params(cfg: NTPModelConfig, canonical: Dict, plan,
     return out
 
 
+def _owner(path, stage_of, pp: int) -> int:
+    """The pipeline stage holding a canonical leaf."""
+    if path[0] == "layers":
+        return stage_of[path[1]]
+    return 0 if path[0] == "embed" else pp - 1
+
+
 def rank_canonical_leaves(cfg: NTPModelConfig, packed: Dict, plan,
                           mesh: RankMesh, device=None):
-    """This process's replica's canonical weights from its packed tree,
-    one ``(path, leaf)`` at a time in flatten order: every unit leaf is
+    """This process's canonical weights from its packed tree, one
+    ``(path, leaf)`` at a time in flatten order: every unit leaf is
     gathered over the replica's model group (a collective: every process of
     the replica walks the leaves together). Each leaf lands on ``device``
     (default: where it lies) as soon as it is gathered, so a caller that
-    drops each leaf holds one at a time."""
-    plans = _plans(cfg, _pp1(plan))
+    drops each leaf holds one at a time. On a staged mesh these are the
+    process's own stage's leaves only, with no traffic between stages
+    (`staged_canonical_leaves` walks the whole tree)."""
+    lplans = _layer_plans(cfg, plan)
     with torch.no_grad():
         for path, w in tr.leaves_with_path(packed):
             key = tr.leaf_key(path)
@@ -296,19 +368,50 @@ def rank_canonical_leaves(cfg: NTPModelConfig, packed: Dict, plan,
             if key not in UNIT_KEYS:
                 yield path, w.detach().to(dev, copy=True)
                 continue
-            wp = plans["mlp"] if key in ("A", "B") else plans["attn"]
+            wp = lplans[path[1]][_kind(key)]
             g = C.all_gather_units(w.detach(), mesh.model)
-            yield path, _unpack_unit(g.reshape((-1,) + tuple(w.shape[1:])),
-                                     wp, mesh.replica).to(dev)
+            leaf = _unpack_unit(g.reshape((-1,) + tuple(w.shape[1:])),
+                                wp, mesh.replica).to(dev)
+            del g
+            yield path, leaf
+
+
+def staged_canonical_leaves(cfg: NTPModelConfig, packed: Dict, plan,
+                            mesh: RankMesh, device=None):
+    """`rank_canonical_leaves` over the whole canonical tree on a staged
+    mesh: the owning stage gathers a leaf and broadcasts it over ``stage``
+    (on the CPU when ``device`` is the CPU and the backend gloo), so every
+    process of the replica yields every leaf, in flatten order."""
+    stage_of = layer_stages(cfg.n_layers, mesh.pp)
+    own = rank_canonical_leaves(cfg, packed, plan, mesh, device)
+    dev = mesh.device if device is None else torch.device(device)
+    bdev = dev if mesh.backend == "gloo" else mesh.device
+    like = canonical_like(cfg, tr.leaves(packed)[0].dtype)
+    with torch.no_grad():
+        for path, w in tr.leaves_with_path(like):
+            src = _owner(path, stage_of, mesh.pp)
+            if src == mesh.stage:
+                mine, leaf = next(own)
+                assert mine == path, (mine, path)
+                leaf = leaf.to(bdev)
+            else:
+                leaf = torch.empty(w.shape, dtype=w.dtype, device=bdev)
+            yield path, C.broadcast_stage_(leaf, src, mesh).to(dev)
+        # run the own walk to its end: its no_grad exits before this one's
+        assert next(own, None) is None
 
 
 def unpack_rank_params(cfg: NTPModelConfig, packed: Dict, plan,
                        mesh: RankMesh, device=None) -> Dict:
     """This process's replica's canonical weights from its packed tree
-    (`rank_canonical_leaves` collected; a collective of the replica). With
-    ``device`` the CPU the card holds one gathered leaf at a time."""
-    out = tr.tree_map(lambda x: None, packed)
-    for path, leaf in rank_canonical_leaves(cfg, packed, plan, mesh, device):
+    (`rank_canonical_leaves` collected; a collective of the replica, and on
+    a staged mesh of the replica's processes of every stage,
+    `staged_canonical_leaves`). With ``device`` the CPU the card holds one
+    gathered leaf at a time."""
+    staged = _rank_stage(mesh) is not None
+    walk = staged_canonical_leaves if staged else rank_canonical_leaves
+    out = tr.tree_map(lambda x: None, canonical_like(cfg) if staged else packed)
+    for path, leaf in walk(cfg, packed, plan, mesh, device):
         tr.set_path(out, path, leaf)
     return out
 
@@ -508,10 +611,28 @@ def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group):
                       sample_mask)
 
 
+def _rank_microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
+                            group, microbatches: int):
+    """`_rank_totals` over ``microbatches`` chunks of the local batch walked
+    one after another through every layer (the stage-sequential step, as
+    `_microbatch_totals`), totals and counts summed."""
+    mb = tokens.shape[0] // microbatches
+    total = count = None
+    for j in range(microbatches):
+        rows = slice(j * mb, (j + 1) * mb)
+        t, c = _rank_totals(cfg, params, tokens[rows], sample_mask[rows],
+                            group)
+        total = t if total is None else total + t
+        count = c if count is None else count + c
+    return total, count
+
+
 def rank_grad_norm(grads, mesh: RankMesh) -> torch.Tensor:
     """The global gradient norm from one rank's synced gradients: unit
     leaves summed over the model group (every replica holds the same synced
-    units, so one replica's are counted), replicated leaves counted once."""
+    units, so one replica's are counted), replicated leaves counted once.
+    On a staged mesh each process holds its stage's leaves only, so the
+    stages' squares are summed over ``stage``."""
     unit = rep = None
     for path, g in tr.leaves_with_path(grads):
         # no gradient-sized temporary (embed's and head's are GBs a rank)
@@ -520,7 +641,10 @@ def rank_grad_norm(grads, mesh: RankMesh) -> torch.Tensor:
             unit = sq if unit is None else unit + sq
         else:
             rep = sq if rep is None else rep + sq
-    return torch.sqrt(rep + C.psum(unit, mesh.model))
+    total = rep + C.psum(unit, mesh.model)
+    if _rank_stage(mesh) is not None:
+        total = C.psum_(total.reshape(1), mesh.pipe)[0]
+    return torch.sqrt(total)
 
 
 def make_rank_train_step(
@@ -532,19 +656,29 @@ def make_rank_train_step(
     local_batch: int = 4,
     optimizer: Optional[Optimizer] = None,
     local_batches=None,
+    microbatches: int = 1,
 ):
-    """The step of one (replica, rank) process, with the reference's
-    contract ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: ``params`` is this rank's packed tree (`pack_rank_params`),
-    ``batch`` the GLOBAL (D*local_batch, S+1) token array, of which the
-    rank takes its replica's rows. ``loss`` and ``grad_norm`` are the global
-    ones, equal on every rank. The gradient sync is the sequential per-leaf
-    one (`core.overlap.make_sync_grads` on the mesh)."""
-    fplan = _pp1(fplan)
-    if (fplan.d, fplan.n1) != tuple(mesh):
-        raise ValueError(f"plan {fplan} does not fit mesh {tuple(mesh)}")
+    """The step of one (replica, rank) process of a 2-D mesh, with the
+    reference's contract ``step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``: ``params`` is this rank's packed tree
+    (`pack_rank_params`), ``batch`` the GLOBAL (D*local_batch, S+1) token
+    array, of which the rank takes its replica's rows. ``loss`` and
+    ``grad_norm`` are the global ones, equal on every rank. The gradient
+    sync is the sequential per-leaf one (`core.overlap.make_sync_grads` on
+    the mesh).
+
+    Under a `StagedPlan` (pp>1 on a 2-D mesh: the reference's
+    stage-sequential step) every layer syncs under its own stage's plan and
+    ``microbatches`` chunks of the local batch walk the layers one after
+    another; the local batches follow the slowest stage."""
+    if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
+        fplan = fplan.stages[0]
+    if (fplan.d, fplan.n1) != tuple(mesh) or _rank_stage(mesh) is not None:
+        raise ValueError(f"plan {fplan} does not fit the 2-D mesh "
+                         f"{tuple(mesh)}")
     mode = Mode.coerce(mode)
     optimizer = optimizer or sgd(1e-2)
+    validate_microbatches(microbatches, local_batch)
     masks = _sample_masks(_validated_local_batches(
         local_batches, fplan, mode, local_batch, fplan.d))
 
@@ -552,10 +686,10 @@ def make_rank_train_step(
         """Global loss and this rank's pre-sync gradients: unit leaves its
         replica's share for its slots, replicated leaves its replica's
         share (the Megatron pair makes them equal over the model group)."""
-        tokens, mask = _rank_tokens(batch, mesh, masks,
-                                    params["embed"].device)
+        tokens, mask = _rank_tokens(batch, mesh, masks, mesh.device)
         leaves = _grad_leaves(params)
-        total, count = _rank_totals(cfg, leaves, tokens, mask, mesh.model)
+        total, count = _rank_microbatch_totals(cfg, leaves, tokens, mask,
+                                               mesh.model, microbatches)
         tc = C.psum(torch.stack([total.detach(), count]), mesh.data)
         denom = torch.clamp(tc[1], min=1.0)
         grads = torch.autograd.grad(total / denom, tr.leaves(leaves))
@@ -710,14 +844,26 @@ def make_ntp_train_step(
     chunk's backward runs. ``local_batches`` overrides the per-replica
     usable samples (bounds-checked); default is the mode's own rule.
 
-    On a `launch.mesh.RankMesh` the step is this process's rank step
-    (pp=1): `make_rank_train_step` (sequential sync), or with ``overlap``
-    `core.overlap.make_overlapped_rank_train_step`."""
+    On a `launch.mesh.RankMesh` the step is this process's rank step, and
+    the mesh alone picks the route, as the reference's dispatch: on a
+    staged mesh (`core.pp_submesh.is_staged_mesh`) a `StagedPlan` or
+    ``microbatches > 1`` runs the rank pipeline
+    (`core.pp_submesh.make_submesh_train_step`, overlap swapping in the
+    bucketed sync); on a 2-D mesh `make_rank_train_step` (sequential sync),
+    or with ``overlap`` `core.overlap.make_overlapped_rank_train_step`, each
+    taking a `StagedPlan` stage-sequentially."""
     if isinstance(mesh, RankMesh):
-        if microbatches != 1:
-            raise NotImplementedError(
-                "microbatches on process groups come with pp>1 there: "
-                "ROADMAP Queue 1, 'pp>1 in the port'")
+        from repro_torch.core import pp_submesh
+
+        if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
+            fplan = fplan.stages[0]
+        if pp_submesh.is_staged_mesh(mesh):
+            pp_submesh.validate_staged_mesh(mesh, nu.as_staged(fplan).pp)
+            return pp_submesh.make_submesh_train_step(
+                cfg, nu.as_staged(fplan), mesh, mode=mode,
+                local_batch=local_batch, optimizer=optimizer,
+                local_batches=local_batches, microbatches=microbatches,
+                overlap=overlap)
         if overlap:
             from repro_torch.core import overlap as ov
 
@@ -725,7 +871,8 @@ def make_ntp_train_step(
         else:
             build = make_rank_train_step
         return build(cfg, fplan, mesh, mode=mode, local_batch=local_batch,
-                     optimizer=optimizer, local_batches=local_batches)
+                     optimizer=optimizer, local_batches=local_batches,
+                     microbatches=microbatches)
     if isinstance(fplan, nu.StagedPlan) and fplan.pp == 1:
         fplan = fplan.stages[0]
     if mesh is not None and tuple(mesh) != (fplan.d, fplan.n1):

@@ -29,7 +29,8 @@
   does not hand a block to another stream while a kernel still reads it).
 
 On a `launch.mesh.RankMesh` (one process per (replica, rank)) the same
-order runs for real (`make_overlapped_rank_train_step`, pp=1): a chunk's
+order runs for real (`make_overlapped_rank_train_step`, on a 2-D mesh; its
+chunks are the stages under a `StagedPlan`): a chunk's
 unit buckets pack this rank's ``(buf, ΣE)`` slots with one `bucket_pack`
 launch, reshard over the model group when degraded, and start an async
 all-reduce over ``data`` (`collectives.psum_async_`); completing waits on
@@ -202,10 +203,11 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
     kernels. The returned callable carries ``.collectives`` (static launch
     count) and ``.bucketed``.
 
-    On a `launch.mesh.RankMesh` ``mesh`` the sync is this process's, pp=1:
-    per leaf (`_make_rank_sync`) or bucketed (`_make_rank_bucketed_sync`);
-    it also carries ``.replicated_collectives``, the all-reduces of the
-    replicated leaves, counted apart."""
+    On a `launch.mesh.RankMesh` ``mesh`` the sync is this process's: per
+    leaf (`_make_rank_sync`) or bucketed (`_make_rank_bucketed_sync`), each
+    layer under its own stage's plan (on a staged mesh over the process's
+    own stage only); it also carries ``.replicated_collectives``, the
+    all-reduces of the replicated leaves, counted apart."""
     if mesh is not None:
         if bucketed:
             return _make_rank_bucketed_sync(cfg, staged, mode, mesh)
@@ -259,25 +261,40 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
     return sync_grads
 
 
+def _rank_layout(cfg, plan, mode, mesh):
+    """(staged plan, mode, stage of each layer, {stage: {kind: WeightPlan}},
+    degraded per stage, this process's layer ids, its top-level keys) of a
+    rank sync: on a staged mesh the process holds one stage's share."""
+    staged = nu.as_staged(plan)
+    mode = nt.Mode.coerce(mode)
+    stage_plans = [nt._plans(cfg, p) for p in staged.stages]
+    degraded = [mode is nt.Mode.NTP and not p.healthy for p in staged.stages]
+    own, top = nt.stage_share(cfg, staged.pp, nt._rank_stage(mesh))
+    return (staged, mode, layer_stages(cfg.n_layers, staged.pp), stage_plans,
+            degraded, own, top)
+
+
 def _make_rank_sync(cfg, plan, mode, mesh):
     """The sequential per-leaf sync of one (replica, rank) process, in
     flatten order on every rank (a collective order every rank shares):
     each unit leaf's gradient (buf, *unit) reshards → sums over data →
-    reshards (`core.reshard.ntp_sync_gradient_rank`) on a degraded NTP
-    plan, and sums over data otherwise — ``.collectives`` of them, as
+    reshards (`core.reshard.ntp_sync_gradient_rank`) under its layer's
+    stage plan when that is degraded under NTP, and sums over data
+    otherwise — ``.collectives`` of them over the whole mesh, as
     `sync_collectives(bucketed=False)` counts; then each replicated leaf
     (held whole by every rank, its replica's share) sums over data:
-    ``.replicated_collectives`` more all-reduces. Gradients are synced in
-    place where the route allows."""
-    plan = nt._pp1(plan)
-    mode = nt.Mode.coerce(mode)
-    plans = nt._plans(cfg, plan)
-    degraded = mode is nt.Mode.NTP and not plan.healthy
+    ``.replicated_collectives`` more all-reduces on this process. On a
+    staged mesh a process syncs its stage's leaves only, over that stage's
+    groups. Gradients are synced in place where the route allows."""
+    staged, mode, stage_of, stage_plans, degraded, own, top = _rank_layout(
+        cfg, plan, mode, mesh)
 
-    def sync_unit(key, g):
-        if not degraded:
+    def sync_unit(path, g):
+        s = stage_of[_layer_idx(path)]
+        if not degraded[s]:
             return rs.uniform_sync_gradient_rank(g, mesh)
-        wp = plans["attn" if key in _ATTN_KEYS else "mlp"]
+        key = tr.leaf_key(path)
+        wp = stage_plans[s]["attn" if key in _ATTN_KEYS else "mlp"]
         return rs.ntp_sync_gradient_rank(g.reshape(wp.buf, -1), wp,
                                          mesh).reshape(g.shape)
 
@@ -287,16 +304,16 @@ def _make_rank_sync(cfg, plan, mode, mesh):
         leaves = list(tr.leaves_with_path(grads))
         for path, g in leaves:
             if tr.leaf_key(path) in nt.UNIT_KEYS:
-                tr.set_path(out, path, sync_unit(tr.leaf_key(path), g))
+                tr.set_path(out, path, sync_unit(path, g))
         for path, g in leaves:
             if tr.leaf_key(path) not in nt.UNIT_KEYS:
                 tr.set_path(out, path,
                             rs.uniform_sync_gradient_rank(g, mesh))
         return out
 
-    sync_grads.collectives = sync_collectives(cfg, plan, mode,
+    sync_grads.collectives = sync_collectives(cfg, staged, mode,
                                               bucketed=False)
-    sync_grads.replicated_collectives = 3 + 2 * cfg.n_layers
+    sync_grads.replicated_collectives = len(top) + 2 * len(own)
     sync_grads.bucketed = False
     return sync_grads
 
@@ -310,17 +327,18 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
     takes chunk ``ci``'s layer grads (``layers[l][key]``) and, for each of
     its unit buckets (attn, mlp), packs the leaves ``(buf, *unit)`` into one
     ``(buf, ΣE)`` flat (one `bucket_pack` launch), runs the pre-sync
-    `reshard_rank` on a degraded NTP plan and starts the sum over ``data``;
-    then the same for its rep bucket (``ln1``/``ln2`` as rows-1 flats,
-    summed only). ``complete(state)`` waits on each sum, runs the post-sync
-    reshard when degraded, unpacks (one `bucket_unpack` launch a bucket)
-    and returns ``[((layer, key), grad), ...]``. Every rank issues the
-    same collectives in the same order."""
-    plans = nt._plans(cfg, plan)
-    degraded = mode is nt.Mode.NTP and not plan.healthy
+    `reshard_rank` when the chunk's stage plan is degraded under NTP and
+    starts the sum over ``data``; then the same for its rep bucket
+    (``ln1``/``ln2`` as rows-1 flats, summed only). ``complete(state)``
+    waits on each sum, runs the post-sync reshard when degraded, unpacks
+    (one `bucket_unpack` launch a bucket) and returns ``[((layer, key),
+    grad), ...]``. Every rank issues the same collectives in the same
+    order. A chunk never straddles two stages (`chunk_ranges`)."""
+    _, mode, stage_of, stage_plans, degraded, _, _ = _rank_layout(
+        cfg, plan, mode, mesh)
     buckets = [
-        tuple(Bucket(0, kind, tuple((l, k) for l in range(lo, hi)
-                                    for k in keys))
+        tuple(Bucket(stage_of[lo], kind,
+                     tuple((l, k) for l in range(lo, hi) for k in keys))
               for kind, keys in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS)))
         for lo, hi in chunks
     ]
@@ -343,8 +361,9 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
         for b in buckets[ci]:
             flat, widths, shapes = pack([layers[l].pop(k)
                                          for l, k in b.leaves], None)
-            if degraded:
-                flat = rs.reshard_rank(flat, plans[b.kind].pre, mesh)
+            if degraded[b.stage]:
+                flat = rs.reshard_rank(flat, stage_plans[b.stage][b.kind].pre,
+                                       mesh)
             units.append((b, C.psum_async_(flat, mesh.data), widths, shapes))
         rep_keys = [(l, k) for l in range(lo, hi) for k in _REP_KEYS]
         flat, widths, shapes = pack([layers[l].pop(k) for l, k in rep_keys],
@@ -358,13 +377,27 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
         out = []
         for b, pending, widths, shapes in units:
             flat = pending.wait()
-            if degraded:
-                flat = rs.reshard_rank(flat, plans[b.kind].post, mesh)
+            if degraded[b.stage]:
+                flat = rs.reshard_rank(flat, stage_plans[b.stage][b.kind].post,
+                                       mesh)
             out.extend(zip(b.leaves, unpack(flat, widths, shapes)))
         out.extend(zip(rep_keys, unpack(rep.wait(), rep_widths, rep_shapes)))
         return out
 
     return issue, complete
+
+
+def _rank_chunks(cfg, plan, mesh):
+    """(this process's chunks, the whole mesh's): `chunk_ranges` of the
+    plan's stages (the stages at pp>1); on a staged mesh the process takes
+    its own stage's chunk only."""
+    staged = nu.as_staged(plan)
+    every = chunk_ranges(cfg.n_layers, staged.pp)
+    stage = nt._rank_stage(mesh)
+    if stage is None:
+        return every, every
+    stage_of = layer_stages(cfg.n_layers, staged.pp)
+    return tuple(c for c in every if stage_of[c[0]] == stage), every
 
 
 def _make_rank_bucketed_sync(cfg, plan, mode, mesh):
@@ -373,17 +406,20 @@ def _make_rank_bucketed_sync(cfg, plan, mode, mesh):
     step's buckets (`chunk_ranges`; one chunk of every layer would stage
     GBs a bucket): each chunk's two unit buckets and its rep bucket issued
     in the step's order, a chunk completed once the next is issued, then
-    ``final_norm``, ``head`` and ``embed`` summed over data in place, one
-    after another. It consumes ``grads`` (each layer leaf is freed once
-    packed; the layer dicts come back holding the synced leaves), as the
-    per-leaf rank sync sums in place. ``.collectives`` counts the unit
-    buckets as `sync_collectives(bucketed=True, chunks=)` does;
-    ``.replicated_collectives`` the rep buckets and the three in-place
-    sums."""
-    plan = nt._pp1(plan)
+    ``final_norm``, ``head`` and ``embed`` (those the process holds) summed
+    over data in place, one after another. It consumes ``grads`` (each
+    layer leaf is freed once packed; the layer dicts come back holding the
+    synced leaves), as the per-leaf rank sync sums in place. On a staged
+    mesh the process syncs its stage's chunk: one fused collective per
+    (stage, plan-kind), as the reference's submesh step. ``.collectives``
+    counts the whole mesh's unit buckets as `sync_collectives(bucketed=True,
+    chunks=)` does; ``.replicated_collectives`` this process's rep buckets
+    and in-place sums."""
+    staged = nu.as_staged(plan)
     mode = nt.Mode.coerce(mode)
-    chunks = chunk_ranges(cfg.n_layers, 1)
-    issue, complete = _rank_chunk_syncers(cfg, plan, mode, mesh, chunks)
+    chunks, every = _rank_chunks(cfg, staged, mesh)
+    issue, complete = _rank_chunk_syncers(cfg, staged, mode, mesh, chunks)
+    _, top = nt.stage_share(cfg, staged.pp, nt._rank_stage(mesh))
 
     @torch.no_grad()
     def sync_grads(grads):
@@ -398,11 +434,11 @@ def _make_rank_bucketed_sync(cfg, plan, mode, mesh):
         for (l, k), g in done:
             layers[l][k] = g
         return dict({k: C.psum_(grads[k].contiguous(), mesh.data)
-                     for k in _TOP_KEYS}, layers=layers)
+                     for k in _TOP_KEYS if k in top}, layers=layers)
 
-    sync_grads.collectives = sync_collectives(cfg, plan, mode, bucketed=True,
-                                              chunks=chunks)
-    sync_grads.replicated_collectives = len(chunks) + len(_TOP_KEYS)
+    sync_grads.collectives = sync_collectives(cfg, staged, mode, bucketed=True,
+                                              chunks=every)
+    sync_grads.replicated_collectives = len(chunks) + len(top)
     sync_grads.bucketed = True
     return sync_grads
 
@@ -585,13 +621,17 @@ def make_overlapped_rank_train_step(
     local_batch: int = 4,
     optimizer: Optional[Optimizer] = None,
     local_batches=None,
+    microbatches: int = 1,
 ):
     """Overlapped twin of `ntp_train.make_rank_train_step` on one (replica,
-    rank) process (pp=1), the per-rank form of the reference's
+    rank) process of a 2-D mesh, the per-rank form of the reference's
     `make_overlapped_train_step`: same contract and probes as the
     emulated overlapped step, ``loss`` and ``grad_norm`` the global ones,
     equal on every rank, and values equal to the sequential rank step's up
-    to the order of f32 sums.
+    to the order of f32 sums. Under a `StagedPlan` (the stage-sequential
+    route) the chunks are the stages and each syncs under its own stage's
+    plan; ``microbatches`` is validated, and the forward runs the whole
+    local batch in one chunked pass, as the emulated overlapped step does.
 
     The forward runs chunk by chunk on `chunk_ranges` (each chunk on a
     detached, grad-requiring input, its layers between the Megatron pair);
@@ -602,14 +642,17 @@ def make_overlapped_rank_train_step(
     summed last, once ``head``'s sum has landed. The sync runs on a second
     CUDA stream (`_SideStream`); every in-flight flat stays referenced by
     its handle until waited on."""
-    plan = nt._pp1(fplan)
-    if (plan.d, plan.n1) != tuple(mesh):
-        raise ValueError(f"plan {plan} does not fit mesh {tuple(mesh)}")
+    plan = fplan.stages[0] if isinstance(fplan, nu.StagedPlan) and \
+        fplan.pp == 1 else fplan
+    if (plan.d, plan.n1) != tuple(mesh) or nt._rank_stage(mesh) is not None:
+        raise ValueError(f"plan {plan} does not fit the 2-D mesh "
+                         f"{tuple(mesh)}")
     mode = nt.Mode.coerce(mode)
     optimizer = optimizer or sgd(1e-2)
+    nt.validate_microbatches(microbatches, local_batch)
     masks = nt._sample_masks(nt._validated_local_batches(
         local_batches, plan, mode, local_batch, plan.d))
-    chunks = chunk_ranges(cfg.n_layers, 1)
+    chunks, _ = _rank_chunks(cfg, plan, mesh)
     issue, complete = _rank_chunk_syncers(cfg, plan, mode, mesh, chunks)
 
     def loss_and_grads(params, batch):

@@ -16,13 +16,20 @@ The groups are plain `new_subgroups_by_enumeration` groups: a 2-D
 process of a gloo run shares ``cuda:0``. ``backend`` is the caller's choice,
 never inferred: ``"nccl"`` needs one CUDA device per process and raises
 with fewer; ``"gloo"`` takes CPU tensors, or CUDA tensors on a shared card.
-`make_staged_mesh` (per-stage groups) waits for the pipeline slice
-(ROADMAP Queue 1 item 3).
+
+`make_staged_mesh` (port of `repro/launch/mesh.py::make_staged_mesh`) lays
+``pp * n_data * n_model`` processes out as the reference's ``("stage",
+"data", "model")`` mesh, row-major: global rank ``s * (n_data * n_model) +
+d * n_model + r``. The ``model`` and ``data`` groups are then per stage (a
+stage's scale-up domains and its gradient sum), and a third group, ``stage``,
+joins the ``pp`` processes of one (replica, rank) across the stages: the
+pipeline hand-off's peers (`core.collectives.StageLink`), the loss sum and
+the canonical gather.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -33,7 +40,10 @@ BACKENDS = ("gloo", "nccl")
 @dataclass(frozen=True)
 class RankMesh:
     """This process's place in a (data=n_data, model=n_model) mesh of
-    processes, its two groups and its device."""
+    processes, its groups and its device. On a staged mesh
+    (`make_staged_mesh`, ``pp > 1``) it is stage ``stage``'s slice: ``data``
+    and ``model`` are that stage's groups and ``pipe`` joins this (replica,
+    rank) across the stages."""
 
     n_data: int
     n_model: int
@@ -43,15 +53,35 @@ class RankMesh:
     model: dist.ProcessGroup
     device: torch.device
     backend: str
+    stage: int = 0
+    pp: int = 1
+    pipe: Optional[dist.ProcessGroup] = None
 
     def __iter__(self):
-        """``tuple(mesh)`` is the mesh shape ``(n_data, n_model)``, as the
-        emulated path's ``mesh`` argument."""
+        """``tuple(mesh)`` is the (per-stage) mesh shape ``(n_data,
+        n_model)``, as the emulated path's ``mesh`` argument."""
         return iter((self.n_data, self.n_model))
 
     @property
     def global_rank(self) -> int:
-        return self.replica * self.n_model + self.rank
+        return (self.stage * self.n_data + self.replica) * self.n_model \
+            + self.rank
+
+    @property
+    def axis_names(self):
+        """The reference's mesh axes: ``("stage", "data", "model")`` on a
+        staged mesh, else ``("data", "model")``."""
+        return (("stage",) if self.pp > 1 else ()) + ("data", "model")
+
+    @property
+    def shape(self):
+        """Axis sizes by name, as a jax mesh's ``shape``."""
+        out = {"stage": self.pp} if self.pp > 1 else {}
+        return dict(out, data=self.n_data, model=self.n_model)
+
+    def stage_peer(self, stage: int) -> int:
+        """The global rank of this (replica, rank) in stage ``stage``."""
+        return (stage * self.n_data + self.replica) * self.n_model + self.rank
 
 
 def check_backend(backend: str, world: int,
@@ -88,25 +118,9 @@ def make_test_mesh(n_data: int = 2, n_model: int = 4, *, backend: str,
     it, in the same order as every other group it makes. Under NCCL each
     process takes the card of its local rank; under gloo every process uses
     ``device`` as given."""
-    if not dist.is_initialized():
-        raise RuntimeError("no default process group: start the ranks with "
-                           "repro_torch.launch.spawn (or torchrun)")
-    world = n_data * n_model
-    if dist.get_world_size() != world:
-        raise ValueError(f"mesh ({n_data}, {n_model}) needs {world} "
-                         f"processes, the group has {dist.get_world_size()}")
-    if dist.get_backend() != backend:
-        raise ValueError(f"the default group runs {dist.get_backend()!r}, "
-                         f"the mesh asks for {backend!r}")
-    dev = check_backend(backend, world, device)
-    g = dist.get_rank()
-    replica, rank = divmod(g, n_model)
-    if backend == "nccl":
-        dev = torch.device("cuda", g % torch.cuda.device_count())
-    elif dev.type == "cuda":
-        dev = torch.device("cuda", dev.index or 0)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _joined(n_data * n_model, f"mesh ({n_data}, {n_model})", backend,
+                  device)
+    replica, rank = divmod(dist.get_rank(), n_model)
     model, _ = dist.new_subgroups_by_enumeration(
         [[d * n_model + r for r in range(n_model)] for d in range(n_data)],
         backend=backend, group_desc="model")
@@ -114,3 +128,66 @@ def make_test_mesh(n_data: int = 2, n_model: int = 4, *, backend: str,
         [[d * n_model + r for d in range(n_data)] for r in range(n_model)],
         backend=backend, group_desc="data")
     return RankMesh(n_data, n_model, replica, rank, data, model, dev, backend)
+
+
+def _joined(world: int, what: str, backend: str, device) -> torch.device:
+    """Check the default group against a ``world``-process mesh and return
+    this process's device (set as current on CUDA)."""
+    if not dist.is_initialized():
+        raise RuntimeError("no default process group: start the ranks with "
+                           "repro_torch.launch.spawn (or torchrun)")
+    if dist.get_world_size() != world:
+        raise ValueError(f"{what} needs {world} processes, the group has "
+                         f"{dist.get_world_size()}")
+    if dist.get_backend() != backend:
+        raise ValueError(f"the default group runs {dist.get_backend()!r}, "
+                         f"the mesh asks for {backend!r}")
+    dev = check_backend(backend, world, device)
+    if backend == "nccl":
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    elif dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def make_staged_mesh(pp: int, n_data: int = 2, n_model: int = 4, *,
+                     backend: str, device: Union[str, torch.device]
+                     ) -> RankMesh:
+    """This process's `RankMesh` on a ``(stage=pp, data=n_data,
+    model=n_model)`` mesh of the initialized default group of ``pp * n_data
+    * n_model`` processes, global rank ``s * (n_data * n_model) + d *
+    n_model + r``. Stage ``s``'s layers live only on its processes; its
+    ``model`` and ``data`` groups are its own, and ``pipe`` (``"stage"``)
+    joins one (replica, rank) across the stages. Every process must call
+    it, in the same order as every other group it makes. Raises for
+    ``pp < 2`` (the 2-D `make_test_mesh` is the stage-sequential route) and
+    for a group of another size."""
+    if pp < 2:
+        raise ValueError(
+            f"pp={pp}: a staged mesh needs >= 2 stages; use make_test_mesh "
+            "(the stage-sequential route) for pp=1")
+    n = pp * n_data * n_model
+    dev = _joined(n, f"staged mesh (stage={pp}, data={n_data}, "
+                  f"model={n_model})", backend, device)
+    stage, rest = divmod(dist.get_rank(), n_data * n_model)
+    replica, rank = divmod(rest, n_model)
+
+    def g(s, d, r):
+        return (s * n_data + d) * n_model + r
+
+    model, _ = dist.new_subgroups_by_enumeration(
+        [[g(s, d, r) for r in range(n_model)]
+         for s in range(pp) for d in range(n_data)],
+        backend=backend, group_desc="model")
+    data, _ = dist.new_subgroups_by_enumeration(
+        [[g(s, d, r) for d in range(n_data)]
+         for s in range(pp) for r in range(n_model)],
+        backend=backend, group_desc="data")
+    pipe, _ = dist.new_subgroups_by_enumeration(
+        [[g(s, d, r) for s in range(pp)]
+         for d in range(n_data) for r in range(n_model)],
+        backend=backend, group_desc="stage")
+    return RankMesh(n_data, n_model, replica, rank, data, model, dev, backend,
+                    stage=stage, pp=pp, pipe=pipe)

@@ -24,6 +24,14 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
       --nproc 4 --mesh 2x2 --backend gloo --steps 6 --fail-at 3
 
+  # two pipeline stages of (1, 2) processes each (a staged mesh: each
+  # process holds its stage's layers, activations handed between stages);
+  # the failure degrades stage 1 only
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \
+      --nproc 4 --pp 2 --mesh 1x2 --backend gloo --microbatches 2 \
+      --steps 4 --fail-at 2 --fail-replica 0 --fail-stage 1 --seq-len 16 \
+      --batch 2
+
   # the same processes through a mixed trace, overlapped sync, NTP-PW,
   # checkpoints and telemetry (rank 0 writes the files)
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
@@ -43,9 +51,11 @@ The (data, model) mesh is emulated on one device: ``--devices N`` sets the
 emulated ranks, as a (2, N/2) mesh; ``--pp`` splits the layers into
 pipeline stages, every rank playing each stage in turn. ``--nproc N --mesh
 DxN1 --backend {gloo,nccl}`` runs each (replica, rank) as a process of one
-process group instead (`launch.spawn`; pp=1, every other flag as above;
-``--mesh``, not ``--devices``, sizes it); rank 0 prints and writes the
-telemetry stream, the other ranks record into memory. The uniform
+process group instead (`launch.spawn`; every other flag as above;
+``--mesh``, not ``--devices``, sizes it); with ``--pp P`` it is a staged
+mesh of ``N = P * D * N1`` processes, ``--mesh`` sizing each stage. Global
+rank 0 prints and writes the telemetry stream, the other ranks record into
+memory. The uniform
 arch-stack launcher (``--arch``) and the global allocator
 (``--allocator greedy``) wait for their slices (ROADMAP).
 """
@@ -122,8 +132,8 @@ def main(argv=None) -> dict:
                     help="run the ranks as N processes of one process group "
                          "(spawned, or joined under torchrun)")
     ap.add_argument("--mesh", default=None, metavar="DxN1",
-                    help="the (data, model) mesh of --nproc processes "
-                         "(default 2x(N/2))")
+                    help="the (data, model) mesh of each stage of the "
+                         "--nproc processes (default 2x(N/pp/2))")
     ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
                     help="process-group backend of --nproc (required with "
                          "it): nccl needs one card per process, gloo shares "
@@ -289,19 +299,19 @@ def _run_ranks(ap, args) -> dict:
 
     if args.backend is None:
         ap.error("--nproc needs --backend gloo or --backend nccl")
+    per_stage = args.nproc // args.pp
     try:
-        d, n1 = (int(x) for x in (args.mesh or f"2x{args.nproc // 2}")
+        d, n1 = (int(x) for x in (args.mesh or f"2x{per_stage // 2}")
                  .lower().split("x"))
     except ValueError:
         ap.error(f"--mesh {args.mesh}: expected DxN1, e.g. 2x2")
-    if d < 1 or n1 < 1 or d * n1 != args.nproc:
-        ap.error(f"--mesh {d}x{n1} is not --nproc {args.nproc} processes")
+    if d < 1 or n1 < 1 or args.pp * d * n1 != args.nproc:
+        ap.error(f"--mesh {d}x{n1} with --pp {args.pp} is not --nproc "
+                 f"{args.nproc} processes (--mesh sizes each stage: "
+                 f"--nproc / pp = {args.nproc / args.pp:g} a stage)")
     if args.fail_at is not None and not 0 <= args.fail_replica < d:
         ap.error(f"--fail-replica {args.fail_replica} out of range for {d} "
                  "replicas")
-    if args.pp > 1:
-        ap.error("--pp > 1 with --nproc is not ported yet (ROADMAP Queue 1, "
-                 "'pp>1 in the port')")
     if args.devices:
         ap.error("--devices sizes the emulated mesh; --mesh DxN1 sizes a "
                  "--nproc run")
@@ -313,19 +323,24 @@ def _run_ranks(ap, args) -> dict:
 
 
 def _rank_main(args, device) -> dict:
-    """One (replica, rank) process of ``--nproc``: the mesh, the session
-    and the steps (or the trace); global rank 0 prints and writes the
-    telemetry stream, the other ranks record into memory."""
+    """One (replica, rank) process of ``--nproc`` (one (stage, replica,
+    rank) with ``--pp`` > 1): the mesh, the session and the steps (or the
+    trace); global rank 0 prints and writes the telemetry stream, the
+    other ranks record into memory."""
     import torch
 
     from repro_torch import telemetry
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_staged_mesh, make_test_mesh
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.runtime import NTPSession, power_policy
 
     d, n1 = args.mesh_shape
-    mesh = make_test_mesh(d, n1, backend=args.backend, device=device)
+    if args.pp > 1:
+        mesh = make_staged_mesh(args.pp, d, n1, backend=args.backend,
+                                device=device)
+    else:
+        mesh = make_test_mesh(d, n1, backend=args.backend, device=device)
     rank0 = mesh.global_rank == 0
     log = print if rank0 else (lambda *a, **k: None)
     if args.telemetry:
@@ -344,9 +359,14 @@ def _rank_main(args, device) -> dict:
             overlap=args.overlap,
             power_policy=power_policy(policy_name) if policy_name else None,
             spares=args.spares, quarantine=args.quarantine == "on",
+            pp=args.pp, microbatches=args.microbatches,
         )
-        log(f"ntp prototype: processes {args.nproc} (mesh data={d} "
-            f"model={n1}, {args.backend})  plan {session.plan}"
+        log(f"ntp prototype: processes {args.nproc} (mesh "
+            + (f"stage={args.pp} " if args.pp > 1 else "")
+            + f"data={d} model={n1}, {args.backend})  "
+            + (f"pp={args.pp} stages {session.stage_boundaries}  "
+               if args.pp > 1 else "")
+            + f"plan {session.plan}"
             + (f"  overlap {args.overlap}" if args.overlap == "on" else "")
             + (f"  policy {policy_name}" if policy_name else "")
             + (f"  spares {args.spares}" if args.spares else "")

@@ -15,6 +15,9 @@ stage-local event moves nothing of any other stage.
 `transition_rank_trees` is the per-rank form on a `launch.mesh.RankMesh`:
 each process moves its own slots, and the messages of every unit leaf to
 one peer travel in one `all_to_all_units` over the replica's model group.
+Under `StagedPlan`s it is stage-local: only the stages whose plan changed
+move, each over its own model group; on a staged mesh every process of an
+untouched stage keeps its trees and sends nothing.
 """
 from __future__ import annotations
 
@@ -117,10 +120,12 @@ def _unit_groups(cfg, trees):
     return groups
 
 
-def _rank_ledger(groups, plans, n1: int) -> TransferStats:
+def _rank_ledger(groups, plans, n1: int, tag: Tuple[int, ...] = ()
+                 ) -> TransferStats:
     """The whole mesh's `TransferStats` of a transition, computed from the
     plans and one rank's leaf shapes (every rank's buffers share them):
-    `apply_plan`'s accounting, replica by replica."""
+    `apply_plan`'s accounting, replica by replica, pairs keyed
+    ``tag + (replica, src, dst)``."""
     stats = TransferStats()
     for k, members in groups.items():
         leaves = [leaf for _, _, leaf in members]
@@ -131,7 +136,7 @@ def _rank_ledger(groups, plans, n1: int) -> TransferStats:
             for s, t in p.pairs:
                 n_units = int(((p.move_src_rank == s)
                                & (p.move_dst_rank == t)).sum())
-                key = (d, s, t)
+                key = tag + (d, s, t)
                 if key not in stats.per_pair:
                     stats.messages += 1
                 stats.moved_units += n_units * len(leaves)
@@ -142,8 +147,7 @@ def _rank_ledger(groups, plans, n1: int) -> TransferStats:
 
 
 def transition_rank_trees(
-    cfg, trees: Sequence[Dict], old: nu.FailurePlan, new: nu.FailurePlan,
-    mesh,
+    cfg, trees: Sequence[Dict], old, new, mesh,
 ) -> Tuple[List[Dict], TransferStats]:
     """`transition_trees` on one (replica, rank) process (a collective of
     every process): its unit leaves (src_buf, *unit) become (dst_buf,
@@ -153,12 +157,80 @@ def transition_rank_trees(
     dtype when the trees mix dtypes), zero-length where nothing moves.
     Replicated leaves pass through as they are (not copied: the caller
     drops its old trees). Returns the trees and the whole mesh's
-    `TransferStats`, equal to the emulated transition's."""
+    `TransferStats`, equal to the emulated transition's.
+
+    Under `StagedPlan`s (`transition_staged_trees`' contract) each stage
+    whose plan changed moves its layers under its own plans, ledger keys
+    tagged by stage; an unchanged stage passes through. On a 2-D mesh the
+    process holds every stage and moves each changed one in turn; on a
+    staged mesh it moves only its own stage, if that changed, and every
+    process computes the whole mesh's ledger (another stage's from the
+    shapes alone)."""
+    if isinstance(old, nu.StagedPlan) or isinstance(new, nu.StagedPlan):
+        return _transition_rank_staged(cfg, trees, nu.as_staged(old),
+                                       nu.as_staged(new), mesh)
+    return _transition_rank(cfg, trees, old, new, mesh)
+
+
+def _transition_rank_staged(cfg, trees, old: nu.StagedPlan,
+                            new: nu.StagedPlan, mesh):
+    if old.pp != new.pp or old.n1 != new.n1 or old.d != new.d:
+        raise ValueError(f"staged plans of different jobs: {old} -> {new}")
+    mine = mesh.stage if getattr(mesh, "pp", 1) > 1 else None
+    bounds = stage_boundaries(cfg.n_layers, old.pp)
+    stats = TransferStats()
+    outs = [dict(t, layers=list(t["layers"])) for t in trees]
+    for s in range(old.pp):
+        if new.stages[s] == old.stages[s]:
+            continue
+        lo, hi = bounds[s], bounds[s + 1]
+        subs = [{"layers": t["layers"][lo:hi]} for t in trees]
+        if mine is None or mine == s:
+            moved, st = _transition_rank(cfg, subs, old.stages[s],
+                                         new.stages[s], mesh, tag=(s,))
+            for o, m in zip(outs, moved):
+                o["layers"][lo:hi] = m["layers"]
+        else:
+            st = _rank_ledger(*_stage_groups(cfg, trees, subs, old.stages[s],
+                                             new.stages[s]),
+                              mesh.n_model, tag=(s,))
+        stats.merge(st)
+    return outs, stats
+
+
+def _stage_groups(cfg, trees, subs, old: nu.FailurePlan,
+                  new: nu.FailurePlan):
+    """(groups, plans) of another stage's layers ``subs`` (``{}`` on this
+    process), as `_rank_ledger` reads them: ``meta`` leaves of that stage's
+    buffer width, each tree's dtype and unit shapes taken from this
+    process's own layers."""
+    specs = ntp_unit_specs(cfg)
+    plans = {spec.k: replica_transition_plans(spec.k, old, new)
+             for spec in set(specs.values())}
+    groups: Dict[int, List] = {}
+    for ti, (t, sub) in enumerate(zip(trees, subs)):
+        like = next(lp for lp in t["layers"] if lp)
+        for li in range(len(sub["layers"])):
+            for key in sorted(like):
+                spec = specs.get(key)
+                if spec is None:
+                    continue
+                w = like[key]
+                buf = plans[spec.k][0].src_buf
+                groups.setdefault(spec.k, []).append((ti, ("layers", li, key),
+                    torch.empty((buf,) + tuple(w.shape[1:]), dtype=w.dtype,
+                                device="meta")))
+    return groups, plans
+
+
+def _transition_rank(cfg, trees, old: nu.FailurePlan, new: nu.FailurePlan,
+                     mesh, tag: Tuple[int, ...] = ()):
+    """`transition_rank_trees` under plain plans."""
     if old.n1 != mesh.n_model or old.d != mesh.n_data:
         raise ValueError(f"plan {old} does not fit mesh {tuple(mesh)}")
     groups = _unit_groups(cfg, trees)
     plans = {k: replica_transition_plans(k, old, new) for k in groups}
-    stats = _rank_ledger(groups, plans, mesh.n_model)
+    stats = _rank_ledger(groups, plans, mesh.n_model, tag)
     d, r, n = mesh.replica, mesh.rank, mesh.n_model
     outs = [tr.tree_map(lambda x: x, t) for t in trees]
     with torch.no_grad():

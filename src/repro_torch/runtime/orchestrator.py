@@ -257,7 +257,10 @@ class TraceRunner:
     the dense reference (and its rollback copy) on global rank 0 only; the
     canonical checks gather replica 0 over its model group (every process
     of replica 0 takes part, replica 1's issue nothing) and rank 0
-    compares.
+    compares. On a staged mesh (pp>1 as processes) the same holds with
+    replica 0's processes of every stage taking part (each stage's leaves
+    broadcast over ``stage``), global rank 0 being stage 0's, and the
+    trace's global domain ids replica-major as below.
 
     With telemetry active every consumed event becomes an
     ``orchestrator.event`` span (phase marks plan → execute → verified; the

@@ -53,8 +53,14 @@ decisions on the replicated ledger), and a failed rank stays in its groups
 holding pad slots, as on the reference's fixed mesh. Snapshots are per
 rank (each keeps a host copy of its own slots and their plan; a rollback
 under another plan runs `transition_rank_trees`), checkpoints canonical.
-pp>1 (and microbatches) there raise `NotImplementedError` naming their
-ROADMAP row.
+``pp > 1`` there takes the reference's route by the mesh: on a 2-D
+`RankMesh` every process holds every layer and steps stage-sequentially;
+on a staged mesh (`launch.mesh.make_staged_mesh`, validated by
+`core.pp_submesh.validate_staged_mesh`) each process holds its stage's
+share, steps through the rank pipeline (`core.pp_submesh`) and an event
+moves only the processes of the stage it hits. The step metrics of the
+pipeline carry ``pipeline_ticks`` and the ``handoff`` byte table, as the
+reference's.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP row):
 the global allocator (`allocator=`) and the uniform arch backend
@@ -144,9 +150,6 @@ class NTPSession:
             raise _not_ported("the global repack allocator (allocator=)",
                               "'session spares and allocator'")
         rank_mesh = mesh if isinstance(mesh, RankMesh) else None
-        if rank_mesh is not None and (pp != 1 or microbatches != 1):
-            raise _not_ported("pp>1 (and microbatches) on process groups",
-                              "'pp>1 in the port'")
         self = object.__new__(cls if rank_mesh is None else _RankSession)
         self._cfg = cfg
         self._rank_mesh = rank_mesh
@@ -195,6 +198,12 @@ class NTPSession:
                     f"pp={pp} needs a staged {what} "
                     f"(StagedPlan/StagedHealth), got {type(given).__name__}"
                 )
+        if getattr(mesh, "pp", 1) > 1:
+            # a pipeline of processes: one mesh stage per pipeline stage,
+            # checked before any compute
+            from repro_torch.core.pp_submesh import validate_staged_mesh
+
+            validate_staged_mesh(mesh, pp)
         self._pp = pp
         self._microbatches = microbatches
         self._boundaries = stage_boundaries(cfg.n_layers, pp)
@@ -227,7 +236,8 @@ class NTPSession:
                 f"plan {packed} does not fit mesh (data={d}, model={n1})")
         self._plan = packed
         canonical = params if params is not None else nt.init_canonical(
-            cfg, generator, device=self._device)
+            cfg, generator, device=self._device, pp=pp,
+            stage=nt._rank_stage(rank_mesh))
         self._params = self._pack(canonical)
         self._opt = self._optimizer.init(self._params)
         self._events: List[LifecycleEvent] = []
@@ -389,6 +399,11 @@ class NTPSession:
             # time (the slowest stage gates the replica), policy or not
             metrics = dict(metrics, stage_rel_iter_time=self._stage_rel,
                            rel_iter_time=max(self._stage_rel))
+        if getattr(self._step_fn, "submesh", False):
+            # the pipeline of processes annotates its schedule: the ticks
+            # behind the bubble and the step's hand-off byte table
+            metrics = dict(metrics, pipeline_ticks=self._step_fn.ticks,
+                           handoff=self._step_fn.handoff)
         return metrics
 
     def measure_sync(self, batch) -> Dict[str, Any]:
@@ -692,20 +707,22 @@ class NTPSession:
 
 class _RankSession(NTPSession):
     """`NTPSession` as one (replica, rank) process of a process-group run
-    (`NTPSession.create(cfg, mesh=RankMesh, ...)`, pp=1): its own packed
-    slots, every event kind, overlap on or off, per-rank snapshots."""
+    (`NTPSession.create(cfg, mesh=RankMesh, ...)`), or one (stage, replica,
+    rank) process of a staged mesh: its own packed slots, every event kind,
+    overlap on or off, per-rank snapshots."""
 
     def _pack(self, canonical: Dict) -> Dict:
         m = self._rank_mesh
         return nt.pack_rank_params(self._cfg, canonical, self._plan,
-                                   m.replica, m.rank)
+                                   m.replica, m.rank, nt._rank_stage(m))
 
     def canonical_params(self, replica: int = 0, device=None):
         """Replica ``replica``'s dense canonical weights, gathered over its
-        model group (a collective of that replica's processes), on
-        ``device`` (default: the session's; the CPU keeps the card at one
-        gathered leaf). Processes of other replicas return None and issue
-        no collective."""
+        model group (a collective of that replica's processes; on a staged
+        mesh of its processes of every stage, each stage's leaves
+        broadcast to the others), on ``device`` (default: the session's;
+        the CPU keeps the card at one gathered leaf). Processes of other
+        replicas return None and issue no collective."""
         if replica != self._rank_mesh.replica:
             return None
         return nt.unpack_rank_params(self._cfg, self._params, self._plan,
@@ -713,9 +730,9 @@ class _RankSession(NTPSession):
 
     def save(self, path: str) -> None:
         """Replica 0's params and optimizer state in canonical layout
-        (gathered over its model group to the host), written by global rank
-        0 in the reference's format; every process returns once the file is
-        written."""
+        (gathered over its model group to the host, and on a staged mesh
+        over its stages), written by global rank 0 in the reference's
+        format; every process returns once the file is written."""
         m = self._rank_mesh
         if m.replica == 0:
             state = {"params": self.canonical_params(0, device="cpu"),
@@ -723,15 +740,16 @@ class _RankSession(NTPSession):
                          self._cfg, v, self._plan, m, device="cpu")
                          if k in self._optimizer.param_like else v)
                          for k, v in self._opt.items()}}
-            if m.rank == 0:
+            if m.global_rank == 0:
                 save_checkpoint(path, state, step=self.opt_step)
         torch.distributed.barrier()
 
     def restore(self, path: str) -> int:
-        """Every process reads the canonical checkpoint and packs its own
-        slots under the CURRENT plan (`pack_rank_params`), no collective;
-        equal bit for bit to the emulated session's `restore` sliced at
-        this (replica, rank). Returns the saved step."""
+        """Every process reads the canonical checkpoint (on a staged mesh
+        only its stage's share) and packs its own slots under the CURRENT
+        plan (`pack_rank_params`), no collective; equal bit for bit to the
+        emulated session's `restore` sliced at this (replica, rank).
+        Returns the saved step."""
         like = tr.tree_map(lambda t: t.to("meta"),
                            {"params": self._params, "opt": self._opt})
         like = {"params": self._canonical_like(like["params"]),
@@ -821,21 +839,23 @@ class _RankSession(NTPSession):
 
     def _canonical_like(self, packed: Dict) -> Dict:
         """`meta` tensors of the canonical shapes of a packed rank tree."""
-        plans = nt._plans(self._cfg, self._plan)
+        units = {"attn": self._cfg.n_kv_groups, "mlp": self._cfg.k_ff}
 
         def leaf(path, t):
             key = tr.leaf_key(path)
             if key not in nt.UNIT_KEYS:
                 return t
-            k = plans["mlp" if key in ("A", "B") else "attn"].k
+            k = units["mlp" if key in ("A", "B") else "attn"]
             return t.new_empty((k,) + tuple(t.shape[1:]))
 
         return tr.tree_map_with_path(leaf, packed)
 
-    def _transition(self, old: FailurePlan, new: FailurePlan) -> None:
+    def _transition(self, old, new) -> None:
         """This process's slots of params and every param-like optimizer
-        tree move through one all-to-all (`transition_rank_trees`); the
-        ledger is the whole mesh's."""
+        tree move through one all-to-all a changed stage
+        (`transition_rank_trees`; on a staged mesh only the processes of
+        the stages whose plan changed send anything); the ledger is the
+        whole mesh's."""
         from repro_torch.reshard.transition import transition_rank_trees
 
         opt_keys, trees = self._param_trees()
@@ -844,6 +864,8 @@ class _RankSession(NTPSession):
         self._params = moved[0]
         self._opt = dict(self._opt, **dict(zip(opt_keys, moved[1:])))
         self.last_transition = stats
+
+    _transition_staged = _transition
 
 
 def _sync_device(device: torch.device) -> None:

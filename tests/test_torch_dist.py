@@ -105,8 +105,8 @@ def _counting_reshard_pack():
 
 
 def _rank_fast(canon_np, ckpt):
-    """One 2×2 process: pack checks, the pp>1 refusal, the SGD chain,
-    canonical params of its replica, a checkpoint."""
+    """One 2×2 process: pack checks, a pp=2 session on the 2-D mesh, the
+    SGD chain, canonical params of its replica, a checkpoint."""
     from repro_torch.convert import ntp_params_from_jax
 
     mesh = make_test_mesh(2, 2, backend="gloo", device="cpu")
@@ -120,10 +120,14 @@ def _rank_fast(canon_np, ckpt):
             if tr.leaf_key(path) in nt.UNIT_KEYS:
                 b = b.reshape(2, 2, -1, *b.shape[2:])[mesh.replica, mesh.rank]
             packs.append(torch.equal(a, b))
-    # pp>1 waits for its slice; the rest of the lifecycle runs here
-    # (tests/test_torch_dist_lifecycle.py)
-    with pytest.raises(NotImplementedError, match="'pp>1 in the port'"):
-        NTPSession.create(cfg, mesh, params=canon, pp=2)
+    # pp=2 on this 2-D mesh is the stage-sequential route (every process
+    # holds every layer, each under its stage's plan); its runs are
+    # tests/test_torch_pp_ranks.py's
+    staged = NTPSession.create(cfg, mesh, params=canon, pp=2)
+    packs.append(staged.plan.pp == 2 and staged.plan.d == 2
+                 and not getattr(staged.step_fn, "submesh", False)
+                 and len(staged.params["layers"]) == cfg.n_layers)
+    del staged
     s = NTPSession.create(cfg, mesh, local_batch=LB, optimizer=sgd(LR),
                           params=canon)
     record = _counting_reshard_pack()
@@ -181,7 +185,7 @@ def test_rank_session_matches_emulated_and_dense_reference(tmp_path):
              FailurePlan(2, (2, 2))]
     for got in ranks:
         assert all(got["packs"])
-        assert len(got["packs"]) == 2 * len(tr.leaves(canon))
+        assert len(got["packs"]) == 2 * len(tr.leaves(canon)) + 1
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
                                    atol=1e-5)
         np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],

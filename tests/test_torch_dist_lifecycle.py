@@ -503,10 +503,30 @@ def test_launcher_nproc_refusals():
     from repro_torch.launch.train import main
 
     base = ["--ntp", "--device", "cpu", "--nproc", "4", "--backend", "gloo"]
+    # --mesh sizes each stage: 2 stages of 2x2 are 8 processes, not 4
     with pytest.raises(SystemExit):
-        main(base + ["--pp", "2", "--microbatches", "2"])
+        main(base + ["--pp", "2", "--microbatches", "2", "--mesh", "2x2"])
     with pytest.raises(SystemExit):
         main(base + ["--devices", "4"])
+
+
+def test_launcher_nproc_pp2_cpu_smoke(capfd):
+    """``--nproc 4 --pp 2 --mesh 1x2``: a staged mesh of 4 processes (each
+    holding its stage's layers), microbatches 2, a failure on stage 1;
+    finite losses, the plan degrading stage 1 only."""
+    from repro_torch.launch.train import main
+
+    out = main(["--ntp", "--device", "cpu", "--nproc", "4", "--pp", "2",
+                "--mesh", "1x2", "--backend", "gloo", "--microbatches", "2",
+                "--steps", "4", "--fail-at", "2", "--fail-replica", "0",
+                "--fail-stage", "1", "--seq-len", "16", "--batch", "2",
+                "--log-every", "1"])
+    assert len(out["losses"]) == 4 and np.isfinite(out["losses"]).all()
+    assert out["plan"].stage_tp == ((2, 1),)
+    text = capfd.readouterr().out
+    assert "processes 4 (mesh stage=2 data=1 model=2, gloo)" in text
+    assert "pp=2 stages (0, 2, 4)" in text
+    assert "*** step 2: FailureEvent(replica=0, stage=1, n_gpus=1)" in text
 
 
 # ------------------------------------------------------------ slow tier
