@@ -59,9 +59,12 @@ Phases (any failure exits non-zero):
    and the reference's plain `_ssd_chunked` each against the sequential
    recurrence, as the yardstick of the chunked form's f32 error; prefill
    and decode timed and profiled, peak memory; then the same serving run
-   as phase 4 (24 of 24
+   as phase 4 on the model's first `MAMBA_SERVE_LAYERS` (16) layers (a
+   served tick costs host time a layer, and the script has a time limit;
+   24 of 24
    token streams identical through TP 4→3→2→3→4, reshard_pack launched on
-   the ssm_head reshards, bytes equal to moved heads x head bytes), and
+   the ssm_head reshards, bytes equal to moved heads x head bytes), the
+   full model's decode tick timed and profiled, and
    the launcher twin `repro_torch.launch.serve_decode --arch mamba2-780m
    --full --batch 4 --prompt-len 2048 --new 32`;
 6. train the NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups
@@ -128,11 +131,13 @@ Phases (any failure exits non-zero):
    --backend gloo --steps 8 --fail-at 3` (four processes on this card) and
    `--nproc 8 --pp 2 --mesh 2x2 --microbatches 2 --fail-stage 1 --seq-len
    64 --batch 2` (the README's staged mesh of eight processes);
-10. ranks as processes: the training cell's model (qwen2-7b widths, 4
-   layers) on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
-   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 9 steps,
-   `FailureEvent(replica=1)` before step 3 (TP (1, 2)) and its repair
-   before step 6. The emulated (2, 2) session runs first on the same seed,
+10. ranks as processes: the training cell's model at qwen2-7b widths,
+   its depth cut from phases 6-8's 4 layers to 2 (gloo's host staging makes
+   a process step 20-40 times the emulated one, and the script has a time
+   limit), on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
+   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 6 steps,
+   `FailureEvent(replica=1)` before step 2 (TP (1, 2)) and its repair
+   before step 4. The emulated (2, 2) session runs first on the same seed,
    chain and batches, its canonical params written under `build/` after
    each transition and at the end; the card is freed and the 4 ranks are
    spawned (`PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`). Each rank
@@ -187,17 +192,49 @@ Phases (any failure exits non-zero):
    Printed: step ms by regime, each transition's ms and bytes by stage,
    the launches by process, peak device memory and host RSS by process;
    then the per-rank reshard_pack and bucket rows at this shape;
-12. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training, trace, pp=2, process and pp=2 process
+12. NTP with the expert as the partition unit (MoE), and the MoE FFN:
+   (A) the prototype at llama4-scout's widths (d_model 5120, 8 kv-groups
+   of 5 query heads, head_dim 128, 16 experts of d_ff 8192, top-1, vocab
+   202048; depth cut to 1 layer), 2 emulated replicas x TP 4, local batch
+   2, sequence 256, SGD, overlap off, phase 6's fail -> repair over 9
+   steps: the dense reference runs first and alone (its losses and final
+   params kept on the host), then the session, with expandable segments.
+   Checks: losses within 1e-4 of the reference, both replicas' canonical
+   params within 1e-4, the router unchanged (top-1), each transition's
+   bytes, units and messages as its plans', reshard_pack on the degraded
+   steps only. Printed: step ms and peak allocated memory by regime, each
+   transition's ms and bytes. Then reshard_pack at the expert unit (one
+   row = 41,943,040 f32), timed in turns against `src[idx]` and
+   `index_select`. (B) the prototype at arctic-480b's widths (d_model
+   7168, 8 kv-groups of 7, head_dim 128, d_ff 4864, the reference's
+   `reduced()` 4 experts top-2, vocab 32000, 2 layers) on (2, 2), local
+   batch 4, sequence 256, SGD: the dense reference alone, then the
+   emulated pp=1 sessions (overlap on, off) through a fail before step 2
+   and the repair before step 4 (5 steps), then 4 gloo processes on
+   cuda:0 (overlap on); then the emulated pp=2 session (microbatches 2,
+   overlap on) and 8 processes on `make_staged_mesh(2, 2, 2)` through
+   phase 11's stage-1 chain. Checks: losses 1e-4 from the reference and
+   1e-5 between the routes, canonical params 1e-4, the routers within
+   1e-6 of the emulated session's and moved by more than ten times that,
+   ledgers as the plans', bucket_pack / bucket_unpack / reshard_pack
+   launches a process a step as predicted. (C) `models/mlp.py`'s
+   `moe_apply` at llama4-scout's FFN widths (gated SiLU, shared expert;
+   8.6 GB f32) on 8 x 16 tokens against `moe_apply_dense_ref` at capacity
+   8.0 (1e-4), and the slots dropped at 1.25;
+13. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace, pp=2, process, pp=2 process and MoE
    paths, each counted from zero just before it), then the device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
+``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
+alone (``--pp-ranks`` phase 11).
 """
 import contextlib
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1136,8 +1173,10 @@ def mamba_phase(torch, dev):
     (b) the prefill's last logits and h cache against the same prompts fed
     token by token through the recurrent path on the card; (c) two layers
     on the card against the CPU (`mamba_reference_phase`); (d) serving
-    through fail->fail->repair->repair against an uninterrupted session;
-    (e) times, profiles and peak memory. Returns the launch counts of (a)
+    through fail->fail->repair->repair against an uninterrupted session,
+    its depth cut to the first `MAMBA_SERVE_LAYERS` layers (a served tick
+    costs host time a layer, and the script has a time limit); (e) times,
+    profiles and peak memory, the decode tick of the full model. Returns the launch counts of (a)
     and (d), each counted from zero just before it."""
     import numpy as np
 
@@ -1230,9 +1269,12 @@ def mamba_phase(torch, dev):
           flush=True)
     del cache, model, prompts, last
 
-    # (d) serving through fail->fail->repair->repair
+    # (d) serving through fail->fail->repair->repair, depth cut
     kw = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
               policy="ntp_pw")
+    full_cfg, full_params = cfg, params
+    cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVE_LAYERS)
+    params = dict(params, layers=params["layers"][:MAMBA_SERVE_LAYERS])
     session = ServeSession.create(cfg, params=params, **kw)
     clean = ServeSession.create(cfg, params=params, **kw)
     rng = np.random.default_rng(0)
@@ -1245,7 +1287,8 @@ def mamba_phase(torch, dev):
     served = mode.launches()
     tokens = session.engines[0].stats["tokens"]
     tps = [t["tp_to"] for t in session.transitions]
-    print(f"  (d) fail->repair run: {len(got)} requests, {tokens} tokens in "
+    print(f"  (d) fail->repair run, first {cfg.n_layers} of "
+          f"{full_cfg.n_layers} layers: {len(got)} requests, {tokens} tokens in "
           f"{ticks} ticks, {wall:.2f} s wall: {tokens / wall:.1f} tokens/s; "
           f"TP path {tps}; preemptions "
           f"{session.engines[0].stats['preemptions']}; kernels "
@@ -1279,7 +1322,8 @@ def mamba_phase(torch, dev):
               f"{t['preempted']} preempted")
         check(r["bytes_moved"] == plan.n_moved * head_bytes,
               f"ssm_head ledger {r['bytes_moved']} != {plan.n_moved * head_bytes}")
-    eng = clean.engines[0]
+    del session, clean
+    eng = ServeSession.create(full_cfg, params=full_params, **kw).engines[0]
     toks = torch.ones(8, dtype=torch.long, device=dev)
     pos = torch.arange(8, device=dev) + 40
     tick_ms = time_ms(lambda: eng.model.decode_slots(eng.params, eng.cache,
@@ -1287,7 +1331,7 @@ def mamba_phase(torch, dev):
     print(f"  decode tick (8 slots, full model, CUDA events): {tick_ms:.3f} ms")
     profile_steps(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
                                                         toks, pos), "decode tick")
-    del session, clean, eng, params
+    del eng, params, full_params
     torch.cuda.empty_cache()
     return {k: run[k] + served[k] for k in run}
 
@@ -1301,20 +1345,22 @@ def mamba_launcher_phase():
     check(out["tokens"].shape == (4, 32), "launcher: wrong token shape")
 
 
-def qwen_widths():
+def qwen_widths(n_layers=4):
     """The NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups of
-    7 query heads, head_dim 128, d_ff 18944, vocab 152064), depth cut to 4
-    layers: the model of phases 6-8."""
+    7 query heads, head_dim 128, d_ff 18944, vocab 152064), depth cut to
+    ``n_layers``: 4 in phases 6-8, 2 in phase 10."""
     from repro_torch.core import ntp_train as nt
 
     return nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
                              head_dim=128, d_ff=18944, unit_rows=128,
-                             vocab=152064, n_layers=4)
+                             vocab=152064, n_layers=n_layers)
 
 
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
 TRAIN_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
 MAMBA_KERNELS = ("rmsnorm", "reshard_pack", "ssd_scan")
+# phase 5 (d) serves the first 16 of mamba2-780m's 48 layers
+MAMBA_SERVE_LAYERS = 16
 
 
 def train_phase(torch, dev):
@@ -1567,7 +1613,7 @@ def _unit_bytes(cfg, family):
     """f32 bytes of one partition unit of ``family``, over every layer."""
     d, qh, h = cfg.d_model, cfg.q_per_kv * cfg.head_dim, cfg.head_dim
     elems = {"wq": d * qh, "wk": d * h, "wv": d * h, "wo": qh * d,
-             "A": d * cfg.unit_rows, "B": cfg.unit_rows * d}[family]
+             "A": d * cfg.ffu, "B": cfg.ffu * d}[family]
     return elems * 4 * cfg.n_layers
 
 
@@ -2361,12 +2407,12 @@ def launcher_phase():
 
 RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
 # phase 10's chain on the (2, 2) mesh of processes: replica 1 loses a GPU
-# before step 3 (TP (1, 2): packing puts it in replica 0) and is repaired
-# before step 6
-RANKS_EVENTS = {3: ("fail", 1), 6: ("repair", 0)}
+# before step 2 (TP (1, 2): packing puts it in replica 0) and is repaired
+# before step 4
+RANKS_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
 RANKS_LR, RANKS_LB = 1e-2, 4
 # the degraded step after which part (b) measures its (per-leaf) sync
-RANKS_SYNC_AFTER = 5
+RANKS_SYNC_AFTER = 3
 
 
 def _ranks_event(i):
@@ -2559,9 +2605,9 @@ def rank_worker(cfg, seq, steps, directory, device):
     return out
 
 
-def ranks_phase(torch, dev, cfg=None, seq=256, steps=9):
-    """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths (4
-    layers) on a (2, 2) mesh of 4 processes, gloo on this card, through
+def ranks_phase(torch, dev, cfg=None, seq=256, steps=6):
+    """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths
+    (``cfg``; 2 layers from `main`) on a (2, 2) mesh of 4 processes, gloo on this card, through
     fail → repair with SGD, held to the emulated session run first on the
     same seed, chain and batches (parts (a) and (b)); then part (c), the
     lifecycle with overlap on (`lifecycle_part`). Returns the ranks' launch
@@ -3478,6 +3524,653 @@ def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
     return launches, None
 
 
+# phase 12: NTP with the expert as the partition unit. (A) llama4-scout's
+# widths on the emulated mesh; (B) arctic-480b's widths (the reference's
+# reduced() expert count) on every other training route; (C) the MoE FFN
+# of models/mlp.py at llama4-scout's full FFN widths.
+MOE_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
+MOE_LR = 1e-2
+# (A): replica 1 loses a GPU before step 3 (TP (3, 4): packing puts it in
+# replica 0), repaired before step 6 — phase 6's chain
+MOE_A_EVENTS = {3: ("fail", 1), 6: ("repair", 0)}
+MOE_A_STEPS, MOE_A_LB, MOE_A_SEQ = 9, 2, 256
+# (B): on the (2, 2) mesh, the fail before step 2 and the repair before
+# step 4 (pp=1 routes, 5 steps); at pp=2 phase 11's stage-1 chain
+MOE_B_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
+MOE_B_STEPS, MOE_B_LB, MOE_B_SEQ, MOE_B_MB = 5, 4, 256, 2
+# each process's share of the card: 4 processes at pp=1; at pp=2 by stage
+# (a stage-1 process under the degraded plan holds its layer at 4 x 4
+# expert slots, `head`, and params, accumulated and fresh grads: ~10 GB)
+MOE_B_MEMORY_SHARE = {1: (0.2,), 2: (0.10, 0.15)}
+
+
+def llama4_widths(n_layers=1):
+    """The NTP-MoE prototype at llama4-scout's widths (configs/llama4_scout:
+    d_model 5120, 8 kv-groups of 5 query heads, head_dim 128, 16 experts of
+    d_ff 8192, top-1, vocab 202048), depth cut to ``n_layers``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ntp_train as nt
+
+    c = get_arch("llama4-scout-17b-a16e")
+    return nt.NTPModelConfig(
+        d_model=c.d_model, n_kv_groups=c.n_kv_heads,
+        q_per_kv=c.n_heads // c.n_kv_heads, head_dim=c.head_dim,
+        d_ff=c.d_ff, n_experts=c.moe.n_experts, top_k=c.moe.top_k,
+        vocab=c.vocab_size, n_layers=n_layers)
+
+
+def arctic_widths(n_layers=2):
+    """The NTP-MoE prototype at arctic-480b's widths (configs/arctic_480b:
+    d_model 7168, 8 kv-groups of 7 query heads, head_dim 128, experts of
+    d_ff 4864, top-2, vocab 32000), the expert count cut by the reference's
+    `reduced()` rule (128 -> 4, top-2 kept), depth cut to ``n_layers``."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import ntp_train as nt
+
+    c = get_arch("arctic-480b")
+    m = reduced(c).moe
+    return nt.NTPModelConfig(
+        d_model=c.d_model, n_kv_groups=c.n_kv_heads,
+        q_per_kv=c.n_heads // c.n_kv_heads, head_dim=c.head_dim,
+        d_ff=c.d_ff, n_experts=m.n_experts, top_k=m.top_k,
+        vocab=c.vocab_size, n_layers=n_layers)
+
+
+def _moe_event(events, i, stage=None):
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    kind, replica = events[i]
+    cls = FailureEvent if kind == "fail" else RecoveryEvent
+    return cls(step=i, replica=replica, stage=stage, n_gpus=1)
+
+
+def _moe_pp_chain(i):
+    return {1: _moe_event({1: ("fail", 1)}, 1, stage=1),
+            3: _moe_event({3: ("repair", 0)}, 3, stage=1)}.get(i)
+
+
+def _ledger_check(cfg, old, new, st):
+    """A transition's ledger against its plans: bytes as
+    `expected_transfer`'s off-diagonal units x their f32 bytes, units as
+    theirs over every layer and leaf, one message per (replica, src, dst)
+    pair of the plans (at pp>1 each stage its own, tagged by stage)."""
+    import numpy as np
+
+    from repro_torch.reshard.transition import (expected_transfer,
+                                                replica_transition_plans)
+    from repro_torch.reshard.units import ntp_unit_specs
+
+    want = _expected_bytes(cfg, old, new)
+    stages = [(None, old, new)] if getattr(old, "pp", 1) == 1 else [
+        ((s,), o, n) for s, (o, n) in enumerate(zip(old.stages, new.stages))
+        if o != n]
+    pairs, units = set(), 0
+    for tag, o, n in stages:
+        layers = cfg.n_layers // getattr(old, "pp", 1)
+        units += sum(int(m.sum() - np.trace(m)) for m in
+                     expected_transfer(cfg, o, n).values()) * layers
+        for spec in set(ntp_unit_specs(cfg).values()):
+            for d, p in enumerate(replica_transition_plans(spec.k, o, n)):
+                pairs |= {(tag or ()) + (d,) + tuple(x) for x in p.pairs}
+    check(st["bytes_moved"] == want, f"transition bytes {st} != {want}")
+    check(st["moved_units"] == units and st["messages"] == len(pairs),
+          f"transition ledger {st} != plans ({units} units, {len(pairs)} "
+          "messages)")
+    return want
+
+
+def moe_full_width_part(torch, dev):
+    """Phase 12 (A): NTP-MoE at llama4-scout's widths, 1 layer (16 experts,
+    top-1), 2 emulated replicas x TP 4, local batch 2, sequence 256, SGD,
+    overlap off, through fail (TP (3, 4)) -> repair, 9 steps. The dense
+    reference runs first and alone (its losses and final params kept on
+    the host), then the session. Checks: every loss within 1e-4 of the
+    reference's, both replicas' canonical params within 1e-4 at the end,
+    the router unchanged (top-1: the renormalised gate w/w = 1 carries no
+    gradient), each transition's ledger equal to its plans', reshard_pack
+    launched on the degraded steps only. Returns the session's launches
+    and the (3, 4) plan's MLP weight plan for the expert-unit row."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.core.nonuniform import FailurePlan
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    cfg = llama4_widths()
+    lb, seq, steps = MOE_A_LB, MOE_A_SEQ, MOE_A_STEPS
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
+    healthy, degraded = FailurePlan(4, (4, 4)), FailurePlan(4, (3, 4))
+    plans = [degraded if 3 <= i < 6 else healthy for i in range(steps)]
+
+    def regime(plan):
+        return "healthy" if plan.healthy else f"degraded {plan.replica_tp}"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t_part = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the degraded step holds ~70 GB in blocks of many sizes: segments that
+    # grow in place keep the freed remainder usable (set back after (A))
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.cuda.reset_peak_memory_stats()
+    ref = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    n_par = sum(t.numel() for t in tr.leaves(ref))
+    router0 = ref["layers"][0]["router"].clone()
+    ref_loss = nt.make_reference_loss(cfg)
+    ref_losses, ref_ms = [], []
+    for i in range(steps):
+        lbs = nt.default_local_batches(plans[i], "ntp", lb)
+        mask = torch.tensor(np.concatenate([np.arange(lb) < b for b in lbs]),
+                            dtype=torch.float32, device=dev)
+        tokens = torch.as_tensor(pipe._batch_np(i), device=dev)
+
+        def ref_step():
+            leaves = tr.tree_map(lambda t: t.requires_grad_(True), ref)
+            rl = ref_loss(leaves, tokens, mask)
+            grads = torch.autograd.grad(rl, tr.leaves(leaves))
+            with torch.no_grad():
+                for p, gr in zip(tr.leaves(ref), grads):
+                    p.requires_grad_(False)
+                    p.sub_(gr.mul_(MOE_LR))
+            return rl.detach()
+
+        rl, ms = timed(ref_step)
+        rl = float(rl)
+        ref_losses.append(rl)
+        ref_ms.append(ms)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    ref_router_moved = float((ref["layers"][0]["router"] - router0)
+                             .abs().max())
+    ref_host = [t.cpu() for t in tr.leaves(ref)]
+    del ref
+    torch.cuda.empty_cache()
+    print(f"  (A) llama4-scout widths, 1 layer: {n_par / 1e9:.3f} B canonical"
+          f" params f32 ({4 * n_par / 1e9:.2f} GB); the dense reference "
+          f"alone: step ms {', '.join(f'{m:.1f}' for m in ref_ms)}, peak "
+          f"{ref_peak:.2f} GB allocated; its router moved "
+          f"{ref_router_moved:.3e} over {steps} steps", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    s = NTPSession.create(cfg, (2, 4), local_batch=lb,
+                          optimizer=sgd(MOE_LR), params=canon, device=dev)
+    del canon
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * 4 for t in tr.leaves(s.params)) / 1e9
+    print(f"  session packed: {held:.2f} GB of params healthy", flush=True)
+    mode.reset_launches()
+    peaks, step_ms, transitions = {}, {}, []
+    for i in range(steps):
+        if i in MOE_A_EVENTS:
+            old = s.plan
+            peaks[regime(old)] = max(peaks.get(regime(old), 0.0),
+                                     torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = timed(lambda: s.apply(_moe_event(MOE_A_EVENTS, i)))
+            # the old packing's blocks go back before the steps under the
+            # new one allocate theirs (the degraded step peaks near the
+            # card's size)
+            torch.cuda.empty_cache()
+            st = s.last_transition.as_dict()
+            want = _ledger_check(cfg, old, s.plan, st)
+            transitions.append((i, old, s.plan, ms, st))
+            held = sum(t.numel() * 4 for t in tr.leaves(s.params)) / 1e9
+            print(f"  step {i}: {old.replica_tp} -> {s.plan.replica_tp}: "
+                  f"transition {ms:.1f} ms, {st['bytes_moved']} B "
+                  f"({st['bytes_moved'] / 1e9:.3f} GB) in {st['messages']} "
+                  f"messages, {st['moved_units']} units moved (expected "
+                  f"{want} B); transition peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; params "
+                  f"now {held:.2f} GB", flush=True)
+        check(s.plan == plans[i], f"step {i}: plan {s.plan} != {plans[i]}")
+        check(list(s.local_batches) == list(nt.default_local_batches(
+            plans[i], "ntp", lb)), f"step {i}: local batches differ")
+        before = mode.launches()["reshard_pack"]
+        m, ms = timed(lambda: s.step(pipe._batch_np(i)))
+        packs = mode.launches()["reshard_pack"] - before
+        loss = float(m["loss"])
+        step_ms.setdefault(regime(s.plan), []).append(ms)
+        print(f"  step {i} ({regime(s.plan)}): loss {loss:.6f} reference "
+              f"{ref_losses[i]:.6f} |diff| {abs(loss - ref_losses[i]):.2e}; "
+              f"{ms:.1f} ms; reshard_pack launches {packs}", flush=True)
+        check(np.isfinite(loss) and abs(loss - ref_losses[i]) < 1e-4,
+              f"step {i}: loss off the dense reference")
+        check((packs > 0) == (not s.plan.healthy),
+              f"step {i}: {packs} reshard_pack launches in a "
+              f"{regime(s.plan)} step")
+    peaks[regime(s.plan)] = max(peaks.get(regime(s.plan), 0.0),
+                                torch.cuda.max_memory_allocated() / 1e9)
+    launches = mode.launches()
+    errs, moved = [], 0.0
+    for r in range(2):
+        got = s.canonical_params(r)
+        errs.append(max(float((a - b.to(dev)).abs().max())
+                        for a, b in zip(tr.leaves(got), ref_host)))
+        moved = max(moved, float((got["layers"][0]["router"] - router0)
+                                 .abs().max()))
+        del got
+    print(f"  canonical params vs the dense reference: replica 0 "
+          f"{errs[0]:.3e}, replica 1 {errs[1]:.3e} (tol 1e-4); the router "
+          f"moved {moved:.3e} (top-1)", flush=True)
+    check(max(errs) < 1e-4, "canonical params diverged")
+    check(moved < 1e-6, "the top-1 router moved")
+    print("  step ms by regime: " + "; ".join(
+        f"{k} " + ", ".join(f"{v:.1f}" for v in vs)
+        for k, vs in step_ms.items()) + "; peak allocated by regime "
+        + "; ".join(f"{k} {v:.2f} GB" for k, v in peaks.items())
+        + f"; reference {ref_peak:.2f} GB", flush=True)
+    print(f"  (A): {time.perf_counter() - t_part:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in ("reshard_pack",)),
+          f"reshard_pack never launched: {launches}")
+    del s, ref_host
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return launches, cfg, degraded
+
+
+def expert_reshard_row(torch, dev, cfg, plan):
+    """reshard_pack at the expert unit, the widest row any path gathers
+    (one row = one expert's A, d_model x d_ff elems): the pre-sync reshard
+    of phase 12 (A)'s A gradient under the degraded plan, all 4 ranks of
+    the replica that sends the most rows in one launch, as the emulated
+    sync runs it; bit-exact against the plain version and timed in turns
+    against `src[idx]` and `index_select` (one call a CUDA graph: each
+    output is GBs)."""
+    from repro_torch.core import nonuniform as nu
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.reshard_pack import reshard_pack_ranks
+
+    tables = nu.weight_plan(cfg.k_ff, plan).pre
+    elems = cfg.d_model * cfg.ffu
+    t = max((tables.replica(d) for d in range(plan.d)),
+            key=lambda t: int((t.send_idx != t.pad).sum()))
+    n, up1 = t.n, t.buf + 1
+    g = torch.Generator(device=dev).manual_seed(7)
+    xp = torch.randn((n, up1, elems), generator=g, device=dev)
+    xp[:, -1] = 0
+    ix = torch.as_tensor(t.send_idx, device=dev)
+    got = reshard_pack_ranks(xp, ix)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref.reshard_pack_ranks_ref(xp, ix)),
+          "reshard_pack at the expert unit is not bit-exact")
+    del got
+    torch.cuda.empty_cache()
+    plain = time_ms(lambda: ref.reshard_pack_ranks_ref(xp, ix), 3)
+    lidx = ix.long()
+    rk = torch.arange(n, device=dev)[:, None, None]
+    flat = (lidx + rk * up1).flatten()
+    tm = in_turns(torch, lambda: reshard_pack_ranks(xp, ix), {
+        "src[idx]": lambda: xp[rk, lidx],
+        "index_select": lambda: torch.index_select(
+            xp.view(-1, elems), 0, flat).view(*ix.shape, elems)},
+        reps=3, calls=1)
+    n_read = sum(len({int(u) for u in t.send_idx[r].flatten()
+                      if u != t.pad}) for r in range(n))
+    bd = bound_ms((n_read + ix.numel()) * elems * 4 + ix.numel() * 4, 0,
+                  "float32")
+    report_turns("reshard_pack", f"expert unit, all {n} ranks "
+                 f"src{tuple(xp.shape)} idx{tuple(ix.shape)}", "float32",
+                 0.0, 0.0, tm, plain, bd)
+    row = table_row(0.0, tm, plain, bd)
+    del xp, ix
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_b_plans(pp, steps):
+    """The plan of each step of (B)'s chain: at pp=1 TP (1, 2) on steps 2-3,
+    at pp=2 stage 1 at (1, 2) on steps 1-2, healthy otherwise."""
+    from repro_torch.core.nonuniform import FailurePlan, StagedPlan
+
+    healthy, degraded = FailurePlan(2, (2, 2)), FailurePlan(2, (1, 2))
+    if pp == 1:
+        return [degraded if 2 <= i < 4 else healthy for i in range(steps)]
+    return [StagedPlan((healthy, degraded if 1 <= i < 3 else healthy))
+            for i in range(steps)]
+
+
+def _moe_emulated(torch, dev, cfg, pp):
+    """Phase 12 (B), emulated: at pp=1 sessions with overlap on and off
+    through `MOE_B_EVENTS` (5 steps); at pp=2 (one layer a stage,
+    microbatches 2, overlap on) through the stage-1 chain (4 steps). The
+    dense reference runs first, on the chain's local batches, and keeps its
+    losses and final params on the host; then each session runs alone and
+    is held to it (losses 1e-4, both replicas' canonical params 1e-4; on
+    against off 1e-5). Returns the overlap-on session's losses, local
+    batches, ledgers, step ms, each layer's router at the end and at the
+    start."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    steps = MOE_B_STEPS if pp == 1 else PP_RANKS_STEPS
+    plans = _moe_b_plans(pp, steps)
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, MOE_B_SEQ, 2 * MOE_B_LB,
+                                          seed=0))
+
+    def canonical():
+        return nt.init_canonical(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    ref = canonical()
+    routers0 = [lp["router"].to("cpu", copy=True) for lp in ref["layers"]]
+    ref_loss = nt.make_reference_loss(cfg)
+    ref_losses = []
+    for i in range(steps):
+        lbs = nt.default_local_batches(plans[i], "ntp", MOE_B_LB)
+        mask = torch.tensor(np.concatenate(
+            [np.arange(MOE_B_LB) < b for b in lbs]), dtype=torch.float32,
+            device=dev)
+        leaves = tr.tree_map(lambda t: t.requires_grad_(True), ref)
+        rl = ref_loss(leaves, torch.as_tensor(pipe._batch_np(i), device=dev),
+                      mask)
+        grads = torch.autograd.grad(rl, tr.leaves(leaves))
+        with torch.no_grad():
+            for p, gr in zip(tr.leaves(ref), grads):
+                p.requires_grad_(False)
+                p.sub_(gr.mul_(MOE_LR))
+        del grads, leaves
+        ref_losses.append(float(rl.detach()))
+    ref_host = [t.cpu() for t in tr.leaves(ref)]
+    del ref
+    torch.cuda.empty_cache()
+
+    runs, errs = {}, {}
+    for o in ((True, False) if pp == 1 else (True,)):
+        canon = canonical()
+        kw = dict(pp=2, microbatches=MOE_B_MB) if pp > 1 else {}
+        s = NTPSession.create(cfg, (2, 2), overlap=o, local_batch=MOE_B_LB,
+                              optimizer=sgd(MOE_LR), params=canon,
+                              device=dev, **kw)
+        del canon
+        out = {"loss": [], "local_batches": [], "ledgers": [], "ms": []}
+        for i in range(steps):
+            ev = _moe_event(MOE_B_EVENTS, i) if pp == 1 and \
+                i in MOE_B_EVENTS else (_moe_pp_chain(i) if pp == 2 else None)
+            if ev is not None:
+                old = s.plan
+                s.apply(ev)
+                st = s.last_transition.as_dict()
+                _ledger_check(cfg, old, s.plan, st)
+                out["ledgers"].append((old, s.plan, st))
+            check(s.plan == plans[i], f"(B) step {i}: plan {s.plan}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(s.step(pipe._batch_np(i))["loss"])
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["loss"].append(loss)
+            out["local_batches"].append(tuple(s.local_batches))
+            check(list(s.local_batches) == list(nt.default_local_batches(
+                plans[i], "ntp", MOE_B_LB)), f"(B) step {i}: local batches")
+            check(abs(loss - ref_losses[i]) < 1e-4,
+                  f"(B) pp={pp} step {i}: loss {loss} off the reference "
+                  f"{ref_losses[i]}")
+        for r in range(2):
+            got = s.canonical_params(r)
+            errs[(o, r)] = max(float((a - b.to(dev)).abs().max())
+                               for a, b in zip(tr.leaves(got), ref_host))
+            del got
+        out["router"] = [lp["router"].cpu() for lp in s.params["layers"]]
+        runs[o] = out
+        del s
+        torch.cuda.empty_cache()
+    out = runs[True]
+    if False in runs:
+        d = max(abs(a - b) for a, b in zip(out["loss"], runs[False]["loss"]))
+        check(d < 1e-5, f"(B) overlap on and off disagree by {d}")
+    check(max(errs.values()) < 1e-4, f"(B) pp={pp}: canonical params {errs}")
+    out["router0"] = routers0
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(out["router"], routers0))
+    print(f"  (B) emulated pp={pp} x (2, 2)"
+          + (" overlap on/off" if pp == 1 else
+             f", microbatches {MOE_B_MB}, overlap on")
+          + f": losses {', '.join(f'{x:.5f}' for x in out['loss'])} (each "
+          f"within 1e-4 of the dense reference, run first); canonical params"
+          f" within {max(errs.values()):.2e}; routers moved {moved:.3e} "
+          f"(top-2); step ms on " + ", ".join(f"{m:.1f}" for m in out["ms"])
+          + ("; off " + ", ".join(f"{m:.1f}" for m in runs[False]["ms"])
+             if False in runs else ""), flush=True)
+    check(moved > 0, "(B) the top-2 router did not train")
+    return out
+
+
+def moe_rank_worker(cfg, pp, device):
+    """Phase 12 (B3/B4): one process of a (2, 2) gloo mesh on the card
+    (pp=1, overlap on, `MOE_B_EVENTS`) or of a pp=2 x (2, 2) staged mesh
+    (overlap on, microbatches 2, the stage-1 chain), its share drawn from
+    the seed; per step its loss, its kernel launches and its host-clock ms,
+    per event its ledger; its routers at the end."""
+    import torch
+
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_staged_mesh, make_test_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    if pp == 1:
+        mesh = make_test_mesh(2, 2, backend="gloo", device=device)
+    else:
+        mesh = make_staged_mesh(2, 2, 2, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.set_per_process_memory_fraction(
+            MOE_B_MEMORY_SHARE[pp][mesh.stage], dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev, pp=pp,
+                              stage=mesh.stage if pp > 1 else None)
+    kw = dict(pp=2, microbatches=MOE_B_MB) if pp > 1 else {}
+    s = NTPSession.create(cfg, mesh, local_batch=MOE_B_LB,
+                          optimizer=sgd(MOE_LR), params=canon, overlap=True,
+                          **kw)
+    del canon
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, MOE_B_SEQ, 2 * MOE_B_LB,
+                                          seed=0))
+    steps = MOE_B_STEPS if pp == 1 else PP_RANKS_STEPS
+    out = {"loss": [], "launches": [], "ms": [], "ledgers": [],
+           "local_batches": [], "regime": []}
+    mode.reset_launches()
+    for i in range(steps):
+        ev = _moe_event(MOE_B_EVENTS, i) if pp == 1 and i in MOE_B_EVENTS \
+            else (_moe_pp_chain(i) if pp == 2 else None)
+        if ev is not None:
+            old = s.plan
+            s.apply(ev)
+            out["ledgers"].append((old, s.plan,
+                                   s.last_transition.as_dict()))
+            _release_host_cache(torch)
+        before = mode.launches()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out["loss"].append(float(s.step(pipe._batch_np(i))["loss"]))
+        _sync(torch, dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        after = mode.launches()
+        out["launches"].append({k: after[k] - before[k]
+                                for k in MOE_KERNELS})
+        out["local_batches"].append(tuple(s.local_batches))
+        out["regime"].append(_regime(s))
+    out["total_launches"] = {k: mode.launches()[k] for k in MOE_KERNELS}
+    # numpy, not tensors: a tensor in the result would be shared through a
+    # file descriptor that dies with this process
+    out["router"] = {li: lp["router"].cpu().numpy()
+                     for li, lp in enumerate(s.params["layers"]) if lp}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda \
+        else 0.0
+    out["rank"] = (mesh.stage, mesh.replica, mesh.rank)
+    return out
+
+
+def _predicted_launches(cfg, pp, stage, degraded):
+    """bucket_pack / bucket_unpack / reshard_pack launches of one process's
+    overlapped step: per chunk of its layers (one a layer at pp=1 with 2
+    layers; its stage's one layer at pp=2) two unit buckets and one rep
+    bucket packed and unpacked, and each unit bucket resharded pre and
+    post when its stage is degraded."""
+    from repro_torch.core.overlap import chunk_ranges
+
+    chunks = chunk_ranges(cfg.n_layers, pp)
+    mine = len(chunks) if pp == 1 else 1
+    hit = degraded if pp == 1 else degraded and stage == 1
+    return {"bucket_pack": 3 * mine, "bucket_unpack": 3 * mine,
+            "reshard_pack": 4 * mine if hit else 0}
+
+
+def moe_ranks_part(torch, dev, cfg, pp, want):
+    """Phase 12 (B3) at pp=1 / (B4) at pp=2: the processes against the
+    emulated overlap-on session's run ``want``: every loss within 1e-5,
+    local batches and ledgers equal, each transition's bytes as its plans',
+    the routers within 1e-6 of the emulated session's at the end (and moved
+    from the start); launches a process a step as predicted. Returns the
+    processes' launches summed."""
+    from repro_torch.launch.spawn import spawn
+
+    n = 4 * pp
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(moe_rank_worker, n, backend="gloo", device=dev.type,
+                      deadline_s=600, args=(cfg, pp, dev.type))
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    wall = time.perf_counter() - t0
+    where = "(2, 2) mesh" if pp == 1 else "pp=2 x (2, 2) staged mesh"
+    err = max(abs(a - b) for r in ranks for a, b in zip(r["loss"],
+                                                         want["loss"]))
+    check(err <= 1e-5, f"(B) {where}: losses off the emulated by {err}")
+    for r in ranks:
+        check(r["local_batches"] == want["local_batches"],
+              f"process {r['rank']}: local batches differ")
+        check([st for _, _, st in r["ledgers"]]
+              == [st for _, _, st in want["ledgers"]],
+              f"process {r['rank']}: ledgers differ from the emulated")
+        for old, new, st in r["ledgers"]:
+            _ledger_check(cfg, old, new, st)
+        for i, l in enumerate(r["launches"]):
+            pred = _predicted_launches(cfg, pp, r["rank"][0],
+                                       "degraded" in r["regime"][i])
+            check(dev.type != "cuda" or l == pred,
+                  f"process {r['rank']} step {i}: launches {l} != {pred}")
+    r_err = max(float((torch.from_numpy(v) - want["router"][li]).abs().max())
+                for r in ranks for li, v in r["router"].items())
+    moved = min(float((torch.from_numpy(v) - want["router0"][li]).abs().max())
+                for r in ranks for li, v in r["router"].items())
+    # the routers moved by more than ten times their distance from the
+    # emulated session's, so a router sync that missed the model group's
+    # share would show
+    check(r_err <= 1e-6 and moved > 10 * r_err,
+          f"(B) {where}: routers {r_err} off the emulated, moved {moved}")
+    by_regime = {}
+    for i, regime in enumerate(ranks[0]["regime"]):
+        by_regime.setdefault(regime, []).append(
+            max(r["ms"][i] for r in ranks))
+    launches = {k: sum(r["total_launches"][k] for r in ranks)
+                for k in MOE_KERNELS}
+    print(f"  (B) {n} gloo processes on a {where}: spawned, run and joined "
+          f"in {wall:.1f} s; losses within {err:.3e} of the emulated; "
+          f"routers within {r_err:.3e} (moved >= {moved:.3e}); ledgers "
+          + "; ".join(f"{o.replica_tp if pp == 1 else o.stage_tp} -> "
+                      f"{nw.replica_tp if pp == 1 else nw.stage_tp} "
+                      f"{st['bytes_moved']} B"
+                      for o, nw, st in ranks[0]["ledgers"])
+          + "; step ms by regime (max over processes) " + "; ".join(
+              f"{k} " + ", ".join(f"{v:.1f}" for v in vs)
+              for k, vs in by_regime.items())
+          + f"; launches a step on process {ranks[-1]['rank']} by regime "
+          + "; ".join(sorted({f"{g}: {l}" for g, l in zip(
+              ranks[-1]["regime"], ranks[-1]["launches"])}))
+          + "; peak allocated "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB a process", flush=True)
+    return launches
+
+
+def moe_ffn_part(torch, dev):
+    """Phase 12 (C): `models.mlp.moe_apply` at llama4-scout's full FFN
+    widths (d 5120, 16 experts of d_ff 8192, gated SiLU, the shared
+    expert; weights f32 from a seed on the card), B x S = 8 x 16: against
+    `moe_apply_dense_ref` at drop-free capacity (8.0) within 1e-4 with its
+    aux loss, then the slots dropped at the published 1.25."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import mlp
+
+    cfg = get_arch("llama4-scout-17b-a16e")
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    p = mlp.moe_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     torch.float32)
+    gb = sum(t.numel() * 4 for t in _leaves(p)) / 1e9
+    x = torch.randn((8, 16, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    got, aux = mlp.moe_apply(free, p, x)
+    want = mlp.moe_apply_dense_ref(free, p, x)
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: mlp.moe_apply(free, p, x), 5)
+    ref_ms = time_ms(lambda: mlp.moe_apply_dense_ref(free, p, x), 5)
+    dropped = mlp.dropped_slots(cfg, p, x)
+    out, _ = mlp.moe_apply(cfg, p, x)
+    print(f"  (C) moe_apply at llama4-scout's FFN widths ({gb:.2f} GB f32): "
+          f"max |moe_apply - moe_apply_dense_ref| {err:.3e} (tol 1e-4) at "
+          f"capacity 8.0 ({mlp.dropped_slots(free, p, x)} slots dropped), aux"
+          f" loss {float(aux['moe_aux_loss']):.6f}; {ms:.3f} ms a call, the "
+          f"dense oracle {ref_ms:.3f} ms; at the published 1.25: {dropped} of"
+          f" {8 * 16 * cfg.moe.top_k} slots dropped, output finite "
+          f"{bool(torch.isfinite(out).all())}", flush=True)
+    check(err < 1e-4 and float(aux["moe_aux_loss"]) >= 0
+          and mlp.dropped_slots(free, p, x) == 0, "(C) moe_apply is off")
+    check(bool(torch.isfinite(out).all()), "(C) non-finite output at 1.25")
+    del p, x, got, want, out
+    torch.cuda.empty_cache()
+
+
+def moe_phase(torch, dev):
+    """Phase 12: (A), the expert-unit reshard_pack row, (B) and (C).
+    Returns the launches of (A) and (B), and the expert-unit row."""
+    t0 = time.perf_counter()
+    launches, cfg_a, degraded = moe_full_width_part(torch, dev)
+    row = expert_reshard_row(torch, dev, cfg_a, degraded)
+    from repro_torch.core import ntp_train as nt
+
+    cfg = arctic_widths()
+    n_par = sum(t.numel() for t in _leaves(nt.canonical_like(cfg)))
+    print(f"  (B) arctic-480b widths, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, {cfg.n_layers} layers: {n_par / 1e9:.3f} B canonical"
+          f" params f32 ({4 * n_par / 1e9:.2f} GB)", flush=True)
+    t_b = time.perf_counter()
+    for pp in (1, 2):
+        want = _moe_emulated(torch, dev, cfg, pp)
+        got = moe_ranks_part(torch, dev, cfg, pp, want)
+        launches = {k: launches[k] + got[k] for k in MOE_KERNELS}
+    print(f"  (B): {time.perf_counter() - t_b:.1f} s", flush=True)
+    moe_ffn_part(torch, dev)
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches, row
+
+
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
@@ -3623,6 +4316,16 @@ def pp_ranks_only(torch):
     return 0
 
 
+def moe_only(torch):
+    """``--moe``: build the kernels and run phase 12 alone, then exit (no
+    kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    moe_phase(torch, torch.device("cuda"))
+    return 0
+
+
 def bucket_host_cost_against(torch, checkout):
     """`bucket_host_cost` of this checkout's bucket wrappers beside those
     of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
@@ -3657,12 +4360,27 @@ def main() -> int:
         return gloo_probe()
     if sys.argv[1:2] == ["--pp-ranks"]:
         return pp_ranks_only(torch)
+    if sys.argv[1:2] == ["--moe"]:
+        return moe_only(torch)
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    # a stop from outside unwinds the phases, so `spawn` kills and joins
+    # its ranks and the scratch directories go
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def phase(title):
+        now = time.perf_counter()
+        if len(marks) > 1:
+            print(f"  ({now - marks[-1]:.1f} s; {now - t_start:.1f} s in "
+                  f"all; this process {_host_rss_gb():.2f} GB resident)",
+                  flush=True)
+        marks.append(now)
+        print(title, flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3671,7 +4389,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    print("phase 2: build kernels", flush=True)
+    phase("phase 2: build kernels")
     secs = build.build_all()
     print(f"  built {', '.join(build.SOURCES)} in {secs:.1f} s", flush=True)
     for name, info in build.ptxas_info.items():
@@ -3679,58 +4397,63 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    print("phase 3: kernels against their plain versions", flush=True)
+    phase("phase 3: kernels against their plain versions")
     rows = kernel_phase(torch, F, dev)
 
-    print("phase 4: serve full-size qwen2-7b through fail->repair", flush=True)
+    phase("phase 4: serve full-size qwen2-7b through fail->repair")
     reference_phase(torch, dev)
     serve_launches = serve_phase(torch, dev)
     torch.cuda.empty_cache()
     print(f"  device memory after freeing the served model "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
-    print("phase 5: full-size mamba2-780m: batched prefill through ssd_scan, "
-          "serving through fail->repair", flush=True)
+    phase("phase 5: full-size mamba2-780m: batched prefill through ssd_scan, "
+          "serving through fail->repair")
     mamba_launches = mamba_phase(torch, dev)
     check(all(mamba_launches[k] > 0 for k in MAMBA_KERNELS),
           f"a kernel of the Mamba-2 path never launched: {mamba_launches}")
     mamba_launcher_phase()
     torch.cuda.empty_cache()
 
-    print("phase 6: train the NTP prototype at qwen2-7b widths through "
-          "fail->repair", flush=True)
+    phase("phase 6: train the NTP prototype at qwen2-7b widths through "
+          "fail->repair")
     train_launches, pp1_transitions = train_phase(torch, dev)
 
-    print("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
-          "failure, link, SDC quarantine and straggler", flush=True)
+    phase("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
+          "failure, link, SDC quarantine and straggler")
     trace_launches = trace_phase(torch, dev)
 
-    print("phase 8: pp=2 NTP training at qwen2-7b widths: stage-local "
-          "failures and repairs, microbatches, and a trace under NTP-PW",
-          flush=True)
+    phase("phase 8: pp=2 NTP training at qwen2-7b widths: stage-local "
+          "failures and repairs, microbatches, and a trace under NTP-PW")
     pp2_launches = pp2_phase(torch, dev, pp1_transitions)
 
-    print("phase 9: the training launcher", flush=True)
+    phase("phase 9: the training launcher")
     launcher_phase()
     torch.cuda.empty_cache()
 
-    print("phase 10: ranks as processes: NTP training at qwen2-7b widths on "
-          "a (2, 2) mesh of 4 processes, gloo on this card, through "
-          "fail->repair, then the lifecycle with overlap on", flush=True)
-    ranks_launches, rank_rows = ranks_phase(torch, dev)
+    phase("phase 10: ranks as processes: NTP training at qwen2-7b widths (2 "
+          "layers) on a (2, 2) mesh of 4 processes, gloo on this card, through "
+          "fail->repair, then the lifecycle with overlap on")
+    ranks_launches, rank_rows = ranks_phase(torch, dev, qwen_widths(2))
 
-    print("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
+    phase("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
           "widths, one layer a stage, on a pp=2 x (2, 2) staged mesh of 8 "
-          "processes, gloo on this card, through a stage-1 fail->repair",
-          flush=True)
+          "processes, gloo on this card, through a stage-1 fail->repair")
     pp_ranks_launches, pp_rank_rows = pp_ranks_phase(torch, dev)
 
-    print("phase 12: kernels table", flush=True)
+    phase("phase 12: NTP-MoE (the expert as the partition unit): (A) "
+          "llama4-scout widths on the emulated mesh through fail->repair, "
+          "(B) arctic-480b widths on every other training route, (C) the "
+          "MoE FFN at llama4-scout's widths")
+    moe_launches, expert_row = moe_phase(torch, dev)
+
+    phase("phase 13: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
              (ranks_launches, RANKS_KERNELS),
-             (pp_ranks_launches, PP_RANKS_KERNELS))
+             (pp_ranks_launches, PP_RANKS_KERNELS),
+             (moe_launches, MOE_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -3744,6 +4467,9 @@ def main() -> int:
         print(f"  {name} per rank at pp=2 (staged mesh): launches "
               f"{pp_ranks_launches[name]}, " + ", ".join(
                   f"{k} {v}" for k, v in row.items()), flush=True)
+    print(f"  reshard_pack at the expert unit (NTP-MoE, emulated): launches "
+          f"{moe_launches['reshard_pack']} on the MoE paths, " + ", ".join(
+              f"{k} {v}" for k, v in expert_row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

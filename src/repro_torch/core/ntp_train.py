@@ -1,5 +1,5 @@
 """NTP training of the prototype transformer (port of
-`repro/core/ntp_train.py`, dense MLP, pp >= 1).
+`repro/core/ntp_train.py`, dense MLP or MoE, pp >= 1).
 
 The reference computes transformer layers under nonuniform tensor
 parallelism inside shard_map over a (data=D, model=n1) mesh. The port
@@ -9,8 +9,8 @@ emulates that mesh on one device:
   ``(D, n1*buf, *unit)``, one tensor holding every (replica, rank) buffer; a
   degraded replica holds all units on its first n_r ranks, failed ranks
   hold zeros (algebraically inert — their gradients are exact zeros);
-* replicated leaves (embed, head, final_norm, ln1, ln2) are held ONCE, as
-  one logical copy;
+* replicated leaves (embed, head, final_norm, ln1, ln2, and the MoE
+  router) are held ONCE, as one logical copy;
 * the forward computes every (replica, rank) partial sum batched over the
   replica and rank dims; ``psum('model')`` is a sum over the rank dim, and
   the global loss divides the summed token losses of all replicas by
@@ -52,9 +52,19 @@ another (the stage-sequential step); on a staged mesh
 only and the step is `core.pp_submesh.make_submesh_train_step`, a real
 pipeline with the activations handed between stages.
 
+MoE (``n_experts > 0``, DESIGN.md §4): the partition unit of the FFN is
+the whole expert, so ``A``/``B`` are expert-shaped ``(E, d, d_ff)`` /
+``(E, d_ff, d)`` and a lost rank's experts are re-placed by Algorithm 1
+like any other unit. Every rank computes its slots' experts on every token
+(the reference's dense-masked prototype form, `_moe_local`), each gated by
+the replicated ``router``'s renormalised top-k softmax; a slot's expert id
+is its plan's ``comp_slots`` entry and a pad slot (-1) gets gate 0. On the
+process path the router sits inside the Megatron pair, so each rank's
+router gradient holds its own experts' gates only: the rank syncs sum it
+over ``model`` and ``data`` (``ln1``/``ln2`` over ``data`` only).
+
 Also the DP-DROP baseline and a dense single-logical-copy reference
-(`make_reference_loss`) for the equivalence tests. MoE (`_moe_local`) waits
-for a later slice (ROADMAP Queue 1).
+(`make_reference_loss`) for the equivalence tests.
 """
 from __future__ import annotations
 
@@ -98,7 +108,9 @@ class Mode(enum.Enum):
 class NTPModelConfig:
     """The prototype transformer (paper §5.1): attention whose partition
     unit is the GQA kv-group, and a two-matrix GELU MLP whose unit is a
-    block of ``unit_rows`` hidden rows."""
+    block of ``unit_rows`` hidden rows — or, with ``n_experts > 0``, a
+    top-``top_k`` MoE of two-matrix GELU experts whose unit is the whole
+    expert (DESIGN.md §4)."""
 
     d_model: int = 256
     n_kv_groups: int = 8          # attention partition units
@@ -108,27 +120,40 @@ class NTPModelConfig:
     unit_rows: int = 128          # MLP partition unit
     n_layers: int = 2
     vocab: int = 512
-    n_experts: int = 0            # 0 = dense MLP (the only kind ported)
+    n_experts: int = 0            # 0 = dense MLP
+    top_k: int = 2
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "NTP MoE training (expert partition units, _moe_local) is "
-                "not ported yet: ROADMAP Queue 1, 'MoE in the port's "
-                "training path'"
-            )
-        if self.d_ff % self.unit_rows:
+        if self.is_moe:
+            if not 1 <= self.top_k <= self.n_experts:
+                raise ValueError(f"top_k={self.top_k} outside [1, "
+                                 f"n_experts={self.n_experts}]")
+        elif self.d_ff % self.unit_rows:
             raise ValueError(
                 f"d_ff={self.d_ff} is not a multiple of unit_rows="
                 f"{self.unit_rows}")
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def k_ff(self) -> int:
+        """FFN partition units: whole experts (MoE) or row blocks."""
+        if self.is_moe:
+            return self.n_experts
         return self.d_ff // self.unit_rows
+
+    @property
+    def ffu(self) -> int:
+        """Hidden rows of one FFN unit."""
+        return self.d_ff if self.is_moe else self.unit_rows
 
 
 UNIT_KEYS = ("wq", "wk", "wv", "wo", "A", "B")
 TOP_KEYS = ("embed", "final_norm", "head")
+# a layer's replicated leaves: its norms, and the router of an MoE layer
+REP_KEYS = ("ln1", "ln2", "router")
 
 
 # ---------------------------------------------------------------------------
@@ -173,16 +198,19 @@ def init_canonical(cfg: NTPModelConfig, generator: torch.Generator = None,
 
     def layer():
         s = d ** -0.5
-        return {
+        p = {
             "ln1": ones(d),
             "ln2": ones(d),
             "wq": randn(g, d, q * h, scale=s),
             "wk": randn(g, d, h, scale=s),
             "wv": randn(g, d, h, scale=s),
             "wo": randn(g, q * h, d, scale=(q * h) ** -0.5),
-            "A": randn(cfg.k_ff, d, cfg.unit_rows, scale=s),
-            "B": randn(cfg.k_ff, cfg.unit_rows, d, scale=cfg.d_ff ** -0.5),
+            "A": randn(cfg.k_ff, d, cfg.ffu, scale=s),
+            "B": randn(cfg.k_ff, cfg.ffu, d, scale=cfg.d_ff ** -0.5),
         }
+        if cfg.is_moe:
+            p["router"] = randn(d, cfg.n_experts, scale=s)
+        return p
 
     out = {}
     for key, draw in (("embed", lambda: randn(cfg.vocab, d, scale=0.02)),
@@ -208,14 +236,17 @@ def canonical_like(cfg: NTPModelConfig, dtype=torch.float32) -> Dict:
     def t(*shape):
         return torch.empty(shape, dtype=dtype, device="meta")
 
+    def layer():
+        p = {"ln1": t(d), "ln2": t(d), "wq": t(g, d, q * h),
+             "wk": t(g, d, h), "wv": t(g, d, h), "wo": t(g, q * h, d),
+             "A": t(cfg.k_ff, d, cfg.ffu), "B": t(cfg.k_ff, cfg.ffu, d)}
+        if cfg.is_moe:
+            p["router"] = t(d, cfg.n_experts)
+        return p
+
     return {"embed": t(cfg.vocab, d), "head": t(d, cfg.vocab),
             "final_norm": t(d),
-            "layers": [{"ln1": t(d), "ln2": t(d), "wq": t(g, d, q * h),
-                        "wk": t(g, d, h), "wv": t(g, d, h),
-                        "wo": t(g, q * h, d),
-                        "A": t(cfg.k_ff, d, cfg.unit_rows),
-                        "B": t(cfg.k_ff, cfg.unit_rows, d)}
-                       for _ in range(cfg.n_layers)]}
+            "layers": [layer() for _ in range(cfg.n_layers)]}
 
 
 def _plans(cfg: NTPModelConfig, fplan: nu.FailurePlan):
@@ -266,6 +297,11 @@ def _unpack_unit(w: torch.Tensor, wp: nu.WeightPlan,
     return out
 
 
+def _rep_copy(lp) -> Dict:
+    """Fresh copies of a layer's replicated leaves."""
+    return {k: lp[k].clone() for k in REP_KEYS if k in lp}
+
+
 def pack_params(cfg: NTPModelConfig, canonical: Dict, fplan) -> Dict:
     """Canonical -> packed unit buffers under ``fplan`` (a `FailurePlan`, or
     a `StagedPlan` whose stages pack their own layers). Every leaf of the
@@ -275,7 +311,7 @@ def pack_params(cfg: NTPModelConfig, canonical: Dict, fplan) -> Dict:
         out = {k: canonical[k].clone() for k in ("embed", "head", "final_norm")}
         out["layers"] = []
         for lp, plans in zip(canonical["layers"], lplans):
-            layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
+            layer = _rep_copy(lp)
             for k in UNIT_KEYS:
                 wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
                 layer[k] = _pack_unit(lp[k], wp)
@@ -291,7 +327,7 @@ def unpack_params(cfg: NTPModelConfig, packed: Dict, fplan,
         out = {k: packed[k].clone() for k in ("embed", "head", "final_norm")}
         out["layers"] = []
         for lp, plans in zip(packed["layers"], lplans):
-            layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
+            layer = _rep_copy(lp)
             for k in UNIT_KEYS:
                 wp = plans["mlp"] if k in ("A", "B") else plans["attn"]
                 layer[k] = _unpack_unit(lp[k][replica], wp, replica)
@@ -329,7 +365,7 @@ def pack_rank_params(cfg: NTPModelConfig, canonical: Dict, plan,
                 out["layers"].append({})
                 continue
             lp = canonical["layers"][li]
-            layer = {"ln1": lp["ln1"].clone(), "ln2": lp["ln2"].clone()}
+            layer = _rep_copy(lp)
             for k in UNIT_KEYS:
                 wp = plans[_kind(k)]
                 sl = wp.comp_slots[replica, rank]
@@ -477,9 +513,76 @@ def _mlp_local(lp, h, n1: int):
     return z.sum(dim=1)
 
 
-def _layer(lp, x, cfg: NTPModelConfig, n1: int):
+def _gates(lp, h, cfg: NTPModelConfig):
+    """(..., d) activations -> (..., E) f32 combine weights: the router's
+    softmax, its top-k renormalised by ``max(sum, 1e-9)``, zero elsewhere."""
+    logits = torch.einsum("...m,me->...e", h, lp["router"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return (F.one_hot(idx, cfg.n_experts).to(torch.float32)
+            * w[..., None]).sum(-2)
+
+
+def _moe_local(lp, h, uids, cfg: NTPModelConfig, n1: int):
+    """The NTP-MoE FFN (partition unit = whole expert): every rank runs its
+    slots' experts on all tokens, each weighted by its expert's gate, and
+    the partial outputs sum over ranks (psum('model')). Pad slots hold
+    zeros (gelu(0)·0 = 0) and get gate 0.
+
+    h: (D,B,S,d); uids: (D, n1, U) global expert id per slot, -1 = pad.
+    The id is clipped before the gather and masked after: an index of -1
+    would read the last expert's gate."""
+    gates = _gates(lp, h, cfg)                                  # (D,B,S,E)
+    a = F.gelu(torch.einsum("dbsm,dnumf->dnbsuf", h, _ranks(lp["A"], n1)),
+               approximate="tanh")
+    y = torch.einsum("dnbsuf,dnufm->dnbsum", a, _ranks(lp["B"], n1))
+    rows = torch.arange(h.shape[0], device=h.device)[:, None, None]
+    gate_u = gates[rows, :, :, uids.clamp(min=0)]               # (D,n1,U,B,S)
+    gate_u = (gate_u * (uids >= 0)[..., None, None]).permute(0, 1, 3, 4, 2)
+    z = torch.einsum("dnbsum,dnbsu->dnbsm", y, gate_u.to(y.dtype))
+    return z.sum(dim=1)
+
+
+def _layer(lp, x, cfg: NTPModelConfig, n1: int, uids=None):
+    """One transformer layer on the emulated mesh; ``uids`` are the MoE
+    layer's (D, n1, U) slot ids."""
     x = x + _attn_local(lp, _rms(x, lp["ln1"]), cfg, n1)
+    if cfg.is_moe:
+        return x + _moe_local(lp, _rms(x, lp["ln2"]), uids, cfg, n1)
     return x + _mlp_local(lp, _rms(x, lp["ln2"]), n1)
+
+
+_slot_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_slots(slots: np.ndarray, device) -> torch.Tensor:
+    """The int64 slot-id table ``slots`` on ``device``, kept per (table,
+    device) for the process, as `_sample_masks` keeps its masks: a step
+    does not copy it to the device every time."""
+    key = (slots.shape, slots.tobytes(), str(device))
+    if key not in _slot_tables:
+        _slot_tables[key] = torch.as_tensor(slots, dtype=torch.int64,
+                                            device=device)
+    return _slot_tables[key]
+
+
+def moe_slots(cfg: NTPModelConfig, plan, device):
+    """Per-layer (D, n1, U) expert id of every (replica, rank, slot) under
+    ``plan`` (each layer under its own stage's plan: ``plans["mlp"].
+    comp_slots``, -1 = pad), on ``device``; ``None`` for a dense MLP."""
+    if not cfg.is_moe:
+        return None
+    return [_device_slots(p["mlp"].comp_slots, device)
+            for p in _layer_plans(cfg, plan)]
+
+
+def rank_moe_slots(cfg: NTPModelConfig, plan, mesh: RankMesh, device):
+    """`moe_slots` of one (replica, rank) process: per layer its (U,)
+    slots' expert ids (``None`` for a dense MLP)."""
+    slots = moe_slots(cfg, plan, device)
+    return None if slots is None else \
+        [t[mesh.replica, mesh.rank] for t in slots]
 
 
 def _tail_totals(final_norm, head, x, tgt, sample_mask):
@@ -494,19 +597,20 @@ def _tail_totals(final_norm, head, x, tgt, sample_mask):
 
 
 def _forward_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
-                    n1: int):
+                    n1: int, uids=None):
     """One forward over all layers. tokens: (D, B, S+1) int64; sample_mask:
-    (D, B) f32. Returns the per-replica (D,) (token-loss total, count)."""
+    (D, B) f32; uids: per-layer MoE slot ids (`moe_slots`). Returns the
+    per-replica (D,) (token-loss total, count)."""
     inp, tgt = tokens[..., :-1], tokens[..., 1:]
     x = params["embed"][inp]
-    for lp in params["layers"]:
-        x = _layer(lp, x, cfg, n1)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer(lp, x, cfg, n1, None if uids is None else uids[i])
     return _tail_totals(params["final_norm"], params["head"], x, tgt,
                         sample_mask)
 
 
 def _microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
-                       n1: int, microbatches: int):
+                       n1: int, microbatches: int, uids=None):
     """`_forward_totals` over ``microbatches`` chunks of the local batch
     walked one after another (the stage-sequential 1F1B emulation):
     microbatch j takes local rows [j*mb, (j+1)*mb) and the same columns of
@@ -517,7 +621,7 @@ def _microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
     for j in range(microbatches):
         rows = slice(j * mb, (j + 1) * mb)
         t, c = _forward_totals(cfg, params, tokens[:, rows],
-                               sample_mask[:, rows], n1)
+                               sample_mask[:, rows], n1, uids)
         total = t if total is None else total + t
         count = c if count is None else count + c
     return total, count
@@ -544,12 +648,17 @@ def make_reference_loss(cfg: NTPModelConfig):
     sync; the oracle for the NTP equivalence checks.
 
     loss(canonical_params, tokens (B,S+1), sample_mask (B,)) -> scalar.
+    MoE: the one rank holds every expert, slot u holding expert u.
     """
 
     def loss(canonical, tokens, sample_mask):
+        uids = None
+        if cfg.is_moe:
+            every = torch.arange(cfg.k_ff, device=canonical["embed"].device)
+            uids = [every.reshape(1, 1, -1)] * cfg.n_layers
         totals, counts = _forward_totals(
             cfg, _dense_view(canonical), tokens.long()[None],
-            sample_mask[None].to(torch.float32), 1)
+            sample_mask[None].to(torch.float32), 1, uids)
         return _global_loss(totals, counts)
 
     return loss
@@ -575,9 +684,22 @@ def _mlp_rank(lp, h, group):
     return C.reduce_from_model(y[0], group)
 
 
-def _rank_layer(lp, x, cfg: NTPModelConfig, group):
-    """One transformer layer on one rank: x (B, S, d), replicated."""
+def _moe_rank(lp, h, uids, cfg: NTPModelConfig, group):
+    """The MoE FFN of one rank's expert slots ``uids`` (U,) on all tokens,
+    between the Megatron pair. The router runs inside the pair, so this
+    rank's router gradient comes from its own experts' gates only (the
+    rank syncs sum it over ``model`` as well as ``data``)."""
+    y = _moe_local(_rank_view(lp), C.copy_to_model(h, group)[None],
+                   uids[None, None], cfg, 1)
+    return C.reduce_from_model(y[0], group)
+
+
+def _rank_layer(lp, x, cfg: NTPModelConfig, group, uids=None):
+    """One transformer layer on one rank: x (B, S, d), replicated;
+    ``uids`` the MoE layer's slot ids on this rank."""
     x = x + _attn_rank(lp, _rms(x, lp["ln1"]), cfg, group)
+    if cfg.is_moe:
+        return x + _moe_rank(lp, _rms(x, lp["ln2"]), uids, cfg, group)
     return x + _mlp_rank(lp, _rms(x, lp["ln2"]), group)
 
 
@@ -599,20 +721,22 @@ def _rank_tokens(batch, mesh: RankMesh, masks, device):
     return tokens, masks(rows, device)[d]
 
 
-def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group):
+def _rank_totals(cfg: NTPModelConfig, params, tokens, sample_mask, group,
+                 uids=None):
     """One rank's forward over its replica's local batch. tokens: (B, S+1)
-    int64; sample_mask: (B,) f32. Returns the replica's (token-loss total,
-    token count), scalars (every rank of the replica computes the same)."""
+    int64; sample_mask: (B,) f32; uids: per-layer MoE slot ids
+    (`rank_moe_slots`). Returns the replica's (token-loss total, token
+    count), scalars (every rank of the replica computes the same)."""
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     x = params["embed"][inp]
-    for lp in params["layers"]:
-        x = _rank_layer(lp, x, cfg, group)
+    for i, lp in enumerate(params["layers"]):
+        x = _rank_layer(lp, x, cfg, group, None if uids is None else uids[i])
     return _rank_tail(params["final_norm"], params["head"], x, tgt,
                       sample_mask)
 
 
 def _rank_microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
-                            group, microbatches: int):
+                            group, microbatches: int, uids=None):
     """`_rank_totals` over ``microbatches`` chunks of the local batch walked
     one after another through every layer (the stage-sequential step, as
     `_microbatch_totals`), totals and counts summed."""
@@ -621,7 +745,7 @@ def _rank_microbatch_totals(cfg: NTPModelConfig, params, tokens, sample_mask,
     for j in range(microbatches):
         rows = slice(j * mb, (j + 1) * mb)
         t, c = _rank_totals(cfg, params, tokens[rows], sample_mask[rows],
-                            group)
+                            group, uids)
         total = t if total is None else total + t
         count = c if count is None else count + c
     return total, count
@@ -688,8 +812,9 @@ def make_rank_train_step(
         share (the Megatron pair makes them equal over the model group)."""
         tokens, mask = _rank_tokens(batch, mesh, masks, mesh.device)
         leaves = _grad_leaves(params)
-        total, count = _rank_microbatch_totals(cfg, leaves, tokens, mask,
-                                               mesh.model, microbatches)
+        total, count = _rank_microbatch_totals(
+            cfg, leaves, tokens, mask, mesh.model, microbatches,
+            rank_moe_slots(cfg, fplan, mesh, mesh.device))
         tc = C.psum(torch.stack([total.detach(), count]), mesh.data)
         denom = torch.clamp(tc[1], min=1.0)
         grads = torch.autograd.grad(total / denom, tr.leaves(leaves))
@@ -935,8 +1060,9 @@ def _build_step(cfg, plan, mode: Mode, local_batch: int,
         tokens = _split_batch(batch, d_axis, dev)
         mask = sample_mask(tokens.shape[1], dev)
         leaves = _grad_leaves(params)
-        loss = _global_loss(*_microbatch_totals(cfg, leaves, tokens, mask,
-                                                n1, microbatches))
+        loss = _global_loss(*_microbatch_totals(
+            cfg, leaves, tokens, mask, n1, microbatches,
+            moe_slots(cfg, plan, dev)))
         grads = torch.autograd.grad(loss, tr.leaves(leaves))
         return loss.detach(), _unflatten_like(leaves, grads)
 

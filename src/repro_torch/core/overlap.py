@@ -35,11 +35,14 @@ unit buckets pack this rank's ``(buf, ΣE)`` slots with one `bucket_pack`
 launch, reshard over the model group when degraded, and start an async
 all-reduce over ``data`` (`collectives.psum_async_`); completing waits on
 it, reshards back and unpacks with one `bucket_unpack` launch. Each chunk
-also sums its ``ln1``/``ln2`` grads as one rows-1 "rep bucket" over
-``data``; ``embed``, ``head`` and ``final_norm`` are summed in place (no
-bucket copies GBs of ``embed``/``head``). The Megatron pair already makes
-the replicated grads equal over ``model``, so the reference's ``ct/n1``
-seed and its ('data', 'model') psum stay unported there too.
+also sums its ``ln1``/``ln2`` grads (and an MoE layer's ``router``) as one
+rows-1 "rep bucket" over ``data``; ``embed``, ``head`` and ``final_norm``
+are summed in place (no bucket copies GBs of ``embed``/``head``). The
+Megatron pair already makes the norms' grads equal over ``model``, so the
+reference's ``ct/n1`` seed and its ('data', 'model') psum stay unported
+there too; the router runs inside the pair, so each rank's router grad is
+its own experts' share and is first summed over ``model`` in place (the
+reference reaches the same sum with its ('data', 'model') psum).
 
 Emulation note — the ``ct/n1`` seed is NOT ported. The reference's
 overlapped step runs AD *inside* shard_map, where jax transposes ``psum``
@@ -195,8 +198,8 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
     """The gradient-sync body shared by the step builders: each layer's unit
     grads reshard → psum('data') → reshard under its own stage's plan; a
     healthy stage (or a non-NTP mode) takes the plain sum over replicas.
-    Replicated leaves pass through: the one-graph backward already summed
-    them.
+    Replicated leaves (the MoE router too) pass through: the one-graph
+    backward already summed them.
 
     ``bucketed=False`` is the sequential per-leaf route; ``bucketed=True``
     fuses each (stage, plan-kind) group into one flat payload via the bucket
@@ -219,21 +222,25 @@ def make_sync_grads(cfg, staged, *, mode, bucketed: bool = False,
     degraded = [mode is nt.Mode.NTP and not p.healthy for p in staged.stages]
 
     if not bucketed:
+        def sync(path, g):
+            s = stage_of[_layer_idx(path)]
+            if not degraded[s]:
+                return rs.uniform_sync_gradient(g, out=g)
+            key = tr.leaf_key(path)
+            wp = stage_plans[s]["attn" if key in _ATTN_KEYS else "mlp"]
+            g4 = g.reshape(g.shape[0], -1, wp.buf, g[0, 0].numel())
+            return rs.ntp_sync_gradient(g4, wp, out=g4).reshape(g.shape)
+
         @torch.no_grad()
         def sync_grads(grads):
-            def sync(path, g):
-                key = tr.leaf_key(path)
-                if key not in nt.UNIT_KEYS:
-                    return g
-                s = stage_of[_layer_idx(path)]
-                if not degraded[s]:
-                    return rs.uniform_sync_gradient(g)
-                wp = stage_plans[s]["attn" if key in _ATTN_KEYS else "mlp"]
-                g4 = g.reshape(g.shape[0], -1, wp.buf,
-                               g[0, 0].numel())
-                return rs.ntp_sync_gradient(g4, wp).reshape(g.shape)
-
-            return tr.tree_map_with_path(sync, grads)
+            """Syncs each unit leaf of ``grads`` in place (a pre-sync value
+            is dead once summed), as the rank syncs do: the sync holds one
+            leaf's temporaries, not a second gradient tree. It consumes
+            ``grads``."""
+            for path, g in tr.leaves_with_path(grads):
+                if tr.leaf_key(path) in nt.UNIT_KEYS:
+                    tr.set_path(grads, path, sync(path, g))
+            return grads
 
         sync_grads.collectives = sync_collectives(cfg, staged, mode,
                                                   bucketed=False)
@@ -282,8 +289,9 @@ def _make_rank_sync(cfg, plan, mode, mesh):
     stage plan when that is degraded under NTP, and sums over data
     otherwise — ``.collectives`` of them over the whole mesh, as
     `sync_collectives(bucketed=False)` counts; then each replicated leaf
-    (held whole by every rank, its replica's share) sums over data:
-    ``.replicated_collectives`` more all-reduces on this process. On a
+    (held whole by every rank, its replica's share) sums over data, an MoE
+    router first over model (`_sum_router_`): ``.replicated_collectives``
+    more all-reduces on this process. On a
     staged mesh a process syncs its stage's leaves only, over that stage's
     groups. Gradients are synced in place where the route allows."""
     staged, mode, stage_of, stage_plans, degraded, own, top = _rank_layout(
@@ -306,20 +314,29 @@ def _make_rank_sync(cfg, plan, mode, mesh):
             if tr.leaf_key(path) in nt.UNIT_KEYS:
                 tr.set_path(out, path, sync_unit(path, g))
         for path, g in leaves:
-            if tr.leaf_key(path) not in nt.UNIT_KEYS:
+            key = tr.leaf_key(path)
+            if key not in nt.UNIT_KEYS:
+                if key == "router":
+                    g = _sum_router_(g, mesh)
                 tr.set_path(out, path,
                             rs.uniform_sync_gradient_rank(g, mesh))
         return out
 
     sync_grads.collectives = sync_collectives(cfg, staged, mode,
                                               bucketed=False)
-    sync_grads.replicated_collectives = len(top) + 2 * len(own)
+    sync_grads.replicated_collectives = len(top) + \
+        (4 if cfg.is_moe else 2) * len(own)
     sync_grads.bucketed = False
     return sync_grads
 
 
-_REP_KEYS = ("ln1", "ln2")
 _TOP_KEYS = ("final_norm", "head", "embed")
+
+
+def _sum_router_(g: torch.Tensor, mesh) -> torch.Tensor:
+    """In-place sum of one rank's router gradient over the model group:
+    each rank's holds the gates of its own experts only."""
+    return C.psum_(g.contiguous(), mesh.model)
 
 
 def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
@@ -329,7 +346,8 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
     ``(buf, ΣE)`` flat (one `bucket_pack` launch), runs the pre-sync
     `reshard_rank` when the chunk's stage plan is degraded under NTP and
     starts the sum over ``data``; then the same for its rep bucket
-    (``ln1``/``ln2`` as rows-1 flats, summed only). ``complete(state)``
+    (``ln1``/``ln2`` and an MoE layer's ``router`` as rows-1 flats, summed
+    only; each router summed over ``model`` first). ``complete(state)``
     waits on each sum, runs the post-sync reshard when degraded, unpacks
     (one `bucket_unpack` launch a bucket) and returns ``[((layer, key),
     grad), ...]``. Every rank issues the same collectives in the same
@@ -365,9 +383,11 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
                 flat = rs.reshard_rank(flat, stage_plans[b.stage][b.kind].pre,
                                        mesh)
             units.append((b, C.psum_async_(flat, mesh.data), widths, shapes))
-        rep_keys = [(l, k) for l in range(lo, hi) for k in _REP_KEYS]
-        flat, widths, shapes = pack([layers[l].pop(k) for l, k in rep_keys],
-                                    1)
+        rep_keys = [(l, k) for l in range(lo, hi) for k in nt.REP_KEYS
+                    if k in layers[l]]
+        flat, widths, shapes = pack(
+            [_sum_router_(layers[l].pop(k), mesh) if k == "router"
+             else layers[l].pop(k) for l, k in rep_keys], 1)
         return units, (rep_keys, C.psum_async_(flat, mesh.data), widths,
                        shapes)
 
@@ -385,6 +405,12 @@ def _rank_chunk_syncers(cfg, plan, mode, mesh, chunks):
         return out
 
     return issue, complete
+
+
+def _router_sums(cfg, chunks) -> int:
+    """The routers' sums over ``model`` of one rank's bucketed sync (one a
+    MoE layer of ``chunks``)."""
+    return sum(hi - lo for lo, hi in chunks) if cfg.is_moe else 0
 
 
 def _rank_chunks(cfg, plan, mesh):
@@ -438,7 +464,8 @@ def _make_rank_bucketed_sync(cfg, plan, mode, mesh):
 
     sync_grads.collectives = sync_collectives(cfg, staged, mode, bucketed=True,
                                               chunks=every)
-    sync_grads.replicated_collectives = len(chunks) + len(top)
+    sync_grads.replicated_collectives = len(chunks) + len(top) + \
+        _router_sums(cfg, chunks)
     sync_grads.bucketed = True
     return sync_grads
 
@@ -529,6 +556,7 @@ def make_overlapped_train_step(
         mask = sample_mask(tokens.shape[1], dev)
         inp, tgt = tokens[..., :-1], tokens[..., 1:]
         leaves = nt._grad_leaves(params)
+        uids = nt.moe_slots(cfg, staged, dev)
 
         # ---- forward: embed | chunk_0 … chunk_{C-1} | tail, each chunk on
         # a detached input so its backward can run on its own
@@ -539,7 +567,8 @@ def make_overlapped_train_step(
             xin = x.detach().requires_grad_(True)
             xx = xin
             for l in range(lo, hi):
-                xx = nt._layer(leaves["layers"][l], xx, cfg, n1)
+                xx = nt._layer(leaves["layers"][l], xx, cfg, n1,
+                               None if uids is None else uids[l])
             chunk_io.append((xin, xx))
             x = xx
         x_tail = x.detach().requires_grad_(True)
@@ -660,6 +689,7 @@ def make_overlapped_rank_train_step(
         tokens, mask = nt._rank_tokens(batch, mesh, masks, dev)
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
         leaves = nt._grad_leaves(params)
+        uids = nt.rank_moe_slots(cfg, plan, mesh, dev)
 
         # ---- forward: embed | chunk_0 … chunk_{C-1} | tail
         x0 = leaves["embed"][inp]
@@ -669,7 +699,8 @@ def make_overlapped_rank_train_step(
             xin = x.detach().requires_grad_(True)
             xx = xin
             for l in range(lo, hi):
-                xx = nt._rank_layer(leaves["layers"][l], xx, cfg, mesh.model)
+                xx = nt._rank_layer(leaves["layers"][l], xx, cfg, mesh.model,
+                                    None if uids is None else uids[l])
             chunk_io.append((xin, xx))
             x = xx
         x_tail = x.detach().requires_grad_(True)
@@ -735,7 +766,8 @@ def make_overlapped_rank_train_step(
     step.chunks = chunks
     step.collectives = sync_collectives(cfg, plan, mode, bucketed=True,
                                         chunks=chunks)
-    step.replicated_collectives = len(chunks) + len(_TOP_KEYS)
+    step.replicated_collectives = len(chunks) + len(_TOP_KEYS) + \
+        _router_sums(cfg, chunks)
     step.grads_fn = loss_and_grads
     step.sync_fn = make_sync_grads(cfg, plan, mode=mode, bucketed=True,
                                    mesh=mesh)

@@ -16,7 +16,11 @@ last stage (the reference replicates them, but only stage 0 reads ``embed``
 and only the last stage reads ``head``, so the numbers are the same). With
 no stacked tree there is nothing to pad, so the reference's
 `stack_staged_params` (pad slots to the widest stage's buffer, pad layers to
-the deepest stage) has no counterpart.
+the deepest stage) has no counterpart; nor has its MoE slot table padded
+to the widest stage with -1: a process takes its own (replica, rank) row
+of its stage's ``comp_slots`` (`ntp_train.rank_moe_slots`), which is that
+table's row without the padding. The MoE ``router`` is a stage-local
+replicated leaf, as ``ln1``/``ln2``.
 
 The step runs the reference's ticks: stage 0 embeds microbatch ``t``, every
 other stage receives its input from the previous stage (`collectives.
@@ -169,6 +173,7 @@ def make_submesh_train_step(
         mb, seq = tokens.shape[0] // m, tokens.shape[1] - 1
         leaves = nt._grad_leaves(params)
         flat = tr.leaves(leaves)
+        uids = nt.rank_moe_slots(cfg, staged, mesh, dev)
         like = torch.empty((mb, seq, cfg.d_model), device=dev)
         ins, outs = [None] * m, [None] * m
         total = count = None
@@ -182,7 +187,8 @@ def make_submesh_train_step(
             else:
                 x = ins[j] = link.recv_prev(like).requires_grad_(True)
             for li in own:
-                x = nt._rank_layer(leaves["layers"][li], x, cfg, mesh.model)
+                x = nt._rank_layer(leaves["layers"][li], x, cfg, mesh.model,
+                                   None if uids is None else uids[li])
             if last:
                 tot, cnt = nt._rank_tail(leaves["final_norm"], leaves["head"],
                                          x, tokens[rows, 1:], mask[rows])

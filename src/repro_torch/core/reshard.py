@@ -34,26 +34,42 @@ from repro_torch.reshard.engine import device_tables, reshard_ranks, \
     zero_pad_slot
 
 
-def reshard(x: torch.Tensor, tables: StackedTables) -> torch.Tensor:
+def reshard(x: torch.Tensor, tables: StackedTables,
+            out=None) -> torch.Tensor:
     """Convert every replica's unit buffers ``x`` (D, n1, buf, ...) between
-    layouts: replica d reshards under its own tables ``tables.replica(d)``."""
-    return torch.stack([reshard_ranks(x[d], tables.replica(d))
-                        for d in range(x.shape[0])])
+    layouts: replica d reshards under its own tables ``tables.replica(d)``,
+    straight into its slice of the result (``out`` when given; it must not
+    overlap ``x``)."""
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    for d in range(x.shape[0]):
+        reshard_ranks(x[d], tables.replica(d), out=out[d])
+    return out
 
 
-def ntp_sync_gradient(g: torch.Tensor, wp: WeightPlan) -> torch.Tensor:
+def ntp_sync_gradient(g: torch.Tensor, wp: WeightPlan,
+                      out=None) -> torch.Tensor:
     """Full NTP gradient synchronization of one unit-buffered gradient stack
     (D, n1, buf, ...): pre-sync reshard → all-reduce over DP → post-sync
-    reshard."""
-    g_sync = reshard(g, wp.pre)
-    g_sync = g_sync.sum(dim=0, keepdim=True).expand_as(g_sync)
-    return reshard(g_sync, wp.post)
+    reshard. The replicas' pre-sync layouts are summed as each is made, and
+    the post-sync reshard writes into ``out`` when given — ``g`` itself may
+    be ``out``: its values are dead once summed."""
+    total = None
+    for d in range(g.shape[0]):
+        part = reshard_ranks(g[d], wp.pre.replica(d))
+        total = part if total is None else total.add_(part)
+        del part
+    return reshard(total.unsqueeze(0).expand_as(g), wp.post, out=out)
 
 
-def uniform_sync_gradient(g: torch.Tensor) -> torch.Tensor:
+def uniform_sync_gradient(g: torch.Tensor, out=None) -> torch.Tensor:
     """Healthy-path baseline: plain DP all-reduce over the leading replica
-    dim (what NTP degenerates to when every replica is healthy)."""
-    return g.sum(dim=0, keepdim=True).expand_as(g).contiguous()
+    dim (what NTP degenerates to when every replica is healthy); into
+    ``out`` (``g`` itself may be ``out``) when given."""
+    total = g.sum(dim=0, keepdim=True)
+    if out is None:
+        return total.expand_as(g).contiguous()
+    return out.copy_(total.expand_as(g))
 
 
 def reshard_rank(x: torch.Tensor, tables: StackedTables,

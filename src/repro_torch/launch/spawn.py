@@ -11,7 +11,9 @@ kills every other rank (so none waits forever in a collective the failed
 rank will never join) and raises `RankError` with the traceback and the
 exit code; a rank that dies without a word (a signal) is reported by its
 exit code. At ``deadline_s`` the parent kills every rank and raises
-`TimeoutError`.
+`TimeoutError`. On Linux a rank is killed when the parent dies (even by
+SIGKILL), so a parent stopped from outside leaves no rank running; call
+`spawn` from the thread that outlives the ranks (the main thread).
 
 Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment) the
 same call joins the job from the environment and runs ``fn`` in this
@@ -19,9 +21,12 @@ process: the result list then holds this rank's result only.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import pickle
 import queue
+import signal
+import sys
 import tempfile
 import time
 import traceback
@@ -59,7 +64,19 @@ def _init(backend: str, device: str, rank: int, world: int, init: str,
                             timeout=timedelta(seconds=deadline_s))
 
 
-def _child(call, rank, world, backend, device, init, deadline_s, out):
+def _die_with(parent: int) -> None:
+    """Have the kernel kill this process when its parent dies (Linux
+    ``PR_SET_PDEATHSIG``); exit now if ``parent`` is gone already."""
+    if sys.platform != "linux":
+        return
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # 1: PDEATHSIG
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def _child(parent, call, rank, world, backend, device, init, deadline_s,
+           out):
+    _die_with(parent)
     # the ranks share the host's cores: each takes its share of the threads
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     try:
@@ -101,7 +118,8 @@ def spawn(fn: Callable, world: int, *, backend: str, device, deadline_s:
         with open(call, "wb") as f:
             pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(target=_child, args=(
-            call, r, world, backend, str(device), init, deadline_s, out))
+            os.getpid(), call, r, world, backend, str(device), init,
+            deadline_s, out))
             for r in range(world)]
         for p in procs:
             p.start()

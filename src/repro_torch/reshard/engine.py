@@ -45,8 +45,11 @@ def gather_send_buckets(xp, send_idx):
 def device_tables(tables: sm.ReshardTables, device) -> Dict:
     """The index tensors of ``tables`` on ``device``: send (n, n, s_max)
     int32, stay (n, buf) int64, and per rank the flat receive positions
-    that land (``recv_src``) with their destination slots (``recv_dst``).
-    Built at the first call and kept on the (immutable) tables object."""
+    that land (``recv_src``) with their destination slots (``recv_dst``)
+    and the same rows' flat positions in the stacked (n, n, s_max) send
+    buffer (``recv_send``: receive position j·s_max + t of rank r is send
+    row (j·n + r)·s_max + t). Built at the first call and kept on the
+    (immutable) tables object."""
     cache = tables.__dict__.setdefault("_on_device", {})
     key = str(torch.device(device))
     if key not in cache:
@@ -59,28 +62,38 @@ def device_tables(tables: sm.ReshardTables, device) -> Dict:
             "recv_src": [torch.as_tensor(p, device=device) for p in land],
             "recv_dst": [torch.as_tensor(recv[r][p], device=device).long()
                          for r, p in enumerate(land)],
+            "recv_send": [torch.as_tensor(
+                (p // tables.s_max * n + r) * tables.s_max + p % tables.s_max,
+                device=device) for r, p in enumerate(land)],
         }
     return cache[key]
 
 
-def reshard_ranks(x, tables: sm.ReshardTables):
+def reshard_ranks(x, tables: sm.ReshardTables, out=None):
     """One layout change on a rank-buffer stack ``x`` (n, buf, *rest):
     gather send buckets → tiled all-to-all (host-unrolled transpose:
     recv_r[j] = send_j[r]) → stays + scatter. Pad slots (== buf) gather
-    zeros and scatter-drop, so output pad slots are exact zeros."""
+    zeros and scatter-drop, so output pad slots are exact zeros. The
+    result is written into ``out`` (a tensor of ``x``'s shape) when given:
+    the stays land there directly, with no per-rank copy."""
     n, buf = x.shape[:2]
     if buf != tables.buf:
         raise ValueError(f"buffer of {buf} slots, tables expect {tables.buf}")
     t = device_tables(tables, x.device)
     xp = zero_pad_slot(x, axis=1)
     send = gather_send_buckets(xp, t["send"])
-    recv = send.transpose(0, 1)                  # recv_r[j] = send_j[r]
+    # recv_r[j] = send_j[r]: each landing row is read from the send buffer
+    # where it lies (no transposed copy of the whole buffer)
+    flat_send = send.reshape(n * n * tables.s_max, *x.shape[2:])
 
-    out = torch.stack([xp[r][t["stay"][r]] for r in range(n)])
-    flat_recv = recv.reshape(n, n * tables.s_max, *x.shape[2:])
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
     for r in range(n):
-        if len(t["recv_src"][r]):               # pad (== buf) drops
-            out[r][t["recv_dst"][r]] = flat_recv[r][t["recv_src"][r]]
+        torch.index_select(xp[r], 0, t["stay"][r], out=out[r])
+    del xp
+    for r in range(n):
+        if len(t["recv_send"][r]):              # pad (== buf) drops
+            out[r][t["recv_dst"][r]] = flat_send[t["recv_send"][r]]
     return out
 
 

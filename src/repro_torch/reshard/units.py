@@ -4,15 +4,16 @@ A `UnitSpec` says how one leaf of a state tree splits into Algorithm-1
 partition units: ``k`` units along leaf axis ``axis``. Training weights are
 already unit-buffered when they reach the engine, so their specs carry only
 ``kind``/``k``: the GQA kv-group (``kv_group``) of the attention weights and
-the 128-row block (``rows128``) of the dense MLP (`ntp_unit_specs`).
+the 128-row block (``rows128``) of the dense MLP, or the whole expert
+(``expert``) of an MoE FFN (`ntp_unit_specs`).
 Serving state trees are dense, so their specs also carry the leaf
 geometry: ``unit`` channels per unit along ``axis`` and a replicated
 ``tail`` that never moves. Served attention caches split by GQA KV head
 (``kv_head``): leaves ``k``/``v`` of shape (..., T, kvh, hd), head axis -2.
 Mamba-2 state splits by SSD head (``ssm_head``): ``h`` (..., nh, hp, ds)
 on axis -3, and ``conv`` (..., K-1, di + 2·ds) on axis -1 in blocks of hp
-channels, with its B/C columns a replicated tail of 2·ds. The MoE expert
-and rgLRU-block families wait for their slices.
+channels, with its B/C columns a replicated tail of 2·ds. The rgLRU-block family
+waits for its slice.
 """
 from __future__ import annotations
 
@@ -40,10 +41,12 @@ class UnitSpec:
 def ntp_unit_specs(cfg) -> Dict[str, UnitSpec]:
     """Leaf-name → UnitSpec for the NTP prototype's packed param/opt trees
     (``cfg``: `core.ntp_train.NTPModelConfig`, duck-typed to avoid an import
-    cycle; it has no MoE, so the MLP unit is the row block). Leaves not
-    named here are replicated (norms, embed, head)."""
+    cycle): the MLP unit is the whole expert of an MoE config, else the row
+    block. Leaves not named here are replicated (norms, embed, head,
+    router)."""
+    mlp_kind = "expert" if cfg.is_moe else "rows128"
     attn = UnitSpec("kv_group", cfg.n_kv_groups)
-    mlp = UnitSpec("rows128", cfg.k_ff)
+    mlp = UnitSpec(mlp_kind, cfg.k_ff)
     return {"wq": attn, "wk": attn, "wv": attn, "wo": attn, "A": mlp, "B": mlp}
 
 

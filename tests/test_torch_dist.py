@@ -8,13 +8,18 @@ within 1e-5, every ledger equal), the JAX package's dense reference
 (`repro.core.ntp_train.make_reference_loss` plus SGD, as
 `tests/dist/ntp_equivalence.py` trains it: losses and canonical params
 within 1e-4) and `expected_transfer`; the Megatron pair against one-process
-autograd; a failing rank and a hung run brought down by `spawn`; the
+autograd; a failing rank and a hung run brought down by `spawn`, and
+its ranks killed with a parent killed from outside; the
 launcher, spawned and under torchrun. Slow tier: the 2×4 chain of `tests/dist/session_transition.py`
 with AdamW and `ntp_adamw_equivalence.py`'s check.
 
 The ranks run in spawned processes that import this module, so JAX is
 imported inside the tests, never at the top: the ranks do not load it.
 Every spawned run has its own deadline."""
+import os
+import signal
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -302,6 +307,53 @@ def test_spawn_brings_the_run_down(hang):
         assert e.value.rank == 1 and e.value.exitcode == 1
         assert "Traceback" in e.value.detail
     assert time.perf_counter() - t0 < 30
+
+
+def _rank_marks_and_sleeps(directory: str):
+    with open(os.path.join(directory, f"rank{dist.get_rank()}"), "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(3600)
+
+
+def test_spawn_ranks_die_with_a_killed_parent(tmp_path):
+    """A parent killed by SIGKILL in the middle of a run (as a time limit
+    stops it) leaves none of its ranks running."""
+    parent = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; sys.path[:0] = sys.argv[1:3]; "
+         "from repro_torch.launch.spawn import spawn; "
+         "from test_torch_dist import _rank_marks_and_sleeps as f; "
+         "spawn(f, 2, backend='gloo', device='cpu', deadline_s=120, "
+         "args=(sys.argv[3],))",
+         os.path.dirname(os.path.abspath(__file__)),
+         os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"),
+         str(tmp_path)])
+    try:
+        marks = [tmp_path / f"rank{r}" for r in range(2)]
+        t0 = time.monotonic()
+        while not all(m.exists() and m.read_text() for m in marks):
+            assert parent.poll() is None, "the parent ended on its own"
+            assert time.monotonic() - t0 < DEADLINE, "the ranks never ran"
+            time.sleep(0.1)
+        pids = [int(m.read_text()) for m in marks]
+    finally:
+        parent.kill()
+        parent.wait()
+    t0 = time.monotonic()
+    while live := [p for p in pids if _state(p) != "Z"]:
+        if time.monotonic() - t0 > 10:
+            for p in live:
+                os.kill(p, signal.SIGKILL)
+            pytest.fail(f"ranks {live} outlived the parent")
+        time.sleep(0.1)
+
+
+def _state(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0]
+    except FileNotFoundError:
+        return "Z"
 
 
 def test_backend_is_explicit():
