@@ -132,12 +132,12 @@ Phases (any failure exits non-zero):
    `--nproc 8 --pp 2 --mesh 2x2 --microbatches 2 --fail-stage 1 --seq-len
    64 --batch 2` (the README's staged mesh of eight processes);
 10. ranks as processes: the training cell's model at qwen2-7b widths,
-   its depth cut from phases 6-8's 4 layers to 2 (gloo's host staging makes
+   its depth cut from phases 6-8's 4 layers to 1 (gloo's host staging makes
    a process step 20-40 times the emulated one, and the script has a time
    limit), on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
-   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 6 steps,
-   `FailureEvent(replica=1)` before step 2 (TP (1, 2)) and its repair
-   before step 4. The emulated (2, 2) session runs first on the same seed,
+   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 3 steps,
+   `FailureEvent(replica=1)` before step 1 (TP (1, 2)) and its repair
+   before step 2. The emulated (2, 2) session runs first on the same seed,
    chain and batches, its canonical params written under `build/` after
    each transition and at the end; the card is freed and the 4 ranks are
    spawned (`PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`). Each rank
@@ -196,8 +196,8 @@ Phases (any failure exits non-zero):
    (A) the prototype at llama4-scout's widths (d_model 5120, 8 kv-groups
    of 5 query heads, head_dim 128, 16 experts of d_ff 8192, top-1, vocab
    202048; depth cut to 1 layer), 2 emulated replicas x TP 4, local batch
-   2, sequence 256, SGD, overlap off, phase 6's fail -> repair over 9
-   steps: the dense reference runs first and alone (its losses and final
+   2, sequence 256, SGD, overlap off, a fail before step 2 and its
+   repair before step 4 over 6 steps: the dense reference runs first and alone (its losses and final
    params kept on the host), then the session, with expandable segments.
    Checks: losses within 1e-4 of the reference, both replicas' canonical
    params within 1e-4, the router unchanged (top-1), each transition's
@@ -209,11 +209,11 @@ Phases (any failure exits non-zero):
    7168, 8 kv-groups of 7, head_dim 128, d_ff 4864, the reference's
    `reduced()` 4 experts top-2, vocab 32000, 2 layers) on (2, 2), local
    batch 4, sequence 256, SGD: the dense reference alone, then the
-   emulated pp=1 sessions (overlap on, off) through a fail before step 2
-   and the repair before step 4 (5 steps), then 4 gloo processes on
+   emulated pp=1 sessions (overlap on, off) through a fail before step 1
+   and the repair before step 2 (3 steps), then 4 gloo processes on
    cuda:0 (overlap on); then the emulated pp=2 session (microbatches 2,
    overlap on) and 8 processes on `make_staged_mesh(2, 2, 2)` through
-   phase 11's stage-1 chain. Checks: losses 1e-4 from the reference and
+   the same chain on stage 1. Checks: losses 1e-4 from the reference and
    1e-5 between the routes, canonical params 1e-4, the routers within
    1e-6 of the emulated session's and moved by more than ten times that,
    ledgers as the plans', bucket_pack / bucket_unpack / reshard_pack
@@ -221,14 +221,36 @@ Phases (any failure exits non-zero):
    `moe_apply` at llama4-scout's FFN widths (gated SiLU, shared expert;
    8.6 GB f32) on 8 x 16 tokens against `moe_apply_dense_ref` at capacity
    8.0 (1e-4), and the slots dropped at 1.25;
-13. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training, trace, pp=2, process, pp=2 process and MoE
-   paths, each counted from zero just before it), then the device line.
+13. MoE serving at full width, f32, weights from seed 0 on the card, one
+   model at a time: llama4-scout (4 layers, one period of its pattern: 3
+   `attn_chunked` (chunk 8192) and 1 global, 16 experts of d_ff 8192 top-1
+   with the shared expert, vocab 202048; 43.5 GB), its first layer first
+   held against the CPU's plain versions (a 32-token prefill and two
+   decode steps, 1e-4); then arctic-480b (1 layer, all 128 experts of
+   d_ff 4864 top-2 with the dense residual FFN; 56.3 GB). Each serves
+   phase 4's sessions and traffic (two sessions sharing one weight copy,
+   TP 4→3→2→3→4 with preemptions) at (a) a drop-free capacity factor E/k
+   (a check, not a default): 24 of 24 streams equal to the uninterrupted
+   run's and no prefill drops a slot; (b) the published 1.25: every
+   request complete with 16 tokens, the dropped prefill slots and equal
+   streams printed (a preempted request re-prefills its generated tokens,
+   which then compete for capacity); every transition's bytes equal to its
+   plan's KV heads times a head's bytes over every cache group; (c) a
+   decode tick at 8 slots (CUDA events, torch.profiler) beside the
+   every-weight and picked-experts floors. rmsnorm, flash_attention (with
+   the chunked and the causal mask, counted by kind) and reshard_pack
+   must launch in (b)'s fail→repair runs. Then flash_attention at both
+   models' prefill shapes and reshard_pack at their KV-head rows against
+   their plain versions and library calls;
+14. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE and
+   MoE serving paths, each counted from zero just before it), then the
+   device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
-alone (``--pp-ranks`` phase 11).
+alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13).
 """
 import contextlib
 import dataclasses
@@ -345,39 +367,10 @@ def flash_rows(torch, F, dev, g, rows):
     for s, kind, window in ((32, "causal", 4096), (4096, "causal", 4096),
                             (4096, "sliding", 1024)):
         for dt in (torch.float32, torch.bfloat16):
-            dn = str(dt).split(".")[1]
-            b_, h, kvh, d = 1, 28, 4, 128
-            q = torch.randn((b_, h, s, d), generator=g, device=dev).to(dt)
-            k = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
-            v = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
-            kw = dict(kind=kind, window=window)
-            got = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = ref.flash_attention_ref(q, k, v, **kw)
-            err = (got.float() - want.float()).abs().max().item()
-            del want, got
-            short = s <= 32
-            plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
-                            10 if short else 1)
-            qp = torch.arange(s, device=dev)
-            mask = qp[None, :] <= qp[:, None]
-            if kind == "sliding":
-                mask &= qp[None, :] > qp[:, None] - window
-            attn_mask = None if kind == "causal" else mask
-            t = in_turns(torch, lambda: flash_attention(q, k, v, **kw),
-                         {"SDPA": lambda: F.scaled_dot_product_attention(
-                             q, k, v, attn_mask=attn_mask,
-                             is_causal=kind == "causal", enable_gqa=True)},
-                         reps=50 if short else 5, calls=20 if short else 3)
-            pairs = int(mask.sum().item())
-            n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
-            bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
-            report_turns("flash_attention",
-                         f"q({b_},{h},{s},{d}) kv{kvh} {kind}", dn, err,
-                         TOL[dn], t, plain, bd)
+            row = flash_row(torch, F, dev, g, dt, (1, 28, 4, s, 128), kind,
+                            window=window)
             if s == 32 and dt == torch.float32:
-                rows["flash_attention"] = table_row(err, t, plain, bd)
-            del q, k, v, mask, attn_mask
+                rows["flash_attention"] = row
             torch.cuda.empty_cache()
 
     s, window, chunk = 100, 40, 48
@@ -402,6 +395,49 @@ def flash_rows(torch, F, dev, g, rows):
                   f"(tol {TOL[dn]:g})", flush=True)
             check(err <= TOL[dn], f"flash_attention d={d} {kind} softcap "
                   f"{cap} {dn}: max_abs_err {err} > {TOL[dn]}")
+
+
+def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
+              label=""):
+    """One flash_attention line of phase 3 at ``shape`` = (B, H, KVH, S,
+    D): against the plain version, timed in turns with
+    `F.scaled_dot_product_attention` (GQA by `enable_gqa`; a sliding or
+    chunked mask passed as a boolean mask). Returns its table row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dn = str(dt).split(".")[1]
+    b_, h, kvh, s, d = shape
+    q = torch.randn((b_, h, s, d), generator=g, device=dev).to(dt)
+    k = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
+    v = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
+    kw = dict(kind=kind, window=window, chunk=chunk)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    del want, got
+    short = s <= 32
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                    10 if short else 1)
+    qp = torch.arange(s, device=dev)
+    mask = qp[None, :] <= qp[:, None]
+    if kind == "sliding":
+        mask &= qp[None, :] > qp[:, None] - window
+    elif kind == "chunked":
+        mask &= qp[None, :] // chunk == qp[:, None] // chunk
+    attn_mask = None if kind == "causal" else mask
+    t = in_turns(torch, lambda: flash_attention(q, k, v, **kw),
+                 {"SDPA": lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=attn_mask,
+                     is_causal=kind == "causal", enable_gqa=True)},
+                 reps=50 if short else 5, calls=20 if short else 3)
+    pairs = int(mask.sum().item())
+    n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
+    bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
+    report_turns("flash_attention", f"{label}q({b_},{h},{s},{d}) kv{kvh} "
+                 f"{kind}", dn, err, TOL[dn], t, plain, bd)
+    return table_row(err, t, plain, bd)
 
 
 def reshard_rows(torch, dev, g, rows):
@@ -444,47 +480,62 @@ def reshard_rows(torch, dev, g, rows):
             xp = torch.randn((n, up1, elems), generator=g, device=dev).to(dt)
             xp[:, -1] = 0
             idx = torch.as_tensor(send, device=dev)
-            row_bytes = elems * xp.element_size()
             calls = [(f"{label} all {n} ranks", xp, idx, reshard_pack_ranks,
                       ref.reshard_pack_ranks_ref, range(n))]
             if one_rank:
                 calls.append((f"{label} rank {rank}", xp[rank], idx[rank],
                               reshard_pack, ref.reshard_pack_ref, [rank]))
             for name, src, ix, kern, plain_fn, ranks in calls:
-                got = kern(src, ix)
-                torch.cuda.synchronize()
-                want = plain_fn(src, ix)
-                check(torch.equal(got, want),
-                      f"reshard_pack {name} {dn} is not bit-exact")
-                del got, want
-                plain = time_ms(lambda: plain_fn(src, ix), 10)
-                lidx = ix.long()
-                if src.ndim == 3:
-                    rk = torch.arange(n, device=dev)[:, None, None]
-                    flat = (lidx + rk * up1).flatten()
-                    index = lambda: src[rk, lidx]            # noqa: E731
-                    select = lambda: torch.index_select(     # noqa: E731
-                        src.view(-1, elems), 0, flat).view(*ix.shape, elems)
-                else:
-                    flat = lidx.flatten()
-                    index = lambda: src[lidx]                # noqa: E731
-                    select = lambda: torch.index_select(     # noqa: E731
-                        src, 0, flat).view(*ix.shape, elems)
-                t = in_turns(torch, lambda: kern(src, ix),
-                             {"src[idx]": index, "index_select": select},
-                             reps=10, calls=4)
-                n_read = sum(len({int(u) for u in send[r].flatten()
-                                  if u != tables.pad}) for r in ranks)
-                bd = bound_ms((n_read + ix.numel()) * row_bytes
-                              + ix.numel() * 4, 0, dn)
-                report_turns("reshard_pack",
-                             f"{name} src{tuple(src.shape)} idx{tuple(ix.shape)}",
-                             dn, 0.0, 0.0, t, plain, bd)
+                row = reshard_call(torch, dev, name, src, ix, kern, plain_fn,
+                                   send, tables.pad, ranks, dn)
                 if label == "kv_head" and src.ndim == 3 and dt == torch.float32:
-                    rows["reshard_pack"] = table_row(0.0, t, plain, bd)
+                    rows["reshard_pack"] = row
                 torch.cuda.empty_cache()
             del xp, idx, calls, src, ix
             torch.cuda.empty_cache()
+
+
+def reshard_call(torch, dev, name, src, ix, kern, plain_fn, send, pad, ranks,
+                 dn):
+    """One reshard_pack line of phase 3: the wrapper ``kern`` on ``src``
+    (stacked (n, U+1, elems) or one rank's (U+1, elems)) and ``ix``,
+    bit-exact against ``plain_fn``, timed in turns against advanced
+    indexing (`src[idx]`, the plain version's own call, with the index
+    already int64) and `index_select` (flat indices precomputed); the
+    bound reads each unit row the ``ranks`` send once (``send``: the
+    tables' send_idx, ``pad`` its pad id) and writes the send buffer.
+    Returns its table row."""
+    got = kern(src, ix)
+    torch.cuda.synchronize()
+    want = plain_fn(src, ix)
+    check(torch.equal(got, want), f"reshard_pack {name} {dn} is not bit-exact")
+    del got, want
+    plain = time_ms(lambda: plain_fn(src, ix), 10)
+    lidx = ix.long()
+    elems = src.shape[-1]
+    if src.ndim == 3:
+        n, up1 = src.shape[:2]
+        rk = torch.arange(n, device=dev)[:, None, None]
+        flat = (lidx + rk * up1).flatten()
+        index = lambda: src[rk, lidx]                    # noqa: E731
+        select = lambda: torch.index_select(             # noqa: E731
+            src.view(-1, elems), 0, flat).view(*ix.shape, elems)
+    else:
+        flat = lidx.flatten()
+        index = lambda: src[lidx]                        # noqa: E731
+        select = lambda: torch.index_select(             # noqa: E731
+            src, 0, flat).view(*ix.shape, elems)
+    t = in_turns(torch, lambda: kern(src, ix),
+                 {"src[idx]": index, "index_select": select},
+                 reps=10, calls=4)
+    n_read = sum(len({int(u) for u in send[r].flatten() if u != pad})
+                 for r in ranks)
+    bd = bound_ms((n_read + ix.numel()) * elems * src.element_size()
+                  + ix.numel() * 4, 0, dn)
+    report_turns("reshard_pack",
+                 f"{name} src{tuple(src.shape)} idx{tuple(ix.shape)}",
+                 dn, 0.0, 0.0, t, plain, bd)
+    return table_row(0.0, t, plain, bd)
 
 
 def host_cost(torch, dev, g):
@@ -971,7 +1022,7 @@ def serve(session, requests, events):
 
     router = Router(session)
     pending = [Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(requests)]
-    torch.cuda.synchronize()
+    _sync(torch, session.device)
     t0 = time.perf_counter()
     tick = 0
     while pending or router.queue or any(e.n_active for e in session.engines):
@@ -990,7 +1041,7 @@ def serve(session, requests, events):
         router.step()
         tick += 1
         check(tick < 2000, "serving did not converge")
-    torch.cuda.synchronize()
+    _sync(torch, session.device)
     wall = time.perf_counter() - t0
     return {r.rid: list(r.generated) for r in router.completed}, tick, wall
 
@@ -1348,7 +1399,7 @@ def mamba_launcher_phase():
 def qwen_widths(n_layers=4):
     """The NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups of
     7 query heads, head_dim 128, d_ff 18944, vocab 152064), depth cut to
-    ``n_layers``: 4 in phases 6-8, 2 in phase 10."""
+    ``n_layers``: 4 in phases 6-8, 1 in phase 10."""
     from repro_torch.core import ntp_train as nt
 
     return nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
@@ -2407,12 +2458,12 @@ def launcher_phase():
 
 RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
 # phase 10's chain on the (2, 2) mesh of processes: replica 1 loses a GPU
-# before step 2 (TP (1, 2): packing puts it in replica 0) and is repaired
-# before step 4
-RANKS_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
+# before step 1 (TP (1, 2): packing puts it in replica 0) and is repaired
+# before step 2, 3 steps (healthy, degraded, repaired)
+RANKS_EVENTS = {1: ("fail", 1), 2: ("repair", 0)}
 RANKS_LR, RANKS_LB = 1e-2, 4
 # the degraded step after which part (b) measures its (per-leaf) sync
-RANKS_SYNC_AFTER = 3
+RANKS_SYNC_AFTER = 1
 
 
 def _ranks_event(i):
@@ -2605,9 +2656,9 @@ def rank_worker(cfg, seq, steps, directory, device):
     return out
 
 
-def ranks_phase(torch, dev, cfg=None, seq=256, steps=6):
+def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
     """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths
-    (``cfg``; 2 layers from `main`) on a (2, 2) mesh of 4 processes, gloo on this card, through
+    (``cfg``; 1 layer from `main`) on a (2, 2) mesh of 4 processes, gloo on this card, through
     fail → repair with SGD, held to the emulated session run first on the
     same seed, chain and batches (parts (a) and (b)); then part (c), the
     lifecycle with overlap on (`lifecycle_part`). Returns the ranks' launch
@@ -3530,14 +3581,14 @@ def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
 # of models/mlp.py at llama4-scout's full FFN widths.
 MOE_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
 MOE_LR = 1e-2
-# (A): replica 1 loses a GPU before step 3 (TP (3, 4): packing puts it in
-# replica 0), repaired before step 6 — phase 6's chain
-MOE_A_EVENTS = {3: ("fail", 1), 6: ("repair", 0)}
-MOE_A_STEPS, MOE_A_LB, MOE_A_SEQ = 9, 2, 256
-# (B): on the (2, 2) mesh, the fail before step 2 and the repair before
-# step 4 (pp=1 routes, 5 steps); at pp=2 phase 11's stage-1 chain
-MOE_B_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
-MOE_B_STEPS, MOE_B_LB, MOE_B_SEQ, MOE_B_MB = 5, 4, 256, 2
+# (A): replica 1 loses a GPU before step 2 (TP (3, 4): packing puts it in
+# replica 0), repaired before step 4, 6 steps
+MOE_A_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
+MOE_A_STEPS, MOE_A_LB, MOE_A_SEQ = 6, 2, 256
+# (B): on the (2, 2) mesh, the fail before step 1 and the repair before
+# step 2, 3 steps (at pp=2 on stage 1)
+MOE_B_EVENTS = {1: ("fail", 1), 2: ("repair", 0)}
+MOE_B_STEPS, MOE_B_LB, MOE_B_SEQ, MOE_B_MB = 3, 4, 256, 2
 # each process's share of the card: 4 processes at pp=1; at pp=2 by stage
 # (a stage-1 process under the degraded plan holds its layer at 4 x 4
 # expert slots, `head`, and params, accumulated and fresh grads: ~10 GB)
@@ -3585,8 +3636,8 @@ def _moe_event(events, i, stage=None):
 
 
 def _moe_pp_chain(i):
-    return {1: _moe_event({1: ("fail", 1)}, 1, stage=1),
-            3: _moe_event({3: ("repair", 0)}, 3, stage=1)}.get(i)
+    """(B)'s chain at pp=2: `MOE_B_EVENTS` on stage 1."""
+    return _moe_event(MOE_B_EVENTS, i, stage=1) if i in MOE_B_EVENTS else None
 
 
 def _ledger_check(cfg, old, new, st):
@@ -3622,7 +3673,7 @@ def _ledger_check(cfg, old, new, st):
 def moe_full_width_part(torch, dev):
     """Phase 12 (A): NTP-MoE at llama4-scout's widths, 1 layer (16 experts,
     top-1), 2 emulated replicas x TP 4, local batch 2, sequence 256, SGD,
-    overlap off, through fail (TP (3, 4)) -> repair, 9 steps. The dense
+    overlap off, through fail (TP (3, 4)) -> repair, 6 steps. The dense
     reference runs first and alone (its losses and final params kept on
     the host), then the session. Checks: every loss within 1e-4 of the
     reference's, both replicas' canonical params within 1e-4 at the end,
@@ -3644,7 +3695,9 @@ def moe_full_width_part(torch, dev):
     lb, seq, steps = MOE_A_LB, MOE_A_SEQ, MOE_A_STEPS
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
     healthy, degraded = FailurePlan(4, (4, 4)), FailurePlan(4, (3, 4))
-    plans = [degraded if 3 <= i < 6 else healthy for i in range(steps)]
+    fail, repair = sorted(MOE_A_EVENTS)
+    plans = [degraded if fail <= i < repair else healthy
+             for i in range(steps)]
 
     def regime(plan):
         return "healthy" if plan.healthy else f"degraded {plan.replica_tp}"
@@ -3830,21 +3883,22 @@ def expert_reshard_row(torch, dev, cfg, plan):
 
 
 def _moe_b_plans(pp, steps):
-    """The plan of each step of (B)'s chain: at pp=1 TP (1, 2) on steps 2-3,
-    at pp=2 stage 1 at (1, 2) on steps 1-2, healthy otherwise."""
+    """The plan of each step of (B)'s chain: TP (1, 2) (at pp=2 on stage
+    1) from the failure to the repair, healthy otherwise."""
     from repro_torch.core.nonuniform import FailurePlan, StagedPlan
 
     healthy, degraded = FailurePlan(2, (2, 2)), FailurePlan(2, (1, 2))
+    fail, repair = sorted(MOE_B_EVENTS)
+    plans = [degraded if fail <= i < repair else healthy for i in range(steps)]
     if pp == 1:
-        return [degraded if 2 <= i < 4 else healthy for i in range(steps)]
-    return [StagedPlan((healthy, degraded if 1 <= i < 3 else healthy))
-            for i in range(steps)]
+        return plans
+    return [StagedPlan((healthy, plan)) for plan in plans]
 
 
 def _moe_emulated(torch, dev, cfg, pp):
     """Phase 12 (B), emulated: at pp=1 sessions with overlap on and off
-    through `MOE_B_EVENTS` (5 steps); at pp=2 (one layer a stage,
-    microbatches 2, overlap on) through the stage-1 chain (4 steps). The
+    through `MOE_B_EVENTS` (3 steps); at pp=2 (one layer a stage,
+    microbatches 2, overlap on) through the same chain on stage 1. The
     dense reference runs first, on the chain's local batches, and keeps its
     losses and final params on the host; then each session runs alone and
     is held to it (losses 1e-4, both replicas' canonical params 1e-4; on
@@ -3859,7 +3913,7 @@ def _moe_emulated(torch, dev, cfg, pp):
     from repro_torch.optim import sgd
     from repro_torch.runtime import NTPSession
 
-    steps = MOE_B_STEPS if pp == 1 else PP_RANKS_STEPS
+    steps = MOE_B_STEPS
     plans = _moe_b_plans(pp, steps)
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, MOE_B_SEQ, 2 * MOE_B_LB,
                                           seed=0))
@@ -3986,7 +4040,7 @@ def moe_rank_worker(cfg, pp, device):
     del canon
     pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, MOE_B_SEQ, 2 * MOE_B_LB,
                                           seed=0))
-    steps = MOE_B_STEPS if pp == 1 else PP_RANKS_STEPS
+    steps = MOE_B_STEPS
     out = {"loss": [], "launches": [], "ms": [], "ledgers": [],
            "local_batches": [], "regime": []}
     mode.reset_launches()
@@ -4171,6 +4225,326 @@ def moe_phase(torch, dev):
     return launches, row
 
 
+# phase 13: MoE serving at full width, on phase 4's kernels, sessions and
+# traffic (replicas 1, n1 4, 8 slots, max_len 96, prefill 32)
+MOE_SERVE_KW = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
+                    policy="ntp_pw")
+# depth a model keeps: llama4-scout one full pattern period (3 chunked + 1
+# global layer), arctic-480b the one layer whose 128 experts fit the card
+MOE_SERVE_LAYERS = {"llama4-scout-17b-a16e": 4, "arctic-480b": 1}
+
+
+def moe_serve_widths(arch):
+    """``arch`` at full width, its depth cut to `MOE_SERVE_LAYERS`."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch),
+                               n_layers=MOE_SERVE_LAYERS[arch])
+
+
+def moe_serve_traffic(cfg):
+    """Phase 4's traffic: 24 requests of 24 tokens (seed 0), request i
+    arriving at tick i, and fail, fail, repair, repair at ticks 10, 14,
+    40, 48 (TP 4 -> 3 -> 2 -> 3 -> 4)."""
+    import numpy as np
+
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(1, cfg.vocab_size, size=24).astype(np.int32)
+                for _ in range(24)]
+    events = {10: FailureEvent(domain=0), 14: FailureEvent(domain=0),
+              40: RecoveryEvent(domain=0), 48: RecoveryEvent(domain=0)}
+    return requests, events
+
+
+def drop_free(cfg):
+    """``cfg`` at ``capacity_factor = E/k``: no expert can get more slots
+    than its capacity, so no MoE call drops (a check, not a default)."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+@contextlib.contextmanager
+def prefill_drops():
+    """Counts, into the yielded list, the (token, pick) slots each
+    multi-token `moe_apply` call (a prefill's MoE FFN) drops, by
+    `mlp.dropped_slots` on its input; decode ticks and one-token steps
+    never drop and are not counted."""
+    from repro_torch.models import mlp
+
+    drops, plain = [], mlp.moe_apply
+
+    def counted(cfg, p, x):
+        if x.shape[0] * x.shape[1] > 1:
+            drops.append(mlp.dropped_slots(cfg, p, x))
+        return plain(cfg, p, x)
+
+    mlp.moe_apply = counted
+    try:
+        yield drops
+    finally:
+        mlp.moe_apply = plain
+
+
+def _kv_ledger_check(cfg, engine, st):
+    """A KV-head transition's bytes: the heads its plan moves times one
+    head's bytes summed over every leaf of the cache (every group, ring
+    or full), as `reshard.state.ShardedState` counts them."""
+    from repro_torch.reshard import planner
+
+    k, n1 = cfg.n_kv_heads, engine.n1
+    plan = planner.transition_plan(planner.sync_key(k, n1, st["tp_from"]),
+                                   planner.sync_key(k, n1, st["tp_to"]), k, k)
+    head = sum(t.numel() // k * t.element_size()
+               for t in engine.cache.values())
+    check(st["bytes_moved"] == plan.n_moved * head,
+          f"TP {st['tp_from']}->{st['tp_to']}: {st['bytes_moved']} B moved, "
+          f"the plan's {plan.n_moved} heads x {head} B")
+    return plan.n_moved
+
+
+def moe_one_layer_reference(torch, dev, cfg, params):
+    """The served model's first layer at full width (llama4-scout: an
+    `attn_chunked` block with the MoE FFN and its shared expert, `embed`,
+    `lm_head`; its tensors shared with the served model) on the card
+    against the same tensors on the CPU (plain kernel versions): a
+    32-token prefill and two decode steps, within 1e-4."""
+    from repro_torch.models.transformer import build_model
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    p1 = dict(params, layers=params["layers"][:1])
+    gpu, cpu = build_model(cfg1, device=dev), build_model(cfg1, device="cpu")
+    cp = _to(p1, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 32),
+                         generator=torch.Generator().manual_seed(8))
+    gl, gc = gpu.prefill(p1, toks.to(dev), gpu.init_cache(1, 40, torch.float32))
+    cl, cc = cpu.prefill(cp, toks, cpu.init_cache(1, 40, torch.float32))
+    errs = [float((gl.cpu() - cl).abs().max())]
+    check(bool(torch.isfinite(gl).all())
+          and gl.shape == (1, 32, cfg.padded_vocab()),
+          "one-layer model: non-finite or misshapen logits")
+    for pos, t in ((32, 5), (33, 9)):
+        nxt = torch.tensor([[t]])
+        gd, gc = gpu.decode_step(p1, gc, nxt.to(dev), pos)
+        cd, cc = cpu.decode_step(cp, cc, nxt, pos)
+        errs.append(float((gd.cpu() - cd).abs().max()))
+    print(f"  one-layer full-width {cfg.arch_id} ({cfg.layer_pattern[0]}, "
+          f"MoE FFN), card vs CPU plain versions: prefill max_abs_err "
+          f"{errs[0]:.3e}, decode {errs[1]:.3e} {errs[2]:.3e} (tol 1e-4)",
+          flush=True)
+    check(max(errs) <= 1e-4, f"one-layer model disagrees: {errs}")
+    del cp, cpu, gpu
+
+
+def _picked_experts(torch, model, params, cache, toks, pos):
+    """Distinct experts the tick's slots pick, per MoE layer (one decode
+    tick on a copy of ``cache`` with `mlp._route` observed)."""
+    from repro_torch.models import mlp
+
+    picked, route = [], mlp._route
+
+    def seen(m, logits):
+        idx, w, probs = route(m, logits)
+        picked.append(int(torch.unique(idx).numel()))
+        return idx, w, probs
+
+    mlp._route = seen
+    try:
+        model.decode_slots(params, {n: t.clone() for n, t in cache.items()},
+                           toks, pos)
+    finally:
+        mlp._route = route
+    return picked
+
+
+def moe_serve_model(torch, dev, cfg, requests, events, reference=None):
+    """Phase 13 for one model: a session drawn on ``dev`` (seed 0), then
+    (a) at drop-free capacity and (b) at the published one, each a
+    fail -> repair session and an uninterrupted one on the same weights.
+    Checks: TP path [3, 2, 3, 4] with preemptions; every request complete
+    with 16 tokens; each transition's bytes as its plan's KV heads; (a)
+    the 24 streams equal the uninterrupted run's and no prefill drops a
+    slot; every kernel of the path launched in (b)'s fail -> repair run.
+    Prints (b)'s dropped prefill slots and equal streams. ``reference``
+    runs on the model first (`moe_one_layer_reference`). Returns
+    (launches and flash launches by kind of (b)'s fail -> repair run, the
+    uninterrupted (b) session, the params count)."""
+    from repro_torch.kernels import mode
+    from repro_torch.serve import ServeSession
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    base = ServeSession.create(cfg, seed=0, device=dev, **MOE_SERVE_KW)
+    params = base.params
+    _sync(torch, dev)
+    n_par = sum(t.numel() for t in _leaves(params))
+    mem = (f"; device memory allocated "
+           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB"
+           if dev.type == "cuda" else "")
+    m = cfg.moe
+    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layer(s) "
+          f"{cfg.layer_pattern[:cfg.n_layers]}, {m.n_experts} experts "
+          f"top-{m.top_k}: {n_par / 1e9:.3f} B params f32 "
+          f"({n_par * 4 / 1e9:.2f} GB) drawn in {time.perf_counter() - t0:.1f}"
+          f" s{mem}", flush=True)
+    if reference is not None:
+        reference(torch, dev, cfg, params)
+    del base
+    out = {}
+    for label, c in (("drop-free", drop_free(cfg)), ("published", cfg)):
+        session = ServeSession.create(c, params=params, device=dev,
+                                      **MOE_SERVE_KW)
+        clean = ServeSession.create(c, params=params, device=dev,
+                                    **MOE_SERVE_KW)
+        print(f"  ({'a' if label == 'drop-free' else 'b'}) capacity factor "
+              f"{c.moe.capacity_factor:g} ({label}):", flush=True)
+        with prefill_drops() as drops:
+            mode.reset_launches()
+            got, ticks, wall = serve(session, requests, events)
+            launches = (mode.launches(), mode.variant_launches())
+            n_drop, n_pre = sum(drops), len(drops)
+            want, cticks, cwall = serve(clean, requests, {})
+            c_drop = sum(drops) - n_drop
+        e = session.engines[0]
+        tps = [t["tp_to"] for t in session.transitions]
+        moved = [_kv_ledger_check(c, e, t["reshard"])
+                 for t in session.transitions]
+        equal = sum(got.get(r) == want[r] for r in want)
+        print(f"    fail->repair: {len(got)} requests, {e.stats['tokens']} "
+              f"tokens in {ticks} ticks, {wall:.2f} s "
+              f"({e.stats['tokens'] / wall:.1f} tokens/s); TP path {tps}, "
+              f"preemptions {e.stats['preemptions']}, KV heads moved "
+              f"{moved}; uninterrupted: {cticks} ticks, {cwall:.2f} s; "
+              f"streams equal {equal} of {len(want)}; dropped prefill slots "
+              f"{n_drop} over {n_pre} MoE prefill calls (uninterrupted "
+              f"{c_drop})", flush=True)
+        check(tps == [3, 2, 3, 4], f"TP path {tps} != [3, 2, 3, 4]")
+        check(e.stats["preemptions"] > 0, "no preemption happened")
+        for run in (got, want):
+            check(len(run) == len(requests)
+                  and all(len(t) == 16 for t in run.values()),
+                  "not every request completed with 16 tokens")
+        if label == "drop-free":
+            check(equal == len(want), f"drop-free streams diverged: "
+                  f"{[r for r in want if got.get(r) != want[r]]}")
+            check(n_drop == 0 and c_drop == 0,
+                  f"a prefill dropped slots at drop-free capacity")
+        out[label] = launches
+        del session, e
+    if dev.type == "cuda":
+        print(f"  {cfg.arch_id}: peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return out["published"], clean, n_par
+
+
+def moe_serve_tick(torch, dev, cfg, clean, n_par):
+    """Phase 13 (c): one decode tick of the served model at 8 slots (random
+    tokens, positions 40-47), CUDA events and torch.profiler, beside two
+    floors at 3.35 TB/s: every weight read, and only the experts the tick's
+    slots pick (the rest of the weights read once)."""
+    eng = clean.engines[0]
+    g = torch.Generator(device=dev).manual_seed(13)
+    toks = torch.randint(1, cfg.vocab_size, (8,), generator=g, device=dev)
+    pos = torch.arange(8, device=dev) + 40
+    picked = _picked_experts(torch, eng.model, eng.params, eng.cache, toks,
+                             pos)
+    m = cfg.moe
+    expert = (3 if cfg.ffn_gated else 2) * cfg.d_model * cfg.d_ff
+    n_moe = len(picked)
+    floor_all = n_par * 4 / MEM_BW * 1e3
+    floor_picked = ((n_par - n_moe * m.n_experts * expert
+                     + sum(picked) * expert) * 4 / MEM_BW * 1e3)
+    tick_ms = time_ms(lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                     toks, pos), 10)
+    print(f"  (c) decode tick, 8 slots: {tick_ms:.3f} ms; floors: every "
+          f"weight read {floor_all:.3f} ms ({n_par * 4 / 1e9:.2f} GB), only "
+          f"the picked experts {floor_picked:.3f} ms (distinct experts a "
+          f"layer {picked} of {m.n_experts})", flush=True)
+    profile_steps(torch, lambda: eng.model.decode_slots(eng.params, eng.cache,
+                                                        toks, pos),
+                  "decode tick")
+    return tick_ms
+
+
+def moe_serve_rows(torch, F, dev):
+    """This path's kernel shapes, in phase 3's form: flash_attention at
+    llama4-scout's prefill (q (1, 40, 32, 128), kv 8; chunked 8192 and
+    causal) and arctic-480b's (q (1, 56, 32, 128), kv 8, causal), f32,
+    timed in turns with SDPA (the chunked mask passed as a boolean mask);
+    reshard_pack at the TP 4->3 KV-head transition of each model's slot
+    cache (8 heads over n1 = 4; one row = every leaf's head: 2 x 4 layers
+    x 8 slots x 96 x 128 for llama4-scout, 2 x 1 x 8 x 96 x 128 for
+    arctic-480b), against `src[idx]` and `index_select`."""
+    from repro_torch.core import shard_mapping as sm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.reshard_pack import reshard_pack_ranks
+
+    g = torch.Generator(device=dev).manual_seed(1313)
+    rows = {}
+    for arch, h, kind in (("llama4-scout", 40, "chunked"),
+                          ("llama4-scout", 40, "causal"),
+                          ("arctic-480b", 56, "causal")):
+        rows[f"flash_attention {arch} {kind}"] = flash_row(
+            torch, F, dev, g, torch.float32, (1, h, 8, 32, 128), kind,
+            label=f"{arch} ")
+    tables = sm.reshard_tables(sm.sync_layout(8, 4, 4),
+                               sm.sync_layout(8, 4, 3), 4)
+    for arch, layers in (("llama4-scout", 4), ("arctic-480b", 1)):
+        xp = torch.randn((tables.n, tables.buf + 1, 2 * layers * 8 * 96 * 128),
+                         generator=g, device=dev)
+        xp[:, -1] = 0
+        idx = torch.as_tensor(tables.send_idx, device=dev)
+        rows[f"reshard_pack {arch}"] = reshard_call(
+            torch, dev, f"{arch} kv_head all 4 ranks", xp, idx,
+            reshard_pack_ranks, ref.reshard_pack_ranks_ref, tables.send_idx,
+            tables.pad, range(tables.n), "float32")
+        del xp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_serve_phase(torch, F, dev):
+    """Phase 13: MoE serving at full width on the card. llama4-scout (4
+    layers: 3 `attn_chunked` + 1 global, 16 experts top-1 and the shared
+    expert) with the one-layer reference first, then arctic-480b (1 layer,
+    all 128 experts top-2 and the dense residual FFN), each through
+    `moe_serve_model` and `moe_serve_tick`, one model on the card at a
+    time; then this path's kernel rows. Checks every kernel of the path
+    launched in the published fail -> repair runs, flash_attention with
+    the chunked mask among them. Returns (launches summed over both
+    models' published fail -> repair runs, the rows)."""
+    t0 = time.perf_counter()
+    launches, variants = dict.fromkeys(SERVE_KERNELS, 0), {}
+    for arch in MOE_SERVE_LAYERS:
+        cfg = moe_serve_widths(arch)
+        ref = moe_one_layer_reference if arch.startswith("llama4") else None
+        (counts, kinds), clean, n_par = moe_serve_model(
+            torch, dev, cfg, *moe_serve_traffic(cfg), reference=ref)
+        moe_serve_tick(torch, dev, cfg, clean, n_par)
+        print(f"  {arch} kernels {json.dumps(counts)} flash by mask "
+              f"{json.dumps(kinds)}; {time.perf_counter() - t0:.1f} s so far",
+              flush=True)
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
+        for k, n in kinds.items():
+            variants[k] = variants.get(k, 0) + n
+        del clean
+        torch.cuda.empty_cache()
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"a kernel of the MoE serving path never launched: {launches}")
+    check(variants.get("flash_attention:chunked", 0) > 0
+          and variants.get("flash_attention:causal", 0) > 0,
+          f"flash_attention did not run both masks: {variants}")
+    rows = moe_serve_rows(torch, F, dev)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}, flash by mask {json.dumps(variants)}",
+          flush=True)
+    return launches, rows
+
+
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
@@ -4326,6 +4700,16 @@ def moe_only(torch):
     return 0
 
 
+def moe_serve_only(torch, F):
+    """``--moe-serve``: build the kernels and run phase 13 alone, then exit
+    (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    moe_serve_phase(torch, F, torch.device("cuda"))
+    return 0
+
+
 def bucket_host_cost_against(torch, checkout):
     """`bucket_host_cost` of this checkout's bucket wrappers beside those
     of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
@@ -4363,6 +4747,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--moe"]:
         return moe_only(torch)
     import torch.nn.functional as F
+
+    if sys.argv[1:2] == ["--moe-serve"]:
+        return moe_serve_only(torch, F)
 
     from repro_torch.kernels import build
 
@@ -4431,10 +4818,10 @@ def main() -> int:
     launcher_phase()
     torch.cuda.empty_cache()
 
-    phase("phase 10: ranks as processes: NTP training at qwen2-7b widths (2 "
-          "layers) on a (2, 2) mesh of 4 processes, gloo on this card, through "
+    phase("phase 10: ranks as processes: NTP training at qwen2-7b widths (1 "
+          "layer) on a (2, 2) mesh of 4 processes, gloo on this card, through "
           "fail->repair, then the lifecycle with overlap on")
-    ranks_launches, rank_rows = ranks_phase(torch, dev, qwen_widths(2))
+    ranks_launches, rank_rows = ranks_phase(torch, dev, qwen_widths(1))
 
     phase("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
           "widths, one layer a stage, on a pp=2 x (2, 2) staged mesh of 8 "
@@ -4447,13 +4834,19 @@ def main() -> int:
           "MoE FFN at llama4-scout's widths")
     moe_launches, expert_row = moe_phase(torch, dev)
 
-    phase("phase 13: kernels table")
+    phase("phase 13: MoE serving at full width: llama4-scout (4 layers, "
+          "chunked + global attention) and arctic-480b (1 layer, 128 "
+          "experts) through fail->repair")
+    moe_serve_launches, moe_serve_table = moe_serve_phase(torch, F, dev)
+
+    phase("phase 14: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
              (ranks_launches, RANKS_KERNELS),
              (pp_ranks_launches, PP_RANKS_KERNELS),
-             (moe_launches, MOE_KERNELS))
+             (moe_launches, MOE_KERNELS),
+             (moe_serve_launches, SERVE_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -4470,6 +4863,9 @@ def main() -> int:
     print(f"  reshard_pack at the expert unit (NTP-MoE, emulated): launches "
           f"{moe_launches['reshard_pack']} on the MoE paths, " + ", ".join(
               f"{k} {v}" for k, v in expert_row.items()), flush=True)
+    for name, row in moe_serve_table.items():
+        print(f"  {name} (MoE serving): " + ", ".join(
+            f"{k} {v}" for k, v in row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

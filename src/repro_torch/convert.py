@@ -13,7 +13,11 @@ The JAX tree stacks each layer-pattern entry's blocks on a leading cycle
 axis (``layers`` is a tuple with one stacked block dict per pattern entry,
 ``tail`` holds the leftover blocks); the port keeps one block dict per
 layer, in the reference's execution order. Weights keep the ``(in, out)``
-layout, so the two packages compute the same products.
+layout, so the two packages compute the same products. An MoE block's FFN
+(the reference's `moe_init`) comes across leaf for leaf: ``router`` (d, E)
+in f32, the expert-stacked ``w_up`` / ``w_gate`` (E, d, ff) and ``w_down``
+(E, ff, d), and the ``shared`` expert or ``dense`` residual MLP; every
+leaf keeps its dtype.
 """
 from __future__ import annotations
 

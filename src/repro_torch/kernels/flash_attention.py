@@ -155,5 +155,5 @@ def flash_attention(
             out.data_ptr(), b, h, kvh, s, d, d ** -0.5, KINDS[kind], window,
             chunk, 0.0 if softcap is None else float(softcap),
             int(softcap is not None), _DTYPES[q.dtype])
-    mode.count_launch("flash_attention")
+    mode.count_launch("flash_attention", kind)
     return out

@@ -8,7 +8,9 @@ override and no fallback.
 
 Each wrapper adds one to its kernel's counter where it launches the kernel
 and nowhere else, so a run can show that a path really went through the
-kernels (`reset_launches` before it, `launches` after it). With telemetry
+kernels (`reset_launches` before it, `launches` after it); a wrapper with
+variants (`flash_attention`'s mask kinds) also counts the launch under its
+variant (`variant_launches`). With telemetry
 active, each launch and each call that takes the plain version also counts
 into the reference's ``kernels.dispatch`` series (labels ``kernel`` and
 ``mode``: ``"cuda"`` for a launch, ``"cpu"`` for the plain version); with
@@ -26,10 +28,14 @@ KERNELS = ("rmsnorm", "flash_attention", "reshard_pack", "bucket_pack",
            "bucket_unpack", "ssd_scan")
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_variants: Dict[str, int] = {}
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, variant: Optional[str] = None) -> None:
     _launches[kernel] += 1
+    if variant is not None:
+        key = f"{kernel}:{variant}"
+        _variants[key] = _variants.get(key, 0) + 1
     if telemetry._active.enabled:
         telemetry._active.counter("kernels.dispatch", kernel=kernel,
                                   mode="cuda")
@@ -40,9 +46,15 @@ def launches() -> Dict[str, int]:
     return dict(_launches)
 
 
+def variant_launches() -> Dict[str, int]:
+    """Launches per ``kernel:variant`` since the last `reset_launches`."""
+    return dict(_variants)
+
+
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+    _variants.clear()
 
 
 def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:

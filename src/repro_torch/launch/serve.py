@@ -11,6 +11,13 @@ Examples:
 
   # smoke scale on the CPU, with the plain versions of the kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8
+
+  # MoE at smoke scale: arctic-480b (dense residual FFN), llama4-scout
+  # (chunked attention with ring caches, the shared expert)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
+      --device cpu --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --device cpu --requests 8
 

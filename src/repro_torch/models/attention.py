@@ -8,6 +8,14 @@ kernel (`kernels.flash_attention`), which computes exactly the reference's
 head). In decode every batch row carries its own write position, so one
 call advances a whole pool of serving slots at ragged positions — the
 slot dimension written out where the reference vmaps.
+
+Sliding-window (``attn_sw``) and chunked (``attn_chunked``) layers keep a
+ring cache of ``min(max_len, window)`` / ``min(max_len, chunk_size)`` rows
+(`init_kv_cache`): position ``p`` lives in row ``p % w``; a prefill longer
+than the ring keeps only its tail (it attends its own fresh K/V, so early
+queries still see their whole window), and decode reads row ``i`` as
+absolute position ``last − ((last − i) mod w)``, masking rows not yet
+written. Full attention keeps a full-length cache.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ NEG_INF = -2.0e38  # fp32-safe mask value
 INT32_MAX = 2 ** 31 - 1
 FLASH_KIND = {"attn": "causal", "attn_sw": "sliding",
               "attn_chunked": "chunked", "attn_bidir": "bidir"}
+RING_KINDS = ("attn_sw", "attn_chunked")
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +135,7 @@ def attn_apply(
 
     if not decode:
         if cache is not None:
-            cache["k"][:, cache_pos:cache_pos + s] = k.to(cache["k"].dtype)
-            cache["v"][:, cache_pos:cache_pos + s] = v.to(cache["v"].dtype)
+            _write_prefill(cache, k, v, cache_pos, kind in RING_KINDS)
         # (B,H,S,hd) / (B,KVH,S,hd): GQA resolved inside the kernel
         out = flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -135,13 +143,19 @@ def attn_apply(
             window=cfg.window, chunk=cfg.chunk_size, softcap=cfg.attn_softcap,
         ).transpose(1, 2)
     else:
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, cache_pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, cache_pos] = v[:, 0].to(cache["v"].dtype)
         w = cache["k"].shape[1]
-        slot = torch.arange(w, device=x.device)
-        k_posm = torch.where(slot[None, :] <= cache_pos[:, None], slot[None, :],
-                             INT32_MAX)                      # (B, T)
+        ring = kind in RING_KINDS
+        rows = torch.arange(b, device=x.device)
+        row = cache_pos % w if ring else cache_pos
+        cache["k"][rows, row] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, row] = v[:, 0].to(cache["v"].dtype)
+        slot = torch.arange(w, device=x.device)[None, :]
+        last = cache_pos[:, None]
+        if ring:    # row i holds the latest position ≡ i (mod w), if any
+            k_pos = last - (last - slot) % w
+            k_posm = torch.where(k_pos >= 0, k_pos, INT32_MAX)
+        else:
+            k_posm = torch.where(slot <= last, slot, INT32_MAX)  # (B, T)
         bias = _mask_bias(kind, positions, k_posm, cfg.window, cfg.chunk_size)
         out = _attend_naive(_group(q, kvh), cache["k"], cache["v"],
                             bias[:, None, None], cfg.attn_softcap)
@@ -151,10 +165,37 @@ def attn_apply(
     return out @ p["wo"], cache
 
 
+def _write_prefill(cache: dict, k, v, cache_pos: int, ring: bool) -> None:
+    """Write a prefill's K/V (B, S, kvh, hd) from position ``cache_pos``:
+    rows ``p % w`` of a ring (only the last ``w`` positions when S > w),
+    the slice ``[cache_pos, cache_pos + S)`` of a full-length cache."""
+    w, s = cache["k"].shape[1], k.shape[1]
+    if s > w:
+        k, v, cache_pos, s = k[:, -w:], v[:, -w:], cache_pos + s - w, w
+    if ring:
+        rows = (cache_pos + torch.arange(s, device=k.device)) % w
+    else:
+        rows = slice(cache_pos, cache_pos + s)
+    cache["k"][:, rows] = k.to(cache["k"].dtype)
+    cache["v"][:, rows] = v.to(cache["v"].dtype)
+
+
+def cache_length(cfg: ArchConfig, kind: str, max_len: int) -> int:
+    """Rows of a ``kind`` layer's K/V cache: the window or chunk for the
+    ring kinds, ``max_len`` for full attention."""
+    if kind == "attn_sw":
+        return min(max_len, cfg.window)
+    if kind == "attn_chunked":
+        return min(max_len, cfg.chunk_size)
+    return max_len
+
+
 def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
-                  dtype, device) -> dict:
-    """Full-length K/V cache of ``n_layers`` attention layers, stacked on a
-    leading layer axis: leaves (n_layers, batch, max_len, kvh, hd)."""
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                  dtype, device, kind: str = "attn") -> dict:
+    """K/V cache of ``n_layers`` attention layers of one ``kind``, stacked
+    on a leading layer axis: leaves (n_layers, batch, T, kvh, hd), with T
+    from `cache_length` (a ring for ``attn_sw`` / ``attn_chunked``)."""
+    shape = (n_layers, batch, cache_length(cfg, kind, max_len),
+             cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -79,9 +79,13 @@ def moe_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 def _route(m: MoESpec, logits):
     """(N, E) router logits -> (N, k) expert ids, f32 combine weights
-    (renormalised over the k picks) and the (N, E) f32 probabilities."""
+    (renormalised over the k picks) and the (N, E) f32 probabilities.
+    Equal probabilities (underflowed to 0, say) go to the lower expert id
+    first, as ``lax.top_k`` orders them: a stable descending sort, where
+    ``torch.topk`` leaves ties in no stated order."""
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    w, idx = torch.topk(probs, m.top_k, dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :m.top_k], idx[..., :m.top_k]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return idx, w, probs
 
@@ -156,15 +160,13 @@ def _side_mlps(cfg: ArchConfig, p: dict, x, out):
     return out
 
 
-def moe_apply(cfg: ArchConfig, p: dict, x) -> Tuple[torch.Tensor, dict]:
-    """Returns (out, aux): aux carries the Switch load-balance loss
-    ``E · Σ_e f_e · P_e · coef``. Capacity is per call:
-    ``cap = round(N·k/E·capacity_factor)`` slots an expert."""
+def _moe(cfg: ArchConfig, p: dict, x, cap: int):
+    """The routed FFN of ``x`` (B, S, d) at ``cap`` slots an expert, the
+    side MLPs added. Returns (out, flat_e, probs)."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
-    e, k = m.n_experts, m.top_k
-    cap = _capacity(m, n)
+    e = m.n_experts
     xf = x.reshape(n, d)
 
     logits = xf.to(torch.float32) @ p["router"]
@@ -173,11 +175,36 @@ def moe_apply(cfg: ArchConfig, p: dict, x) -> Tuple[torch.Tensor, dict]:
     buf = _scatter(xf, tok, dest, e * cap).reshape(e, cap, d)
     y = _experts(cfg, p, buf).reshape(e * cap, d)
     out = _combine(y, keep, dest, wts.reshape(-1)[order], tok, n)
-    out = _side_mlps(cfg, p, x, out.reshape(b, s, d))
+    return _side_mlps(cfg, p, x, out.reshape(b, s, d)), flat_e, probs
 
+
+def moe_apply(cfg: ArchConfig, p: dict, x) -> Tuple[torch.Tensor, dict]:
+    """Returns (out, aux): aux carries the Switch load-balance loss
+    ``E · Σ_e f_e · P_e · coef``. Capacity is per call:
+    ``cap = round(N·k/E·capacity_factor)`` slots an expert."""
+    m = cfg.moe
+    n = x.shape[0] * x.shape[1]
+    e, k = m.n_experts, m.top_k
+    out, flat_e, probs = _moe(cfg, p, x, _capacity(m, n))
     f = _load(flat_e, e, n * k)
     aux = e * torch.sum(f * probs.mean(0)) * m.router_aux_coef
     return out, {"moe_aux_loss": aux}
+
+
+def moe_apply_slots(cfg: ArchConfig, p: dict, x):
+    """The MoE FFN of a serving decode tick: ``x`` (slots, 1, d), one token
+    a slot, each slot dispatched as a group of its own, as the reference's
+    `decode_slots` gives it (it vmaps the model over the slots, so its
+    `moe_apply` sees N = 1 and ``cap = max(1, round(k/E·cf))``). A
+    one-token group sends its k picks to k distinct experts and never
+    drops, so one batched dispatch at ``cap = slots`` (no expert can get
+    more) keeps every pick too and computes the same rows. `moe_apply` on
+    the batch would instead share ``round(slots·k/E·cf)`` slots an expert
+    among the slots and drop picks the reference keeps."""
+    if x.shape[1] != 1:
+        raise ValueError(f"moe_apply_slots takes one token a slot, got "
+                         f"{tuple(x.shape)}")
+    return _moe(cfg, p, x, x.shape[0])[0]
 
 
 def dropped_slots(cfg: ArchConfig, p: dict, x) -> int:

@@ -1,18 +1,25 @@
-"""Model assembly for the serving path: decoder-only stacks of
-full-attention blocks with a dense MLP, or of Mamba-2 SSD blocks (port of
+"""Model assembly for the serving path: decoder-only stacks of attention
+blocks (full, sliding-window or chunked, mixed in a layer pattern) with a
+dense or Mixture-of-Experts FFN, or of Mamba-2 SSD blocks (port of
 `repro/models/transformer.py`).
 
 Parameters are a plain dict in the reference's layout — ``embed`` (vp, d),
 ``lm_head`` (d, vp) unless the embeddings are tied, ``final_norm.w`` and one
 block dict per layer in ``layers`` (a list: a Python loop over layers
-replaces ``lax.scan``), with every weight kept ``(in, out)``. The cache
-stacks every layer's state on a leading layer axis: ``{"k", "v"}`` with
-leaves (layers, batch, T, kvh, hd) for attention, ``{"h", "conv"}`` with
-leaves (layers, batch, nh, hp, ds) and (layers, batch, K-1, di+2ds) for
-Mamba-2. For continuous batching the batch axis is the slot axis, and
-`decode_slots` advances every slot at its own position in one batched step
-(the slot dimension written out where the reference vmaps). Caches are
-updated in place.
+replaces ``lax.scan``), with every weight kept ``(in, out)``.
+
+The cache is a flat dict of leaves grouped as the reference's cache tree
+groups them (`cache_groups`): one group per layer-pattern entry, stacking
+that entry's layers of every full pattern cycle on a leading axis, and one
+group per leftover ("tail") layer. A pattern of one entry keeps the bare
+leaf names — ``{"k", "v"}`` with leaves (layers, batch, T, kvh, hd) for
+attention, ``{"h", "conv"}`` with leaves (layers, batch, nh, hp, ds) and
+(layers, batch, K-1, di+2ds) for Mamba-2; a longer pattern suffixes each
+name with its group (``k.0`` … ``k.3``, ``k.t0`` for tail layer 0), since
+its groups may differ in kind and ring length. For continuous batching the
+batch axis is the slot axis, and `decode_slots` advances every slot at its
+own position in one batched step (the slot dimension written out where the
+reference vmaps). Caches are updated in place.
 
 RMSNorm (ln1, ln2, final_norm, the SSD gated norm) runs the hand-written
 `kernels.rmsnorm`; prefill attention runs `kernels.flash_attention`; the
@@ -20,11 +27,11 @@ SSD prefill scan runs `kernels.ssd_scan`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN_KINDS, ArchConfig
 from repro_torch.kernels import mode
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import attention as attn_mod
@@ -53,6 +60,10 @@ def _has_ffn(cfg: ArchConfig, kind: str) -> bool:
     return cfg.d_ff > 0 and kind != "ssm"
 
 
+def _moe_ffn(cfg: ArchConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind in ATTN_KINDS
+
+
 def block_init(cfg: ArchConfig, gen: torch.Generator, dtype,
                kind: str) -> dict:
     p = {"ln1": norm_init(cfg, dtype, gen.device)}
@@ -62,13 +73,18 @@ def block_init(cfg: ArchConfig, gen: torch.Generator, dtype,
         p["mixer"] = attn_mod.attn_init(cfg, gen, dtype)
     if _has_ffn(cfg, kind):
         p["ln2"] = norm_init(cfg, dtype, gen.device)
-        p["ffn"] = mlp_mod.mlp_init(cfg, gen, dtype)
+        if _moe_ffn(cfg, kind):
+            p["ffn"] = mlp_mod.moe_init(cfg, gen, dtype)
+        else:
+            p["ffn"] = mlp_mod.mlp_init(cfg, gen, dtype)
     return p
 
 
 def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
-                cache: Optional[dict], cache_pos):
-    """Returns (x, cache)."""
+                cache: Optional[dict], cache_pos, slots: bool = False):
+    """Returns (x, cache). ``slots``: ``x`` is a decode tick of one token a
+    serving slot, and an MoE FFN dispatches each slot on its own
+    (`mlp.moe_apply_slots`); otherwise its capacity is per call."""
     h = norm_apply(cfg, p["ln1"], x)
     if kind == "ssm":
         out, cache = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=cache,
@@ -80,28 +96,62 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     x = x + out
     if _has_ffn(cfg, kind):
         h2 = norm_apply(cfg, p["ln2"], x)
-        x = x + mlp_mod.mlp_apply(cfg, p["ffn"], h2)
+        if not _moe_ffn(cfg, kind):
+            x = x + mlp_mod.mlp_apply(cfg, p["ffn"], h2)
+        elif slots:
+            x = x + mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
+        else:
+            x = x + mlp_mod.moe_apply(cfg, p["ffn"], h2)[0]
     return x, cache
 
 
+SERVED_ATTN_KINDS = ("attn", "attn_sw", "attn_chunked")
+
+
 def validate_model_cfg(cfg: ArchConfig) -> None:
-    """The blocks the port runs so far: full causal self-attention with
-    RoPE and a dense FFN, or Mamba-2 SSD blocks (no FFN, no RoPE), with
-    RMSNorm. Other archs wait for their slices."""
+    """The blocks the port runs so far: causal self-attention with RoPE —
+    full, sliding-window or chunked, in any pattern — and a dense or MoE
+    FFN, or Mamba-2 SSD blocks (no FFN, no RoPE), with RMSNorm and no
+    post-norms. Other archs wait for their slices."""
     kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
-    attn = kinds == {"attn"} and cfg.d_ff > 0 and cfg.use_rope
-    ssm = (kinds == {"ssm"} and cfg.ssm is not None and cfg.d_ff == 0
-           and not cfg.use_rope)
-    if (not (attn or ssm) or cfg.moe is not None or cfg.encoder is not None
-            or cfg.norm_type != "rms" or cfg.post_norms):
-        raise ValueError(
-            f"{cfg.arch_id}: the port serves full-attention decoders with a "
-            f"dense FFN and RoPE, and Mamba-2 SSD stacks (d_ff=0, no RoPE), "
-            f"with RMSNorm, so far; got kinds {sorted(kinds)}, "
-            f"moe={cfg.moe is not None}, encoder={cfg.encoder is not None}, "
-            f"d_ff={cfg.d_ff}, use_rope={cfg.use_rope}, "
-            f"norm_type={cfg.norm_type!r}, post_norms={cfg.post_norms}"
-        )
+    what = f"{cfg.arch_id}: the port serves"
+    if cfg.encoder is not None:
+        raise ValueError(f"{what} decoder-only stacks so far; got an encoder")
+    if cfg.norm_type != "rms":
+        raise ValueError(f"{what} RMSNorm only so far; got norm_type="
+                         f"{cfg.norm_type!r}")
+    if cfg.post_norms:
+        raise ValueError(f"{what} pre-norm blocks only so far; got "
+                         "post_norms=True")
+    if kinds <= set(SERVED_ATTN_KINDS):
+        if cfg.d_ff > 0 and cfg.use_rope:
+            return
+    elif kinds == {"ssm"}:
+        if (cfg.ssm is not None and cfg.d_ff == 0 and cfg.moe is None
+                and not cfg.use_rope):
+            return
+    raise ValueError(
+        f"{what} full-attention decoders, with sliding-window and chunked "
+        f"layers in any pattern ({SERVED_ATTN_KINDS}), RoPE and a dense or "
+        f"MoE FFN, and Mamba-2 SSD stacks (d_ff=0, no RoPE, no MoE), so "
+        f"far; got kinds {sorted(kinds)}, moe={cfg.moe is not None}, "
+        f"d_ff={cfg.d_ff}, use_rope={cfg.use_rope}"
+    )
+
+
+def cache_groups(cfg: ArchConfig) -> List[Tuple[str, str, List[int]]]:
+    """The cache's layer groups as the reference's cache tree holds them:
+    (leaf-name suffix, block kind, layer indices), one group per pattern
+    entry over the full cycles, then one per tail layer. A one-entry
+    pattern has no tail and its suffix is empty."""
+    pat = cfg.layer_pattern
+    n_cyc, n_tail = divmod(cfg.n_layers, len(pat))
+    if len(pat) == 1:
+        return [("", pat[0], list(range(cfg.n_layers)))]
+    groups = [(f".{g}", kind, list(range(g, n_cyc * len(pat), len(pat))))
+              for g, kind in enumerate(pat) if n_cyc]
+    return groups + [(f".t{j}", pat[j], [n_cyc * len(pat) + j])
+                     for j in range(n_tail)]
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +166,11 @@ class Model:
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.device = mode.resolve_device(device)
+        # layer i's cache: (leaf-name suffix, index on the group's axis)
+        self._cache_at: List[Optional[Tuple[str, int]]] = [None] * cfg.n_layers
+        for sfx, _, layers in cache_groups(cfg):
+            for j, i in enumerate(layers):
+                self._cache_at[i] = (sfx, j)
 
     # ---- params ----------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
@@ -140,13 +195,20 @@ class Model:
     # ---- caches ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> dict:
-        """Every layer's state, stacked on a leading layer axis (an SSD
-        state does not grow with ``max_len``)."""
-        if "ssm" in self.cfg.layer_pattern:     # all-SSD (validated)
-            return ssm_mod.init_ssm_cache(self.cfg, self.cfg.n_layers, batch,
-                                          dtype, self.device)
-        return attn_mod.init_kv_cache(self.cfg, self.cfg.n_layers, batch,
-                                      max_len, dtype, self.device)
+        """Every layer's state, by `cache_groups` (an SSD state does not
+        grow with ``max_len``; a ring attention layer's stops at its
+        window or chunk)."""
+        cache = {}
+        for sfx, kind, layers in cache_groups(self.cfg):
+            if kind == "ssm":
+                group = ssm_mod.init_ssm_cache(self.cfg, len(layers), batch,
+                                               dtype, self.device)
+            else:
+                group = attn_mod.init_kv_cache(self.cfg, len(layers), batch,
+                                               max_len, dtype, self.device,
+                                               kind=kind)
+            cache.update({name + sfx: leaf for name, leaf in group.items()})
+        return cache
 
     def init_slot_cache(self, slots: int, max_len: int,
                         dtype=torch.bfloat16) -> dict:
@@ -155,6 +217,12 @@ class Model:
         (`decode_slots`)."""
         return self.init_cache(slots, max_len, dtype)
 
+    def layer_cache(self, cache: dict, i: int) -> dict:
+        """Layer ``i``'s views into ``cache``, under the bare leaf names."""
+        sfx, j = self._cache_at[i]
+        names = ("h", "conv") if self.cfg.block_kind(i) == "ssm" else ("k", "v")
+        return {n: cache[n + sfx][j] for n in names}
+
     # ---- forward ---------------------------------------------------------
     def _embed(self, params, tokens):
         x = params["embed"][tokens]
@@ -162,12 +230,11 @@ class Model:
             x = x * self.cfg.d_model ** 0.5
         return x
 
-    def _trunk(self, params, x, cache, cache_pos):
+    def _trunk(self, params, x, cache, cache_pos, slots: bool = False):
         for i, lp in enumerate(params["layers"]):
-            lc = None if cache is None else {n: leaf[i]
-                                             for n, leaf in cache.items()}
+            lc = None if cache is None else self.layer_cache(cache, i)
             x, _ = block_apply(self.cfg, lp, x, kind=self.cfg.block_kind(i),
-                               cache=lc, cache_pos=cache_pos)
+                               cache=lc, cache_pos=cache_pos, slots=slots)
         return x
 
     def _logits(self, params, x):
@@ -192,10 +259,12 @@ class Model:
     def decode_slots(self, params, cache, tokens, pos):
         """Per-slot one-token decode over an `init_slot_cache` cache:
         ``tokens`` (slots,) current token per slot, ``pos`` (slots,)
-        per-slot write index — positions are ragged across slots.
+        per-slot write index — positions are ragged across slots. Each
+        slot is its own MoE dispatch group, as in the reference's vmap
+        (`decode_step` instead dispatches its batch as one call).
         Returns (logits (slots, vocab_padded), cache)."""
         x = self._embed(params, tokens.long()[:, None])
-        x = self._trunk(params, x, cache, pos.long())
+        x = self._trunk(params, x, cache, pos.long(), slots=True)
         return self._logits(params, x)[:, 0], cache
 
 

@@ -9,7 +9,9 @@ the 128-row block (``rows128``) of the dense MLP, or the whole expert
 Serving state trees are dense, so their specs also carry the leaf
 geometry: ``unit`` channels per unit along ``axis`` and a replicated
 ``tail`` that never moves. Served attention caches split by GQA KV head
-(``kv_head``): leaves ``k``/``v`` of shape (..., T, kvh, hd), head axis -2.
+(``kv_head``): leaves ``k``/``v`` of shape (..., T, kvh, hd), head axis -2,
+one pair per cache group (``k.<g>``, ``k.t<j>`` where the layer pattern
+has several entries; rings and full caches alike).
 Mamba-2 state splits by SSD head (``ssm_head``): ``h`` (..., nh, hp, ds)
 on axis -3, and ``conv`` (..., K-1, di + 2·ds) on axis -1 in blocks of hp
 channels, with its B/C columns a replicated tail of 2·ds. The rgLRU-block family
@@ -82,19 +84,30 @@ def serve_unit_count(cfg: ArchConfig) -> int:
 
 
 def cache_unit_resolver(cfg: ArchConfig) -> Callable[[str], UnitSpec]:
-    """Leaf name → `UnitSpec` for ``cfg``'s cache dict. Unknown names raise:
-    silently skipping a state leaf would strand it at the old layout
-    through a TP transition."""
-    specs: Dict[str, UnitSpec] = {}
-    for kind in dict.fromkeys(cfg.layer_pattern):
-        specs.update(_kind_state_specs(cfg, kind))
+    """Leaf name → `UnitSpec` for ``cfg``'s cache dict
+    (`models.transformer.cache_groups`): a bare name (``k``, ``h``) for a
+    one-entry pattern, ``<name>.<g>`` for pattern entry ``g``'s group and
+    ``<name>.t<j>`` for tail layer ``j`` (of kind ``layer_pattern[j]``).
+    Unknown names raise: silently skipping a state leaf would strand it at
+    the old layout through a TP transition."""
+    pat = cfg.layer_pattern
+    per_kind = {kind: _kind_state_specs(cfg, kind)
+                for kind in dict.fromkeys(pat)}
 
     def resolve(name: str) -> UnitSpec:
-        if name not in specs:
+        base, _, group = name.partition(".")
+        entry = group[1:] if group.startswith("t") else group
+        if len(pat) == 1 and not group:
+            kind = pat[0]
+        elif len(pat) > 1 and entry.isdigit() and int(entry) < len(pat):
+            kind = pat[int(entry)]
+        else:
+            kind = None
+        if kind is None or base not in per_kind[kind]:
             raise ValueError(
                 f"unknown state leaf {name!r}: no UnitSpec registered for "
-                f"{cfg.arch_id} (have {sorted(specs)})"
+                f"{cfg.arch_id} (pattern {pat})"
             )
-        return specs[name]
+        return per_kind[kind][base]
 
     return resolve

@@ -3,7 +3,10 @@
 
 A fixed pool of cache slots, each holding one in-flight request at its
 own position; `Model.decode_slots` advances every slot in one batched
-step. On a TP transition the cache is resharded mid-decode through
+step (an MoE FFN dispatching each slot on its own, as the reference's
+vmap does). The cache is the model's grouped dict (one group per
+layer-pattern entry, ring caches for sliding-window and chunked layers),
+and every group is admitted, resharded and zeroed alike. On a TP transition the cache is resharded mid-decode through
 `reshard.ShardedState`: KV heads (attention) or SSD heads (Mamba-2 h and
 conv state) move between the replica's (emulated) ranks through the
 hand-written `reshard_pack` send-bucket kernel, and decoding continues on
@@ -103,6 +106,22 @@ class ServeEngine:
         model=None,                     # share one Model across replicas
     ):
         kinds = validate_serve_cfg(cfg)
+        # a ring cache keeps only the trailing window or chunk: a longer
+        # padded prefill would leave pad K/V posing as valid tokens
+        if "attn_sw" in kinds and prefill_len > cfg.window:
+            raise ValueError(
+                f"prefill_len={prefill_len} exceeds the sliding-window ring "
+                f"cache: {cfg.arch_id} has window={cfg.window} (attn_sw "
+                "keeps only the trailing window, so a longer prefill would "
+                "leave pad K/V posing as valid tokens)"
+            )
+        if "attn_chunked" in kinds and prefill_len > cfg.chunk_size:
+            raise ValueError(
+                f"prefill_len={prefill_len} exceeds the chunked-attention "
+                f"ring cache: {cfg.arch_id} has chunk_size={cfg.chunk_size} "
+                "(attn_chunked keeps only the current chunk, so a longer "
+                "prefill would leave pad K/V posing as valid tokens)"
+            )
         if prefill_len > max_len:
             raise ValueError(
                 f"prefill_len={prefill_len} exceeds max_len={max_len}: a "
@@ -167,9 +186,10 @@ class ServeEngine:
 
     @property
     def cache(self) -> Dict[str, torch.Tensor]:
-        """The dense slot-stacked cache (leaves (L, slots, ...): k/v
-        (L, slots, T, kvh, hd), or h (L, slots, nh, hp, ds) and conv
-        (L, slots, K-1, di+2ds))."""
+        """The dense slot-stacked cache, by `models.transformer.
+        cache_groups` (leaves (layers, slots, ...): k/v (layers, slots, T,
+        kvh, hd), or h (layers, slots, nh, hp, ds) and conv (layers, slots,
+        K-1, di+2ds))."""
         return self._cache
 
     # ---------------------------------------------------------------- admit
