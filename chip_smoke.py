@@ -242,15 +242,41 @@ Phases (any failure exits non-zero):
    must launch in (b)'s fail→repair runs. Then flash_attention at both
    models' prefill shapes and reshard_pack at their KV-head rows against
    their plain versions and library calls;
-14. print the kernels table as one JSON line (launches summed over the
-   serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE and
-   MoE serving paths, each counted from zero just before it), then the
-   device line.
+14. the global repack allocator (`repro_torch.cluster.GreedyAllocator`):
+   phase 8's pp=2 geometry (qwen2-7b widths, 4 layers, stages (0, 2, 4), 2
+   replicas x TP 4, local batch 4, sequence 256, SGD lr 1e-2, f32) with one
+   spare domain, overlap on, microbatches 2, through the chain of
+   tests/dist/session_allocator_lifecycle.py (`ALLOC_CHAIN`, 12 steps: fail
+   (stage 1, domain 0) at 2, fail (stage 0, domain 1) at 5, repair (1, 0)
+   at 8, repair (0, 1) at 11) under `TraceRunner(verify=True, atol=1e-4)`
+   with the dense reference on the card. Checks: every loss and the
+   canonical params at both transitions within 1e-4; at step 2 the spare
+   stands in (plan pristine, 0 bytes, no transition); at 5 it relocates to
+   (0, 1) and only stage 1 repacks, the moved, priced and ledger stages
+   all {1}, predicted bytes equal to the executed ledger and below the
+   dense bytes; at 8 likewise, stage 1 up; at 11 nothing moves; every
+   decision rescued or amortized; each verdict's counts, spare sites,
+   swaps, per-stage TPs and moved stages equal to the chain's on the CPU
+   (`_alloc_host_verdicts`, pinned by tests/test_torch_allocator.py) and
+   its predicted bytes to the card session's cost model; bucket_pack /
+   bucket_unpack launched on every step and in the transitions at 5 and 8
+   (their fused messages) and nothing in the applies at 2 and 11,
+   reshard_pack on the degraded steps (5-7) only; the recorded telemetry,
+   folded by `launch.telemetry_report`, one (predicted, executed)
+   `cluster.transition_bytes` pair per moving event, equal. Printed: each
+   event's verdict, its apply ms (CUDA events), executed bytes and the
+   cost model's `seconds()` at its 9e11 B/s (a model parameter, not this
+   card's rate), step ms by regime, peak device memory;
+15. print the kernels table as one JSON line (launches summed over the
+   serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
+   serving and allocator paths, each counted from zero just before it),
+   then the device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
-alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13).
+alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13, ``--allocator``
+phase 14).
 """
 import contextlib
 import dataclasses
@@ -2286,6 +2312,229 @@ def pp2_phase(torch, dev, pp1_transitions):
                                         microbatches=2)
     return {k: launches.get(k, 0) + trace_launches.get(k, 0)
             for k in set(launches) | set(trace_launches)}
+
+
+# the chain of tests/dist/session_allocator_lifecycle.py (stage, domain):
+# a stage-1 failure the spare stands in for, a stage-0 failure that makes
+# the spare relocate (stage 1 repacks), and the two repairs
+ALLOC_CHAIN = {2: ("fail", 1, 0), 5: ("fail", 0, 1), 8: ("repair", 1, 0),
+               11: ("repair", 0, 1)}
+ALLOC_STEPS = 12
+ALLOC_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
+
+
+def _alloc_event(i):
+    from repro_torch.runtime import FailureEvent, RecoveryEvent
+
+    kind, stage, domain = ALLOC_CHAIN[i]
+    cls = FailureEvent if kind == "fail" else RecoveryEvent
+    return cls(step=i, stage=stage, domain=domain)
+
+
+def _alloc_verdict(gp, moved):
+    return {"counts": gp.counts, "spare_sites": gp.spare_sites,
+            "swaps": gp.swaps,
+            "stage_tp": tuple(p.replica_tp for p in gp.staged_plan.stages),
+            "moved": moved}
+
+
+def _alloc_host_verdicts(torch):
+    """Each event's verdict fields (counts, spare sites, swaps, per-stage
+    TPs, the stages its transition moved) of `ALLOC_CHAIN` through the
+    port's emulated allocator session on the CPU, at phase 14's geometry
+    (pp=2 over 4 layers, 2 replicas x TP 4, one spare) with a small model."""
+    from repro_torch.cluster import GreedyAllocator
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession
+
+    cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=7,
+                            head_dim=16, d_ff=256, unit_rows=64, vocab=128,
+                            n_layers=4)
+    s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(1e-2),
+                          device="cpu", pp=2, spares=1,
+                          allocator=GreedyAllocator(),
+                          generator=torch.Generator().manual_seed(0))
+    out = []
+    for i in sorted(ALLOC_CHAIN):
+        old, before = s.plan, s.last_transition
+        s.apply(_alloc_event(i))
+        st = s.last_transition
+        moved = (sorted({k[0] for k in st.per_pair})
+                 if s.plan != old and st is not before else [])
+        out.append(_alloc_verdict(s.last_global_plan, moved))
+    return out
+
+
+def allocator_phase(torch, dev):
+    """Phase 14. Returns the launch counts of the allocator session's run."""
+    import gc
+
+    from repro_torch import telemetry
+    from repro_torch.cluster import GreedyAllocator
+    from repro_torch.core import ntp_train as nt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import mode
+    from repro_torch.launch import telemetry_report
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import NTPSession, ScheduledEvent, TraceRunner
+
+    cfg = qwen_widths()
+    lb, seq = 4, 256
+    want = _alloc_host_verdicts(torch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, 2 * lb, seed=0))
+    batches = [torch.as_tensor(pipe._batch_np(i), device=dev)
+               for i in range(ALLOC_STEPS)]
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    t0 = time.perf_counter()
+    canon = nt.init_canonical(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    allocator = GreedyAllocator()
+    session = NTPSession.create(cfg, (2, 4), local_batch=lb,
+                                optimizer=sgd(1e-2), params=canon,
+                                overlap=True, device=dev, pp=2,
+                                microbatches=2, spares=1, allocator=allocator)
+    del canon
+    cost = allocator.cost
+    print(f"  session (pp=2, overlap on, microbatches 2, one spare, "
+          f"GreedyAllocator) in {time.perf_counter() - t0:.1f} s; cost model "
+          f"per moved unit a layer {dict(cost.family_layer_bytes)} B, "
+          f"scaleup_bw {cost.scaleup_bw:.3g} B/s (the model's parameter, "
+          f"not a rate of this card)", flush=True)
+    real_step, real_apply = session.step, session.apply
+    steps, applies = [], []
+
+    def step(batch):
+        regime = ("healthy" if session.plan.healthy else
+                  f"degraded at stages {session.plan.stage_tp}")
+        n0 = mode.launches()
+        out, ms = timed(lambda: real_step(batch))
+        n1 = mode.launches()
+        steps.append((regime, ms, {k: n1[k] - n0[k] for k in ALLOC_KERNELS}))
+        return out
+
+    def apply(ev):
+        old, before = session.plan, session.last_transition
+        n0 = mode.launches()
+        out, ms = timed(lambda: real_apply(ev))
+        n1 = mode.launches()
+        st = session.last_transition
+        applies.append((ev, old, out, ms,
+                        st if st is not before else None,
+                        session.last_global_plan,
+                        {k: n1[k] - n0[k] for k in ALLOC_KERNELS}))
+        return out
+
+    session.step, session.apply = step, apply
+    rec = telemetry.Recorder(sinks=[telemetry.MemorySink(maxlen=None)])
+    schedule = [ScheduledEvent(i, _alloc_event(i)) for i in sorted(ALLOC_CHAIN)]
+    runner = TraceRunner(session, schedule, verify=True, atol=1e-4)
+    mode.reset_launches()
+    with telemetry.recording(rec):
+        runner.run(lambda i: batches[i], ALLOC_STEPS)
+    launches = mode.launches()
+    for h, (regime, ms, n) in zip(runner.history, steps):
+        print(f"  step {h['step']:2d}: stages {h['stage_tp']} local batches "
+              f"{h['local_batches']} loss {h['loss']:.6f} reference "
+              f"{h['ref_loss']:.6f} |diff| "
+              f"{abs(h['loss'] - h['ref_loss']):.2e}; {ms:.1f} ms; "
+              f"launches {n}", flush=True)
+        check(n["bucket_pack"] > 0 and n["bucket_unpack"] > 0,
+              f"step {h['step']}: the bucket kernels did not launch")
+        check((n["reshard_pack"] > 0) == (regime != "healthy"),
+              f"step {h['step']}: reshard_pack launches {n['reshard_pack']} "
+              f"at {regime}")
+    check(len(applies) == len(ALLOC_CHAIN), "an event was not applied")
+    for (ev, old, new, ms, st, gp, n), w in zip(applies, want):
+        s = gp.summary()
+        moved = sorted({k[0] for k in st.per_pair}) if st is not None else []
+        print(f"  step {ev.step}: {type(ev).__name__} {_site(ev)} -> verdict "
+              f"spares at {gp.spare_sites} swaps {gp.swaps} counts "
+              f"{gp.counts} stage_tp {s['stage_tp']} goodput "
+              f"{gp.goodput:.4f} (stage-local {gp.baseline_goodput:.4f}) "
+              f"predicted {gp.predicted_bytes} B; apply {ms:.3f} ms"
+              + (f", executed {st.bytes_moved} B ({st.bytes_moved / 2**20:.1f}"
+                 f" MiB) in {st.messages} messages of dense "
+                 f"{st.dense_bytes} B, stages {moved}; the cost model's "
+                 f"seconds() at its 9e11 B/s {cost.seconds(st.bytes_moved) * 1e3:.3f}"
+                 f" ms (a model figure, not this card's)"
+                 if st is not None else ", no transition")
+              + f"; launches {n}", flush=True)
+        check(_alloc_verdict(gp, moved) == w,
+              f"step {ev.step}: verdict {_alloc_verdict(gp, moved)} differs "
+              f"from the CPU's {w}")
+        check(gp.predicted_bytes == cost.predict_bytes(old, new),
+              f"step {ev.step}: predicted {gp.predicted_bytes} != the cost "
+              f"model's {cost.predict_bytes(old, new)}")
+        for a in gp.decisions:
+            check(a.rescue or a.cost_s <= a.gain_s,
+                  f"step {ev.step}: {a} does not amortize")
+        if ev.step in (5, 8):
+            check(st is not None and moved == [1]
+                  and {a.stage for a in gp.transitions} == {1}
+                  and gp.predicted_bytes == st.bytes_moved
+                  < st.dense_bytes,
+                  f"step {ev.step}: not a priced stage-1 repack: {st}")
+            # the emulated transition's fused messages are bucket_pack /
+            # bucket_unpack; reshard_pack runs in the degraded steps' sync
+            check(n["bucket_pack"] > 0 and n["bucket_unpack"] > 0
+                  and n["reshard_pack"] == 0,
+                  f"step {ev.step}: the transition's launches {n}")
+        else:
+            check(st is None and gp.predicted_bytes == 0 and new.healthy
+                  and not any(n.values()),
+                  f"step {ev.step}: the plan moved: {new} {st} {n}")
+    errs = [(t["step"], t["canonical_err"]) for t in runner.transitions
+            if "canonical_err" in t]
+    print("  canonical params vs the dense reference at the transitions: "
+          + ", ".join(f"step {i} {e:.2e}" for i, e in errs) + " (tol 1e-4)")
+    check([i for i, _ in errs] == [5, 8] and max(e for _, e in errs) < 1e-4,
+          "canonical params unchecked or off at a transition")
+    folded = telemetry_report.report(list(rec.sinks[0].events()))
+    pairs = folded.get("transition_bytes", [])
+    print(f"  telemetry fold: cluster.transition_bytes (predicted, executed) "
+          f"{[(p['predicted'], p['executed']) for p in pairs]}; transitions "
+          f"{folded.get('transitions')}", flush=True)
+    check(len(pairs) == 2 and all(p["predicted"] == p["executed"] > 0
+                                  for p in pairs),
+          f"the fold's predicted and executed bytes differ: {pairs}")
+    print(f"  kernels {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in ALLOC_KERNELS),
+          f"a kernel of the allocator path never launched: {launches}")
+    regimes = {}
+    for regime, ms, _ in steps:
+        regimes.setdefault(regime, []).append(ms)
+    for regime, v in regimes.items():
+        print(f"  step ms, {regime}: " + ", ".join(f"{t:.1f}" for t in v)
+              + f" (mean {statistics.mean(v):.1f})")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    del runner, session, rec, real_step, real_apply, step, apply, allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def allocator_only(torch):
+    """``--allocator``: build the kernels and run phase 14 alone, then exit
+    (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    allocator_phase(torch, torch.device("cuda"))
+    return 0
 
 
 def scratch_dir():
@@ -4746,6 +4995,8 @@ def main() -> int:
         return pp_ranks_only(torch)
     if sys.argv[1:2] == ["--moe"]:
         return moe_only(torch)
+    if sys.argv[1:2] == ["--allocator"]:
+        return allocator_only(torch)
     import torch.nn.functional as F
 
     if sys.argv[1:2] == ["--moe-serve"]:
@@ -4839,14 +5090,19 @@ def main() -> int:
           "experts) through fail->repair")
     moe_serve_launches, moe_serve_table = moe_serve_phase(torch, F, dev)
 
-    phase("phase 14: kernels table")
+    phase("phase 14: the global repack allocator: spares at pp=2 at qwen2-7b "
+          "widths through fail->fail->repair->repair")
+    alloc_launches = allocator_phase(torch, dev)
+
+    phase("phase 15: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
              (ranks_launches, RANKS_KERNELS),
              (pp_ranks_launches, PP_RANKS_KERNELS),
              (moe_launches, MOE_KERNELS),
-             (moe_serve_launches, SERVE_KERNELS))
+             (moe_serve_launches, SERVE_KERNELS),
+             (alloc_launches, ALLOC_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)

@@ -1,6 +1,6 @@
 """Packing of partially failed scale-up domains into DP replicas (port of
-the packing half of `repro/core/resource_manager.py`; pure numpy, its
-assignments must stay bit-identical to the reference's)."""
+`repro/core/resource_manager.py`; pure numpy, its assignments must stay
+bit-identical to the reference's)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -45,3 +45,16 @@ def pack_replicas(
                    else int((domain_size - f).sum()))
         out.append(ReplicaAssignment(ids, f, max(tp, 0), donated))
     return out
+
+
+def packing_stats(assignments: List[ReplicaAssignment],
+                  domain_size: int) -> dict:
+    """Replicas, those below full TP, those at TP 0, and the healthy GPUs
+    the min-TP constraint idles, over ``assignments``."""
+    affected = [a for a in assignments if a.tp < domain_size]
+    return {
+        "replicas": len(assignments),
+        "affected_replicas": len(affected),
+        "dead_replicas": sum(1 for a in assignments if a.tp == 0),
+        "donated_gpus": sum(a.donated_gpus for a in assignments),
+    }

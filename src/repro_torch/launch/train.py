@@ -39,6 +39,19 @@ Examples:
       --trace 200 --trace-seed 136 --trace-mix straggler=2,link=2,sdc=1 \\
       --power-policy ntp_pw --ckpt /tmp/ckpt.npz --telemetry /tmp/run.jsonl
 
+  # two pipeline stages with a spare domain: the global allocator lets the
+  # spare stand in for the failed GPU of stage 1 (the plan stays pristine)
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
+      --pp 2 --spares 1 --allocator greedy --steps 4 --fail-at 2 \\
+      --fail-stage 1 --seq-len 16 --batch 2
+
+  # the same on a staged mesh of 4 processes (each process plans on its
+  # replicated ledger; every process reaches the same verdict)
+  PYTHONPATH=src python -m repro_torch.launch.train --ntp --device cpu \\
+      --nproc 4 --pp 2 --mesh 1x2 --backend gloo --spares 1 \\
+      --allocator greedy --steps 4 --fail-at 2 --fail-replica 0 \\
+      --fail-stage 1 --seq-len 16 --batch 2
+
   # replay a mixed failure trace (fail -> boost -> repair, stragglers,
   # degraded links, SDC quarantine and rollback) under NTP-PW, with
   # canonical checkpoints and a telemetry stream
@@ -55,9 +68,10 @@ process group instead (`launch.spawn`; every other flag as above;
 ``--mesh``, not ``--devices``, sizes it); with ``--pp P`` it is a staged
 mesh of ``N = P * D * N1`` processes, ``--mesh`` sizing each stage. Global
 rank 0 prints and writes the telemetry stream, the other ranks record into
-memory. The uniform
-arch-stack launcher (``--arch``) and the global allocator
-(``--allocator greedy``) wait for their slices (ROADMAP).
+memory. ``--allocator greedy`` (``--pp`` > 1) makes every replan the global
+repack planner's (`repro_torch.cluster`), which is what lets ``--spares``
+work at ``--pp`` > 1; each event prints its verdict. The uniform arch-stack
+launcher (``--arch``) waits for its slice (ROADMAP).
 """
 import argparse
 import time
@@ -106,11 +120,16 @@ def main(argv=None) -> dict:
                     help="per-transition NTP vs NTP-PW decision hook "
                          "(default: ntp when --trace is given)")
     ap.add_argument("--allocator", choices=["greedy", "off"], default="off",
-                    help="global repack planner for --pp > 1 (not ported: "
-                         "'greedy' is refused)")
+                    help="global repack planner for --pp > 1 "
+                         "(repro_torch.cluster): spares assignable to any "
+                         "stage, cost-priced cross-stage swaps; 'off' keeps "
+                         "stage-local packing")
     ap.add_argument("--spares", type=int, default=0,
                     help="spare scale-up domains absorbing the worst "
-                         "failures (--pp 1 only)")
+                         "failures (--pp > 1 needs --allocator greedy)")
+    ap.add_argument("--allocator-horizon", type=int, default=200,
+                    help="amortization horizon (steps) a priced move must "
+                         "pay for itself within (--allocator greedy)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -157,10 +176,6 @@ def main(argv=None) -> dict:
     if args.spares and args.pp > 1 and args.allocator == "off":
         ap.error("spares with --pp > 1 need the global allocator: pass "
                  "--allocator greedy")
-    if args.allocator != "off":
-        ap.error("--allocator greedy: the global repack allocator is not "
-                 "ported yet (ROADMAP Queue 1 item 6, 'session spares and "
-                 "allocator')")
     args.trace_mix_kwargs = {}
     if args.trace_mix is not None:
         if args.trace is None:
@@ -213,7 +228,7 @@ def _run_ntp(args) -> dict:
     policy_name = args.power_policy or ("ntp" if args.trace is not None
                                         else None)
     session = NTPSession.create(
-        cfg, (2, n1), local_batch=args.batch,
+        cfg, (2, n1), local_batch=args.batch, allocator=_allocator(args),
         optimizer=adamw(AdamWConfig(lr=args.lr)),
         generator=torch.Generator(device=dev).manual_seed(args.seed),
         overlap=args.overlap, device=dev,
@@ -228,7 +243,7 @@ def _run_ntp(args) -> dict:
           + f"plan {session.plan}"
           + (f"  overlap {args.overlap}" if args.overlap == "on" else "")
           + (f"  policy {policy_name}" if policy_name else "")
-          + (f"  spares {args.spares}" if args.spares else "")
+          + _spares_note(args)
           + f"  device {dev}")
 
     pipe = SyntheticLMPipeline(
@@ -257,6 +272,7 @@ def _train_loop(args, session, pipe, log) -> dict:
             log(f"*** step {i}: FailureEvent(replica={args.fail_replica}, "
                 f"{stage_s}n_gpus={args.fail_gpus}) "
                 f"-> plan {plan} mode {session.mode.value}")
+            _log_verdict(session, log)
         metrics = session.step(pipe._batch_np(i))
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:
@@ -275,6 +291,33 @@ def _train_loop(args, session, pipe, log) -> dict:
         session.save(args.ckpt)
         log(f"final canonical checkpoint -> {args.ckpt}")
     return {"losses": losses, "plan": session.plan}
+
+
+def _allocator(args):
+    """``--allocator``: a fresh `GreedyAllocator` with ``--allocator-horizon``,
+    or None."""
+    from repro_torch.cluster import make_allocator
+
+    return make_allocator(args.allocator, horizon_steps=args.allocator_horizon)
+
+
+def _spares_note(args) -> str:
+    if args.allocator != "off" or args.spares:
+        return f"  allocator {args.allocator} spares {args.spares}"
+    return ""
+
+
+def _log_verdict(session, log) -> None:
+    """One line of the allocator's verdict on the latest event (none
+    without an allocator)."""
+    gp = session.last_global_plan
+    if gp is None:
+        return
+    s = gp.summary()
+    log(f"    allocator: spares at {gp.spare_sites} swaps {gp.swaps} "
+        f"stage_tp {s['stage_tp']} predicted {gp.predicted_bytes} B "
+        f"(goodput {gp.goodput:.3f} vs stage-local "
+        f"{gp.baseline_goodput:.3f})")
 
 
 def _model(args, n1: int):
@@ -360,6 +403,7 @@ def _rank_main(args, device) -> dict:
             power_policy=power_policy(policy_name) if policy_name else None,
             spares=args.spares, quarantine=args.quarantine == "on",
             pp=args.pp, microbatches=args.microbatches,
+            allocator=_allocator(args),
         )
         log(f"ntp prototype: processes {args.nproc} (mesh "
             + (f"stage={args.pp} " if args.pp > 1 else "")
@@ -369,7 +413,7 @@ def _rank_main(args, device) -> dict:
             + f"plan {session.plan}"
             + (f"  overlap {args.overlap}" if args.overlap == "on" else "")
             + (f"  policy {policy_name}" if policy_name else "")
-            + (f"  spares {args.spares}" if args.spares else "")
+            + _spares_note(args)
             + f"  device {mesh.device}", flush=True)
         pipe = SyntheticLMPipeline(
             DataConfig(session.cfg.vocab, args.seq_len, d * args.batch,
@@ -413,6 +457,7 @@ def _run_ntp_trace(args, session, pipe, log=print) -> dict:
                 if ev.stage is not None else f"domain {ev.domain}")
         log(f"*** step {ev.step}: {event_kind(ev)} {site} -> "
               f"plan {plan}  local_batches {session.local_batches}")
+        _log_verdict(session, log)
 
     runner = TraceRunner(session, schedule, on_event=on_event)
     log_every = max(args.log_every, 1)

@@ -622,21 +622,19 @@ def staged_plan_from_health(
     cross-stage repair traffic).
 
     Spare domains with pp > 1 need the GLOBAL allocator — a spare rack can
-    stand in for ANY stage, which per-stage packing cannot express. An
-    ``allocator`` takes the whole joint search (spares, cross-stage swaps,
-    reordering); ``current``
-    is the plan whose state is in place, so the allocator can price
-    transitions against it. The allocator is not ported yet: passing one at
-    pp > 1 raises `NotImplementedError`."""
+    stand in for ANY stage, which per-stage packing cannot express. Pass an
+    ``allocator`` (`repro_torch.cluster.GreedyAllocator`) to delegate the
+    whole joint search (spares, cross-stage swaps, reordering) to it;
+    ``current`` is the plan whose state is in place, so the allocator can
+    price transitions against it."""
     if allocator is not None and health.pp > 1:
-        raise NotImplementedError(
-            "the global repack allocator is not ported to repro_torch yet "
-            "(ROADMAP Queue 1: 'session spares and allocator')")
+        return allocator.plan(health, spares=spares, current=current).staged_plan
     if spares and health.pp > 1:
         raise ValueError(
             "spare domains with pp > 1 need the global allocator: a spare "
             "can absorb failures in any stage, which per-stage packing "
-            "cannot express"
+            "cannot express. Pass --allocator greedy (launch/train.py) or "
+            "allocator=repro_torch.cluster.GreedyAllocator(...) to the session."
         )
     return StagedPlan(tuple(
         plan_from_health(h, spares=spares) for h in health.stages

@@ -433,6 +433,11 @@ class TraceRunner:
                         self._ref_snapshot, self.session.device)
                 self._verified(rec, sp, self._check_canonical(
                     f"step {step} (sdc quarantine rollback)"))
+        gp = getattr(self.session, "last_global_plan", None)
+        if gp is not None:
+            # allocator-driven session: keep the global verdict (spare
+            # sites, swaps, priced actions) with the transition record
+            rec["global_plan"] = gp
         if self.verify and new_plan != old_plan:
             self._verified(rec, sp, self._check_canonical(
                 f"step {step} ({rec['kind']} transition {old_plan} -> "

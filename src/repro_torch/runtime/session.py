@@ -62,9 +62,18 @@ moves only the processes of the stage it hits. The step metrics of the
 pipeline carry ``pipeline_ticks`` and the ``handoff`` byte table, as the
 reference's.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP row):
-the global allocator (`allocator=`) and the uniform arch backend
-(`from_arch`).
+``allocator`` (a `repro_torch.cluster.GreedyAllocator`) turns every pp>1
+replan into the global search (spares assignable to any stage, cost-priced
+cross-stage swaps), and is what makes ``spares > 0`` legal at pp>1. The
+session binds the allocator's goodput model to its own geometry and its
+cost model to the live packed trees, so the verdict's predicted bytes equal
+the executed ledger; the latest verdict is ``session.last_global_plan``.
+On a process-group run every process plans on its replicated ledger, and
+the cost model is calibrated from the process's own slots
+(`TransitionCostModel.from_rank_trees`), checked equal on every process.
+
+Not ported yet (raises `NotImplementedError` naming its ROADMAP row): the
+uniform arch backend (`from_arch`).
 """
 from __future__ import annotations
 
@@ -127,7 +136,7 @@ class NTPSession:
         quarantine: bool = True,           # SDC → batch 0 + rollback
         pp: int = 1,                       # pipeline stages
         microbatches: int = 1,             # 1F1B chunks per step
-        allocator=None,
+        allocator=None,                    # cluster.GreedyAllocator (pp > 1)
     ) -> "NTPSession":
         """NTP-prototype session on an emulated (data=D, model=N1) mesh
         ``mesh``, on ``device`` (CUDA unless ``device="cpu"``). ``health``
@@ -145,10 +154,16 @@ class NTPSession:
         unstaged session.
 
         ``mesh`` may be this process's `RankMesh` (a process-group run): the
-        session is then its (replica, rank) part, on the mesh's device."""
-        if allocator is not None:
-            raise _not_ported("the global repack allocator (allocator=)",
-                              "'session spares and allocator'")
+        session is then its (replica, rank) part, on the mesh's device.
+
+        ``allocator`` (a `repro_torch.cluster.GreedyAllocator`, pp > 1 only)
+        makes every replan the global search, which takes ``spares`` at
+        pp > 1; its latest verdict is ``session.last_global_plan``."""
+        if allocator is not None and pp <= 1:
+            raise ValueError(
+                "allocator= is the pp>1 global repack planner; pp=1 sessions "
+                "already pack globally (plan_from_health handles spares)"
+            )
         rank_mesh = mesh if isinstance(mesh, RankMesh) else None
         self = object.__new__(cls if rank_mesh is None else _RankSession)
         self._cfg = cfg
@@ -173,8 +188,23 @@ class NTPSession:
         self._snapshot = None
         self.last_transition = None   # TransferStats of the latest repack
         self.last_rollback = False    # latest apply() rolled back
+        self.last_global_plan = None  # the allocator's latest GlobalPlan
         d, n1 = (int(x) for x in mesh)
         self._mesh = (d, n1)
+        self._allocator = allocator
+        if allocator is not None:
+            from repro_torch.cluster import GoodputModel
+
+            method = ("ntp_pw" if power_policy is not None
+                      and power_policy.name == "ntp_pw" else "ntp")
+            allocator.bind(goodput=GoodputModel(
+                n1=n1,
+                geom=WorkloadGeometry(n_heads=cfg.n_kv_groups,
+                                      local_batch=local_batch),
+                method=method,
+                power=(power_policy.model if power_policy is not None
+                       else PowerModel()),
+            ))
 
         if pp < 1:
             raise ValueError(f"pp must be >= 1, got {pp}")
@@ -223,7 +253,7 @@ class NTPSession:
                 health = (StagedHealth.from_plan(as_staged(plan))
                           if plan is not None
                           else StagedHealth.pristine(d, n1, pp))
-            packed = staged_plan_from_health(health, spares=spares)
+            packed = self._staged_replan(health, current=None)
             if plan is not None and as_staged(plan) != packed:
                 raise ValueError(
                     f"staged plan {plan} is not in per-stage packed order "
@@ -240,6 +270,11 @@ class NTPSession:
             stage=nt._rank_stage(rank_mesh))
         self._params = self._pack(canonical)
         self._opt = self._optimizer.init(self._params)
+        if allocator is not None:
+            # price moves from the live trees (params + every param-like
+            # optimizer tree ride the same messages): predicted bytes then
+            # equal the executed ledger
+            allocator.bind(cost=self._cost_model(self._param_trees()[1]))
         self._events: List[LifecycleEvent] = []
         self._decide()
         self._build_step()
@@ -465,8 +500,7 @@ class NTPSession:
             if self._pp == 1:
                 new_plan = plan_from_health(new_health, spares=self._spares)
             else:
-                new_plan = staged_plan_from_health(new_health,
-                                                   spares=self._spares)
+                new_plan = self._staged_replan(new_health, current=self._plan)
             sp.mark("planned")
             self._events.append(event)
             self._health = new_health
@@ -566,6 +600,24 @@ class NTPSession:
         return self.opt_step
 
     # ---------------------------------------------------------------- private
+
+    def _staged_replan(self, health: StagedHealth, *, current):
+        """One pp>1 replan: the global allocator when bound (moves priced
+        against ``current``'s in-place state, the verdict kept in
+        ``last_global_plan``), stage-local packing otherwise."""
+        if self._allocator is not None:
+            gp = self._allocator.plan(health, spares=self._spares,
+                                      current=current)
+            self.last_global_plan = gp
+            return gp.staged_plan
+        return staged_plan_from_health(health, spares=self._spares)
+
+    def _cost_model(self, trees):
+        """The allocator's `TransitionCostModel`, calibrated from ``trees``
+        (the emulated (D, n1·buf, *unit) unit leaves)."""
+        from repro_torch.cluster import TransitionCostModel
+
+        return TransitionCostModel.from_trees(self._cfg, trees, pp=self._pp)
 
     def _replica_degradations(self):
         """Per-replica merged degradation ledgers of the current health, or
@@ -836,6 +888,29 @@ class _RankSession(NTPSession):
                      "sync_s": float(worst), "exposed_s": float(worst)}
             sp.set(**attrs)
         return dict(attrs, overlap=label)
+
+    def _cost_model(self, trees):
+        """`NTPSession._cost_model` from this process's slots ((buf, *unit)
+        leaves, on a staged mesh only its stage's layers): the per-layer
+        bytes must be every process's alike, so the verdicts (planned by
+        every process on its replicated ledger) agree, and equal the
+        emulated session's. Checked with one all-reduce over the job."""
+        from repro_torch.cluster import TransitionCostModel
+
+        cost = TransitionCostModel.from_rank_trees(
+            self._cfg, trees, pp=self._pp,
+            stage=nt._rank_stage(self._rank_mesh))
+        fam = sorted(cost.family_layer_bytes.items())
+        mine = torch.tensor([x for kv in fam for x in kv], dtype=torch.int64,
+                            device=self._device)
+        both = torch.stack([mine, -mine])
+        torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX)
+        if not (torch.equal(both[0], mine) and torch.equal(-both[1], mine)):
+            raise AssertionError(
+                f"per-layer unit bytes differ between processes: this "
+                f"process {fam}, the job's max {both[0].tolist()} and min "
+                f"{(-both[1]).tolist()}")
+        return cost
 
     def _canonical_like(self, packed: Dict) -> Dict:
         """`meta` tensors of the canonical shapes of a packed rank tree."""

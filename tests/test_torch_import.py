@@ -14,6 +14,12 @@ PORT_MODULES = [
     "repro_torch",
     "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpoint",
+    "repro_torch.cluster",
+    "repro_torch.cluster.actions",
+    "repro_torch.cluster.allocator",
+    "repro_torch.cluster.cost",
+    "repro_torch.cluster.goodput",
+    "repro_torch.cluster.plan",
     "repro_torch.convert",
     "repro_torch.configs",
     "repro_torch.configs.shapes",
@@ -43,6 +49,7 @@ PORT_MODULES = [
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_decode",
     "repro_torch.launch.spawn",
+    "repro_torch.launch.telemetry_report",
     "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.common",

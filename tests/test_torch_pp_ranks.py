@@ -19,7 +19,7 @@ Fast tier (at most 4 processes a spawn):
   the bucketed sync equals the per-leaf one bit for bit on a degraded
   plan; the processes of the stage an event does not hit send nothing;
   counted hand-off bytes equal `handoff_accounting`; a per-rank AdamW
-  rollback across plans bit-exact; spares and `allocator=` still refused;
+  rollback across plans bit-exact; spares without `allocator=` refused;
 * route B at pp=3 × (1, 1): the counted hand-off (``microbatches`` sends a
   boundary) beside the reference's table (``ticks - 1``), both pinned;
 * `chip_smoke.py` phase 11 rehearsed at small widths on a (1, 2) mesh.
@@ -331,10 +331,7 @@ def _rank_route_b(canon_np):
 
     mesh = make_staged_mesh(2, 1, 2, backend="gloo", device="cpu")
     out = {"stage": mesh.stage}
-    # spares and the allocator at pp>1 still wait for the allocator's slice
-    with pytest.raises(NotImplementedError,
-                       match="'session spares and allocator'"):
-        NTPSession.create(_cfg(), mesh, pp=2, allocator=object())
+    # spares at pp>1 need the global allocator
     with pytest.raises(ValueError, match="need the global allocator"):
         NTPSession.create(_cfg(), mesh, pp=2, spares=1)
     for overlap in (False, True):

@@ -152,12 +152,18 @@ def test_session_ledger_with_adamw_moments():
 
 
 def test_session_refuses_what_is_not_ported():
-    """Only the global allocator and the uniform arch backend still raise,
-    each naming its ROADMAP row; pp>1 and microbatches are ported."""
+    """Only the uniform arch backend still raises, naming its ROADMAP row;
+    pp>1, microbatches and the global allocator (pp>1 only: at pp=1 it is
+    refused as the reference refuses it) are ported."""
+    from repro_torch.cluster import GreedyAllocator
+
     cfg = nt.NTPModelConfig(n_layers=2, **KW)
-    for kw in (dict(allocator=object()), dict(pp=2, allocator=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NTPSession.create(cfg, (2, 4), device="cpu", **kw)
+    with pytest.raises(ValueError, match="pp>1 global repack planner"):
+        NTPSession.create(cfg, (2, 4), device="cpu",
+                          allocator=GreedyAllocator())
+    s = NTPSession.create(cfg, (2, 4), device="cpu", pp=2, spares=1,
+                          allocator=GreedyAllocator())
+    assert s.plan.healthy and s.last_global_plan.predicted_bytes == 0
     for kw in (dict(pp=2), dict(microbatches=2)):
         assert NTPSession.create(cfg, (2, 4), device="cpu", **kw).pp == \
             kw.get("pp", 1)

@@ -44,6 +44,7 @@ from repro.core import perf_model as jpm
 from repro.reshard import transition as jtransition
 from repro.runtime import orchestrator as jor
 from repro_torch import tree as tr
+from repro_torch.cluster import GreedyAllocator
 from repro_torch.configs import shapes as tshapes
 from repro_torch.convert import ntp_params_from_jax
 from repro_torch.core import failure_model as tfm
@@ -496,9 +497,12 @@ def test_staged_session_seeding_and_refusals():
             (dict(pp=2, microbatches=3), "not divisible")):
         with pytest.raises(ValueError, match=match):
             NTPSession.create(tcfg, (2, 4), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NTPSession.create(tcfg, (2, 4), pp=2, allocator=object(),
-                          device="cpu")
+    with pytest.raises(ValueError, match="pp>1 global repack planner"):
+        NTPSession.create(tcfg, (2, 4), pp=1, plan=plan,
+                          allocator=GreedyAllocator(), device="cpu")
+    s = NTPSession.create(tcfg, (2, 4), pp=2, spares=1,
+                          allocator=GreedyAllocator(), device="cpu")
+    assert s.plan.healthy and s.last_global_plan is not None
 
 
 def test_staged_runner_rejects_dead_replicas_and_absorbs_their_repairs():
@@ -602,7 +606,8 @@ def test_launcher_pp_trace_cpu_smoke(capsys):
     (["--fail-stage", "1"], "--fail-stage needs --pp > 1"),
     (["--allocator", "greedy"], "pp=1 sessions already pack globally"),
     (["--pp", "2", "--spares", "1"], "pass --allocator greedy"),
-    (["--pp", "2", "--allocator", "greedy"], "ROADMAP Queue 1 item 6"),
+    (["--allocator", "greedy", "--spares", "1"],
+     "pp=1 sessions already pack globally"),
 ])
 def test_launcher_pp_flag_errors(argv, match, capsys):
     from repro_torch.launch.train import main

@@ -233,9 +233,17 @@ def test_domain_degradation_merge_and_factors_match_reference():
 
 
 def test_staged_allocator_is_not_ported():
+    """The name predates the allocator's port: `staged_plan_from_health`
+    now delegates to an allocator at pp > 1 (its verdict's staged plan), and
+    without one packs stage by stage."""
+    from repro_torch.cluster import GreedyAllocator
+
     h = tev.StagedHealth.pristine(2, 4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tev.staged_plan_from_health(h, allocator=object())
+    hurt = h.apply(tev.FailureEvent(stage=1, domain=0))
+    assert tev.staged_plan_from_health(
+        hurt, spares=1, allocator=GreedyAllocator()).healthy
+    with pytest.raises(ValueError, match="global allocator"):
+        tev.staged_plan_from_health(hurt, spares=1)
     plan = tev.staged_plan_from_health(h)
     assert isinstance(plan, tev.StagedPlan) and plan.pp == 2
     assert [s.replica_tp for s in plan.stages] == [(4, 4), (4, 4)]
