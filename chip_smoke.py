@@ -267,19 +267,50 @@ Phases (any failure exits non-zero):
    event's verdict, its apply ms (CUDA events), executed bytes and the
    cost model's `seconds()` at its 9e11 B/s (a model parameter, not this
    card's rate), step ms by regime, peak device memory;
-15. print the kernels table as one JSON line (launches summed over the
+15. the serving lifecycle and the dense attention archs, one model on the
+   card at a time, f32, weights from seed 0: (A) gemma2-9b at full size
+   (42 layers alternating sliding 4096 and global attention, d 3584, 16
+   heads of 256, 8 KV heads, softcaps 50 / 30, post-norms, tied vocab
+   256,000; 9,241,705,984 params, 36.97 GB), its first two layers held
+   against the CPU's plain versions (1e-4); two replicas x n1 4, 8 slots,
+   max_len 96, prefill 32, NTP-PW, quarantine on; 32 requests (24 + 16
+   tokens, four a tick over ticks 0-7) through `DENSE_CHAIN` (failure of
+   domain 0 at tick 4, a 1.5x straggler on domain 1 at 6, an SDC
+   suspicion on domain 1 at 8, a checkpoint at 10, a link at half
+   bandwidth on domain 0 at 12, the clears at 14, 16 and 17, the repair
+   at 18) with telemetry recorded, beside an uninterrupted session on the
+   same weights. Checks: every stream equal; degradations preempt
+   nothing; replica 1 drains and admits nothing over ticks 8-13; each
+   reshard's bytes as its plan's KV heads; the telemetry fold
+   (`launch.telemetry_report`) has TTFT/TPOT and admissions of every
+   request and one `serve.transition` span an event. The restore check:
+   a third session on the weights takes `FailureEvent(domain=1)` (TP (4,
+   3)), restores the tick-10 checkpoint (saved without the weights) and
+   serves its slots, what it returns and the requests queued at the save
+   to the end, streams equal to the uninterrupted run. A decode tick (8
+   slots) timed and profiled beside the weight-read floor. (B)
+   granite-3-2b (head_dim 64), minitron-4b (squared ReLU) and
+   chameleon-34b (qk-norm) at full width, depth cut to 2, each held
+   against the CPU's plain versions and serving 8 requests through fail
+   -> repair with streams equal to an uninterrupted run. rmsnorm,
+   flash_attention (sliding and causal) and reshard_pack must launch.
+   Then flash_attention at gemma2's prefill (D 256, softcap 50, sliding
+   and global, against a compiled `flex_attention`) and granite's (D 64,
+   against SDPA), each row with its own launches on the path;
+16. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
-   serving and allocator paths, each counted from zero just before it),
-   then the device line.
+   serving, allocator and dense serving paths, each counted from zero just
+   before it), then the device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
 alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13, ``--allocator``
-phase 14).
+phase 14, ``--dense-serve`` phase 15).
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import signal
@@ -424,11 +455,13 @@ def flash_rows(torch, F, dev, g, rows):
 
 
 def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
-              label=""):
+              label="", softcap=None):
     """One flash_attention line of phase 3 at ``shape`` = (B, H, KVH, S,
     D): against the plain version, timed in turns with
     `F.scaled_dot_product_attention` (GQA by `enable_gqa`; a sliding or
-    chunked mask passed as a boolean mask). Returns its table row."""
+    chunked mask passed as a boolean mask) — with a ``softcap``, which SDPA
+    cannot apply, against `flex_attention` instead (`flex_yardstick`).
+    Returns its table row."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -437,12 +470,15 @@ def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
     q = torch.randn((b_, h, s, d), generator=g, device=dev).to(dt)
     k = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
     v = torch.randn((b_, kvh, s, d), generator=g, device=dev).to(dt)
-    kw = dict(kind=kind, window=window, chunk=chunk)
+    if softcap is not None:
+        # scores scaled up so that the cap bites, as phase 3's softcap rows
+        q, k = q * 4.0, k * 4.0
+    kw = dict(kind=kind, window=window, chunk=chunk, softcap=softcap)
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
-    del want, got
+    del got
     short = s <= 32
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
                     10 if short else 1)
@@ -453,17 +489,63 @@ def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
     elif kind == "chunked":
         mask &= qp[None, :] // chunk == qp[:, None] // chunk
     attn_mask = None if kind == "causal" else mask
-    t = in_turns(torch, lambda: flash_attention(q, k, v, **kw),
-                 {"SDPA": lambda: F.scaled_dot_product_attention(
-                     q, k, v, attn_mask=attn_mask,
-                     is_causal=kind == "causal", enable_gqa=True)},
+    if softcap is None:
+        libs = {"SDPA": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=kind == "causal",
+            enable_gqa=True)}
+    else:
+        libs = flex_yardstick(torch, q, k, v, kind, window, chunk, softcap)
+        for name, call in libs.items():
+            lib_err = (call().float() - want.float()).abs().max().item()
+            print(f"  {name} (the library yardstick, compiled) max_abs_err "
+                  f"{lib_err:.3e} against the plain version", flush=True)
+    del want
+    t = in_turns(torch, lambda: flash_attention(q, k, v, **kw), libs,
                  reps=50 if short else 5, calls=20 if short else 3)
     pairs = int(mask.sum().item())
     n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
     bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
+    cap = "" if softcap is None else f" softcap {softcap:g}"
     report_turns("flash_attention", f"{label}q({b_},{h},{s},{d}) kv{kvh} "
-                 f"{kind}", dn, err, TOL[dn], t, plain, bd)
+                 f"{kind}{cap}", dn, err, TOL[dn], t, plain, bd)
     return table_row(err, t, plain, bd)
+
+
+def flex_yardstick(torch, q, k, v, kind, window, chunk, softcap,
+                   compiled=True):
+    """A PyTorch call computing flash_attention with a ``softcap``:
+    `flex_attention` (under `torch.compile`, as it is meant to run) with the
+    softcap as its score_mod, the mask as a block mask and GQA by
+    `enable_gqa`, at 16 x 16 blocks in one stage (at f32, D 256, S 32 its
+    default kernel options run far slower on an H100 and take minutes to
+    compile). Compiled and warmed here, outside any timing or graph capture. The
+    mask's limits are a tensor, so every mask kind shares one compiled
+    graph. Returns {name: call}. The port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    s = q.shape[2]
+    lim = torch.tensor([window if kind == "sliding" else s + 1,
+                        chunk if kind == "chunked" else s + 1],
+                       device=q.device)
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        return ((ki <= qi) & (ki > qi - lim[0])
+                & (ki // lim[1] == qi // lim[1]))
+
+    block = create_block_mask(mask_mod, None, None, s, s,
+                              device=str(q.device))
+    fn = torch.compile(flex_attention, dynamic=False) if compiled \
+        else flex_attention
+    call = functools.partial(
+        fn, q, k, v, score_mod=score_mod, block_mask=block, enable_gqa=True,
+        kernel_options=dict(BLOCK_M=16, BLOCK_N=16, num_warps=4,
+                            num_stages=1))
+    call()
+    return {"flex_attention 16x16": call}
 
 
 def reshard_rows(torch, dev, g, rows):
@@ -775,15 +857,16 @@ def report_turns(name, shape, dt, err, tol, t, plain, bound):
     yardstick's."""
     kc, kd = t["kernel"]
     libs = {k: v for k, v in t.items() if k != "kernel"}
-    best = min(c for c, _ in libs.values())
+    best = min((c for c, _ in libs.values()), default=None)
+    versus = ("no library call" if best is None else
+              f"call / library {kc / best:.3f}  call <= library: "
+              f"{'yes' if kc <= best else 'NO'}")
     print(f"  {name:16s} {shape:44s} {dt:8s} max_abs_err {err:.3e} "
           f"(tol {tol:g})  call_ms {kc:.5f} device_ms {kd:.5f}  "
           + "  ".join(f"{k} call_ms {c:.5f} device_ms {d:.5f}"
                       for k, (c, d) in libs.items())
           + f"  plain_ms {plain:.5f}  bound_ms {bound[0]:.6f} ({bound[1]}, "
-          f"{bound[0] / kd:.0%} of it on the device)  call / library "
-          f"{kc / best:.3f}  call <= library: "
-          f"{'yes' if kc <= best else 'NO'}", flush=True)
+          f"{bound[0] / kd:.0%} of it on the device)  {versus}", flush=True)
     check(err <= tol, f"{name} {shape} {dt}: max_abs_err {err} > {tol}")
 
 
@@ -791,7 +874,8 @@ def table_row(err, t, plain, bound):
     """The kernels-table entry of a kernel timed in turns: its median call
     ms, and the fastest yardstick's as the library time."""
     return dict(max_abs_err=err, ms=t["kernel"][0], plain_ms=plain,
-                library_ms=min(c for k, (c, _) in t.items() if k != "kernel"),
+                library_ms=min((c for k, (c, _) in t.items()
+                                if k != "kernel"), default=None),
                 bound_ms=bound[0], bound_by=bound[1])
 
 
@@ -4554,39 +4638,6 @@ def _kv_ledger_check(cfg, engine, st):
     return plan.n_moved
 
 
-def moe_one_layer_reference(torch, dev, cfg, params):
-    """The served model's first layer at full width (llama4-scout: an
-    `attn_chunked` block with the MoE FFN and its shared expert, `embed`,
-    `lm_head`; its tensors shared with the served model) on the card
-    against the same tensors on the CPU (plain kernel versions): a
-    32-token prefill and two decode steps, within 1e-4."""
-    from repro_torch.models.transformer import build_model
-
-    cfg1 = dataclasses.replace(cfg, n_layers=1)
-    p1 = dict(params, layers=params["layers"][:1])
-    gpu, cpu = build_model(cfg1, device=dev), build_model(cfg1, device="cpu")
-    cp = _to(p1, "cpu")
-    toks = torch.randint(1, cfg.vocab_size, (1, 32),
-                         generator=torch.Generator().manual_seed(8))
-    gl, gc = gpu.prefill(p1, toks.to(dev), gpu.init_cache(1, 40, torch.float32))
-    cl, cc = cpu.prefill(cp, toks, cpu.init_cache(1, 40, torch.float32))
-    errs = [float((gl.cpu() - cl).abs().max())]
-    check(bool(torch.isfinite(gl).all())
-          and gl.shape == (1, 32, cfg.padded_vocab()),
-          "one-layer model: non-finite or misshapen logits")
-    for pos, t in ((32, 5), (33, 9)):
-        nxt = torch.tensor([[t]])
-        gd, gc = gpu.decode_step(p1, gc, nxt.to(dev), pos)
-        cd, cc = cpu.decode_step(cp, cc, nxt, pos)
-        errs.append(float((gd.cpu() - cd).abs().max()))
-    print(f"  one-layer full-width {cfg.arch_id} ({cfg.layer_pattern[0]}, "
-          f"MoE FFN), card vs CPU plain versions: prefill max_abs_err "
-          f"{errs[0]:.3e}, decode {errs[1]:.3e} {errs[2]:.3e} (tol 1e-4)",
-          flush=True)
-    check(max(errs) <= 1e-4, f"one-layer model disagrees: {errs}")
-    del cp, cpu, gpu
-
-
 def _picked_experts(torch, model, params, cache, toks, pos):
     """Distinct experts the tick's slots pick, per MoE layer (one decode
     tick on a copy of ``cache`` with `mlp._route` observed)."""
@@ -4608,7 +4659,7 @@ def _picked_experts(torch, model, params, cache, toks, pos):
     return picked
 
 
-def moe_serve_model(torch, dev, cfg, requests, events, reference=None):
+def moe_serve_model(torch, dev, cfg, requests, events, ref_layers=0):
     """Phase 13 for one model: a session drawn on ``dev`` (seed 0), then
     (a) at drop-free capacity and (b) at the published one, each a
     fail -> repair session and an uninterrupted one on the same weights.
@@ -4616,9 +4667,9 @@ def moe_serve_model(torch, dev, cfg, requests, events, reference=None):
     with 16 tokens; each transition's bytes as its plan's KV heads; (a)
     the 24 streams equal the uninterrupted run's and no prefill drops a
     slot; every kernel of the path launched in (b)'s fail -> repair run.
-    Prints (b)'s dropped prefill slots and equal streams. ``reference``
-    runs on the model first (`moe_one_layer_reference`). Returns
-    (launches and flash launches by kind of (b)'s fail -> repair run, the
+    Prints (b)'s dropped prefill slots and equal streams. The first
+    ``ref_layers`` layers are held against the CPU's plain versions first
+    (`layers_reference`). Returns (launches and flash launches by kind of (b)'s fail -> repair run, the
     uninterrupted (b) session, the params count)."""
     from repro_torch.kernels import mode
     from repro_torch.serve import ServeSession
@@ -4639,8 +4690,8 @@ def moe_serve_model(torch, dev, cfg, requests, events, reference=None):
           f"top-{m.top_k}: {n_par / 1e9:.3f} B params f32 "
           f"({n_par * 4 / 1e9:.2f} GB) drawn in {time.perf_counter() - t0:.1f}"
           f" s{mem}", flush=True)
-    if reference is not None:
-        reference(torch, dev, cfg, params)
+    if ref_layers:
+        layers_reference(torch, dev, cfg, params, ref_layers)
     del base
     out = {}
     for label, c in (("drop-free", drop_free(cfg)), ("published", cfg)):
@@ -4769,9 +4820,11 @@ def moe_serve_phase(torch, F, dev):
     launches, variants = dict.fromkeys(SERVE_KERNELS, 0), {}
     for arch in MOE_SERVE_LAYERS:
         cfg = moe_serve_widths(arch)
-        ref = moe_one_layer_reference if arch.startswith("llama4") else None
+        # llama4-scout's first layer (an `attn_chunked` block with the MoE
+        # FFN and its shared expert) against the CPU's plain versions
         (counts, kinds), clean, n_par = moe_serve_model(
-            torch, dev, cfg, *moe_serve_traffic(cfg), reference=ref)
+            torch, dev, cfg, *moe_serve_traffic(cfg),
+            ref_layers=int(arch.startswith("llama4")))
         moe_serve_tick(torch, dev, cfg, clean, n_par)
         print(f"  {arch} kernels {json.dumps(counts)} flash by mask "
               f"{json.dumps(kinds)}; {time.perf_counter() - t0:.1f} s so far",
@@ -4789,6 +4842,446 @@ def moe_serve_phase(torch, F, dev):
           f"flash_attention did not run both masks: {variants}")
     rows = moe_serve_rows(torch, F, dev)
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}, flash by mask {json.dumps(variants)}",
+          flush=True)
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the serving lifecycle and the dense attention archs
+
+DENSE_SERVE_KW = dict(replicas=2, n1=4, slots=8, max_len=96, prefill_len=32,
+                      policy="ntp_pw", quarantine=True)
+# the mixed chain, by router tick: (a class of `repro_torch.runtime`, its
+# fields), or "save" (the session's checkpoint, restored in the restore
+# check); tests/test_torch_serve_lifecycle.py runs it against the JAX
+# package's session
+DENSE_CHAIN = {
+    4: ("FailureEvent", dict(domain=0)),
+    6: ("StragglerEvent", dict(domain=1, slowdown=1.5)),
+    8: ("SdcSuspectEvent", dict(domain=1)),
+    10: ("save", {}),
+    12: ("LinkDegradeEvent", dict(domain=0, bw_frac=0.5)),
+    14: ("SdcClearEvent", dict(domain=1)),
+    16: ("StragglerClearEvent", dict(domain=1, slowdown=1.5)),
+    17: ("LinkRepairEvent", dict(domain=0, bw_frac=0.5)),
+    18: ("RecoveryEvent", dict(domain=0)),
+}
+# (B): each arch's fail -> repair, one arrival a tick
+DENSE_ARCH_CHAIN = {3: ("FailureEvent", dict(domain=0)),
+                    9: ("RecoveryEvent", dict(domain=0))}
+DENSE_ARCH_KW = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
+                     policy="ntp_pw")
+DENSE_ARCHS = ("granite-3-2b", "minitron-4b", "chameleon-34b")
+DENSE_ARCH_LAYERS = 2          # (B)'s depth; (A) serves all 42 layers
+DENSE_REF_LAYERS = 2           # (A)'s layers held against the CPU
+
+
+def dense_traffic(cfg, n=32, prompt_len=24):
+    """``n`` prompts of ``prompt_len`` tokens (seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab_size, size=prompt_len).astype(np.int32)
+            for _ in range(n)]
+
+
+def chain_serve(session, router, request_cls, runtime, prompts, *,
+                max_new=16, per_tick=4, chain=DENSE_CHAIN, save=None):
+    """Drive ``session`` through ``router``: request i arrives at tick
+    i // ``per_tick``; at a tick of ``chain`` its event (a class of the
+    ``runtime`` module, so the tests run the JAX package's session through
+    the same chain) is applied before the tick's dispatch, and a "save"
+    entry calls ``save(session, router)``. Returns a dict: ``streams``
+    {rid: tokens}, ``ticks``, ``wall`` s, ``preempted`` [(tick, event,
+    requests preempted)], ``admits`` [(tick, prefills a replica)] and
+    ``draining`` [(tick, flag a replica)]."""
+    pending = [request_cls(rid=i, prompt=p, max_new=max_new)
+               for i, p in enumerate(prompts)]
+    out = dict(preempted=[], admits=[], draining=[])
+    t0 = time.perf_counter()
+    tick = 0
+    while pending or router.queue or any(e.n_active for e in session.engines):
+        while pending and pending[0].rid // per_tick <= tick:
+            router.submit(pending.pop(0))
+        if tick in chain:
+            name, kw = chain[tick]
+            if name == "save":
+                save(session, router)
+            else:
+                pre = session.apply(getattr(runtime, name)(**kw))
+                router.requeue(pre)
+                out["preempted"].append((tick, name, len(pre)))
+        before = [e.stats["prefills"] for e in session.engines]
+        router.step()
+        out["admits"].append((tick, tuple(
+            e.stats["prefills"] - b for e, b in zip(session.engines, before))))
+        out["draining"].append((tick, tuple(e.draining
+                                            for e in session.engines)))
+        tick += 1
+        check(tick < 2000, "serving did not converge")
+    out.update(streams={r.rid: list(r.generated) for r in router.completed},
+               ticks=tick, wall=time.perf_counter() - t0)
+    return out
+
+
+def chain_checks(run, clean, n_requests, max_new):
+    """(A)'s checks on a `chain_serve` run through `DENSE_CHAIN` against an
+    uninterrupted run of the same traffic: every request complete and its
+    stream equal; the degradation events preempt nothing; replica 1
+    drains, and admits nothing, from the SDC suspicion (tick 8) to its
+    clear (tick 14), and only then."""
+    got, want = run["streams"], clean["streams"]
+    check(len(want) == n_requests
+          and all(len(t) == max_new for t in want.values()),
+          "the uninterrupted run did not complete every request")
+    check(got.keys() == want.keys()
+          and all(len(t) == max_new for t in got.values()),
+          "not every request completed through the chain")
+    diverged = [r for r in want if got[r] != want[r]]
+    check(not diverged, f"token streams diverged through the chain: "
+          f"{diverged}")
+    degraded = [(t, n, p) for t, n, p in run["preempted"]
+                if n not in ("FailureEvent", "RecoveryEvent")]
+    check(all(p == 0 for _, _, p in degraded),
+          f"a degradation event preempted requests: {degraded}")
+    for tick, flags in run["draining"]:
+        check(flags == (False, 8 <= tick < 14),
+              f"tick {tick}: draining {flags}")
+    admits = [a[1] for t, a in run["admits"] if 8 <= t < 14]
+    check(not any(admits), f"replica 1 admitted while draining: {admits}")
+
+
+def restore_serve(session, router_cls, request_cls, runtime, path, queued):
+    """The restore check: ``session`` (the chain's weights, fresh) takes
+    `FailureEvent(domain=1)`, so its replicas run at TP (4, 3), restores
+    the checkpoint at ``path`` and serves to the end what it returns and
+    the requests ``queued`` at the save ((rid, prompt, generated,
+    max_new)). Returns ({rid: tokens}, TP, requests restore returned,
+    requests restored into slots)."""
+    session.apply(runtime.FailureEvent(domain=1))
+    tp = session.replica_tp
+    pre = session.restore(path)
+    restored = {r.rid for e in session.engines for r in e.in_flight}
+    router = router_cls(session)
+    router.requeue(pre)
+    for rid, prompt, generated, max_new in queued:
+        router.submit(request_cls(rid=rid, prompt=prompt, max_new=max_new,
+                                  generated=list(generated)))
+    router.drain()
+    return ({r.rid: list(r.generated) for r in router.completed}, tp,
+            len(pre), restored)
+
+
+def layers_reference(torch, dev, cfg, params, n_layers):
+    """The served model's first ``n_layers`` at full width (its tensors
+    shared with the served model) on the card against the same tensors on
+    the CPU (plain kernel versions): a 32-token prefill and two decode
+    steps, within 1e-4."""
+    from repro_torch.models.transformer import build_model
+
+    cfg1 = dataclasses.replace(cfg, n_layers=n_layers)
+    p1 = dict(params, layers=params["layers"][:n_layers])
+    gpu, cpu = build_model(cfg1, device=dev), build_model(cfg1, device="cpu")
+    cp = _to(p1, "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (1, 32),
+                         generator=torch.Generator().manual_seed(8))
+    gl, gc = gpu.prefill(p1, toks.to(dev), gpu.init_cache(1, 40, torch.float32))
+    cl, cc = cpu.prefill(cp, toks, cpu.init_cache(1, 40, torch.float32))
+    errs = [float((gl.cpu() - cl).abs().max())]
+    check(bool(torch.isfinite(gl).all())
+          and gl.shape == (1, 32, cfg.padded_vocab()),
+          f"{n_layers}-layer model: non-finite or misshapen logits")
+    for pos, t in ((32, 5), (33, 9)):
+        nxt = torch.tensor([[t]])
+        gd, gc = gpu.decode_step(p1, gc, nxt.to(dev), pos)
+        cd, cc = cpu.decode_step(cp, cc, nxt, pos)
+        errs.append(float((gd.cpu() - cd).abs().max()))
+    print(f"  {n_layers}-layer full-width {cfg.arch_id} "
+          f"{cfg.layer_pattern[:n_layers]}, card vs CPU plain versions: "
+          f"prefill max_abs_err {errs[0]:.3e}, decode {errs[1]:.3e} "
+          f"{errs[2]:.3e} (tol 1e-4)", flush=True)
+    check(max(errs) <= 1e-4, f"{n_layers}-layer model disagrees: {errs}")
+    del cp, cpu, gpu
+
+
+def dense_chain_part(torch, dev, cfg, directory, ref_layers=DENSE_REF_LAYERS):
+    """Phase 15 (A): ``cfg`` (gemma2-9b) served by `DENSE_SERVE_KW`
+    sessions (weights from seed 0 on ``dev``) through `DENSE_CHAIN` with
+    32 requests (24 + 16 tokens, four a tick over ticks 0-7), telemetry
+    recorded; an uninterrupted session on the same weights; the restore
+    check from the tick-10 checkpoint (saved without the weights, which
+    the sessions share). Checks `chain_checks`, the restore's TP (4, 3)
+    and streams, and the telemetry fold (serve percentiles and admissions
+    of every request, one `serve.transition` span an event). Returns
+    ((launches, flash launches by kind) of the chain run, the
+    uninterrupted session, the params count)."""
+    from repro_torch import runtime, telemetry
+    from repro_torch.kernels import mode
+    from repro_torch.launch import telemetry_report
+    from repro_torch.serve import Request, Router, ServeSession
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    session = ServeSession.create(cfg, seed=0, device=dev, **DENSE_SERVE_KW)
+    params = session.params
+    _sync(torch, dev)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"  (A) {cfg.arch_id}: {cfg.n_layers} layers {cfg.layer_pattern} "
+          f"(window {cfg.window}), d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.n_kv_heads} KV heads, softcaps "
+          f"{cfg.attn_softcap}/{cfg.final_softcap}, post-norms "
+          f"{cfg.post_norms}: {n_par:,} params f32 ({n_par * 4 / 1e9:.2f} "
+          f"GB) drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    layers_reference(torch, dev, cfg, params, min(ref_layers, cfg.n_layers))
+    prompts = dense_traffic(cfg)
+    path = os.path.join(directory, "serve.npz")
+    saved = {}
+
+    def save(s, router):
+        ts = time.perf_counter()
+        s.save(path, weights=False)
+        saved.update(
+            queue=[(r.rid, r.prompt, list(r.generated), r.max_new)
+                   for r in router.queue],
+            done={r.rid for r in router.completed},
+            seconds=time.perf_counter() - ts, bytes=os.path.getsize(path))
+
+    sink = telemetry.MemorySink(maxlen=None)
+    mode.reset_launches()
+    _sync(torch, dev)
+    with telemetry.recording(telemetry.Recorder(sinks=[sink])):
+        run = chain_serve(session, Router(session), Request, runtime,
+                          prompts, save=save)
+    _sync(torch, dev)
+    launches = (mode.launches(), mode.variant_launches())
+    tokens = sum(e.stats["tokens"] for e in session.engines)
+    print(f"  chain run: {len(run['streams'])} requests, {tokens} tokens "
+          f"in {run['ticks']} ticks, {run['wall']:.2f} s "
+          f"({tokens / run['wall']:.1f} tokens/s); events (tick, kind, "
+          f"preempted) {run['preempted']}; checkpoint at tick 10: "
+          f"{saved['bytes']:,} B in {saved['seconds']:.2f} s, "
+          f"{len(saved['done'])} done, {len(saved['queue'])} queued",
+          flush=True)
+    for t in session.transitions:
+        print(f"    {type(t['event']).__name__:19s} replica {t['replica']}: "
+              f"{t.get('kind', 'reshard'):8s} TP {t['tp_from']}->"
+              f"{t['tp_to']}, preempted {t['preempted']}, rel_speed "
+              f"{t.get('rel_speed', 0):.4f}, boost "
+              f"{t.get('power_boost', 1):.3f}, draining "
+              f"{t.get('draining', False)}, bytes "
+              f"{t.get('reshard', {}).get('bytes_moved', 0):,}", flush=True)
+        if "reshard" in t and t["tp_from"] and t["tp_to"]:
+            _kv_ledger_check(cfg, session.engines[t["replica"]], t["reshard"])
+
+    clean = ServeSession.create(cfg, params=params, device=dev,
+                                **DENSE_SERVE_KW)
+    _sync(torch, dev)
+    want = chain_serve(clean, Router(clean), Request, runtime, prompts,
+                       chain={})
+    _sync(torch, dev)
+    ctok = sum(e.stats["tokens"] for e in clean.engines)
+    print(f"  uninterrupted: {want['ticks']} ticks, {want['wall']:.2f} s "
+          f"({ctok / want['wall']:.1f} tokens/s)", flush=True)
+    chain_checks(run, want, len(prompts), 16)
+    print(f"  all {len(prompts)} streams equal to the uninterrupted run; "
+          f"degradations preempted nothing; replica 1 drained and admitted "
+          f"nothing over ticks 8-13", flush=True)
+
+    doc = telemetry_report.report(sink.events())
+    serve, trans = doc.get("serve", {}), doc.get("transitions", {})
+    spans = sum(row["count"] for k, row in trans.items()
+                if k.startswith("serve.transition:"))
+    n_events = sum(1 for name, _ in DENSE_CHAIN.values() if name != "save")
+    print(f"  telemetry fold: ttft {serve.get('ttft')}, tpot "
+          f"{serve.get('tpot')}, admitted {serve.get('admitted')}, "
+          f"rejected {serve.get('rejected')}, preempted "
+          f"{serve.get('preempted')}, serve.transition spans {spans}",
+          flush=True)
+    check(serve.get("ttft", {}).get("count") == len(prompts)
+          and serve.get("tpot", {}).get("count") == len(prompts)
+          and serve.get("admitted") == len(prompts)
+          and serve.get("rejected") == 0,
+          f"telemetry fold lacks the serve percentiles or admissions: "
+          f"{serve}")
+    check(spans == n_events, f"{spans} serve.transition spans, "
+          f"{n_events} events")
+
+    rs = ServeSession.create(cfg, params=params, device=dev, **DENSE_SERVE_KW)
+    tr = time.perf_counter()
+    got, tp, n_pre, restored = restore_serve(rs, Router, Request, runtime,
+                                             path, saved["queue"])
+    _sync(torch, dev)
+    rest = restored | {q[0] for q in saved["queue"]}
+    print(f"  restore under TP {tp}: {len(restored)} slots restored, "
+          f"{n_pre} returned beyond capacity, {len(saved['queue'])} "
+          f"resubmitted; {len(got)} served to the end in "
+          f"{time.perf_counter() - tr:.2f} s", flush=True)
+    check(tp == (4, 3), f"restore ran at TP {tp}, not (4, 3)")
+    check(got.keys() == set(want["streams"]) - saved["done"]
+          and rest <= got.keys(),
+          f"the restored run served {sorted(got)}")
+    diverged = [r for r in got if got[r] != want["streams"][r]]
+    check(not diverged, f"restored streams diverged: {diverged}")
+    print(f"  all {len(got)} restored streams equal to the uninterrupted "
+          f"run", flush=True)
+    if dev.type == "cuda":
+        print(f"  peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del session, rs
+    return launches, clean, n_par
+
+
+def dense_arch_part(torch, dev, cfg):
+    """Phase 15 (B) for one arch (full width, its depth cut by the caller):
+    the served model against the CPU's plain versions (`layers_reference`),
+    then 8 requests (24 + 16 tokens, one a tick) through `DENSE_ARCH_CHAIN`
+    (TP 4 -> 3 -> 4) beside an uninterrupted run on the same weights:
+    streams equal, every transition's bytes as its plan's KV heads.
+    Returns (launches, flash launches by kind) of the fail -> repair run."""
+    from repro_torch import runtime
+    from repro_torch.kernels import mode
+    from repro_torch.serve import Request, Router, ServeSession
+
+    t0 = time.perf_counter()
+    session = ServeSession.create(cfg, seed=0, device=dev, **DENSE_ARCH_KW)
+    _sync(torch, dev)
+    n_par = sum(t.numel() for t in _leaves(session.params))
+    print(f"  (B) {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.n_kv_heads} KV "
+          f"heads, {cfg.ffn_act}{' gated' if cfg.ffn_gated else ''} d_ff "
+          f"{cfg.d_ff}, qk_norm {cfg.qk_norm}, vocab {cfg.vocab_size}: "
+          f"{n_par:,} params ({n_par * 4 / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    layers_reference(torch, dev, cfg, session.params, cfg.n_layers)
+    prompts = dense_traffic(cfg, n=8)
+    mode.reset_launches()
+    run = chain_serve(session, Router(session), Request, runtime, prompts,
+                      per_tick=1, chain=DENSE_ARCH_CHAIN)
+    _sync(torch, dev)
+    launches = (mode.launches(), mode.variant_launches())
+    clean = ServeSession.create(cfg, params=session.params, device=dev,
+                                **DENSE_ARCH_KW)
+    want = chain_serve(clean, Router(clean), Request, runtime, prompts,
+                       per_tick=1, chain={})
+    e = session.engines[0]
+    tps = [t["tp_to"] for t in session.transitions]
+    moved = [_kv_ledger_check(cfg, e, t["reshard"])
+             for t in session.transitions]
+    equal = sum(run["streams"].get(r) == want["streams"][r]
+                for r in want["streams"])
+    print(f"    fail->repair: {e.stats['tokens']} tokens in {run['ticks']} "
+          f"ticks, {run['wall']:.2f} s; TP path {tps}, KV heads moved "
+          f"{moved}, preemptions {e.stats['preemptions']}; uninterrupted "
+          f"{want['ticks']} ticks; streams equal {equal} of "
+          f"{len(want['streams'])}", flush=True)
+    check(tps == [3, 4], f"TP path {tps} != [3, 4]")
+    check(len(want["streams"]) == len(prompts)
+          and all(len(t) == 16 for t in want["streams"].values()),
+          "the uninterrupted run did not complete every request")
+    check(equal == len(prompts), "fail->repair streams diverged: "
+          f"{[r for r in want['streams'] if run['streams'].get(r) != want['streams'][r]]}")
+    del session, clean, e
+    return launches
+
+
+def dense_serve_widths(arch):
+    """(B)'s ``arch``: full width, depth `DENSE_ARCH_LAYERS`."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=DENSE_ARCH_LAYERS)
+
+
+def dense_serve_rows(torch, F, dev, gemma_kinds, granite_counts):
+    """This path's flash_attention shapes in phase 3's form, f32: gemma2-9b's
+    served prefill (q (1, 16, 32, 256), kv 8, softcap 50, against
+    `flex_attention`; sliding 4096 and global) and granite-3-2b's (q (1, 32,
+    32, 64), kv 8, causal, against SDPA). At S 32 the 4096 window cuts no
+    pair (S > 4096 is out of reach at max_len 96), so the sliding row is
+    the causal row's work under the sliding mask's code. Each row carries
+    its own launches on the path: (A)'s flash launches by mask
+    (``gemma_kinds``) and granite's (``granite_counts``)."""
+    g = torch.Generator(device=dev).manual_seed(1515)
+    rows = {}
+    for kind, label in (("sliding", "sliding 4096, cuts nothing at S 32,"),
+                        ("causal", "causal")):
+        row = flash_row(torch, F, dev, g, torch.float32, (1, 16, 8, 32, 256),
+                        kind, softcap=50.0, label="gemma2-9b ")
+        rows[f"flash_attention gemma2-9b {label} softcap 50"] = dict(
+            launches=gemma_kinds.get(f"flash_attention:{kind}", 0), **row)
+    row = flash_row(torch, F, dev, g, torch.float32, (1, 32, 8, 32, 64),
+                    "causal", label="granite-3-2b ")
+    rows["flash_attention granite-3-2b causal"] = dict(
+        launches=granite_counts["flash_attention"], **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_serve_phase(torch, F, dev):
+    """Phase 15: (A) gemma2-9b at full size through the lifecycle chain and
+    the restore check, its decode tick timed and profiled beside the
+    weight-read floor; (B) granite-3-2b, minitron-4b and chameleon-34b at
+    full width, depth 2, through fail -> repair; then this path's
+    flash_attention rows. One model on the card at a time. Checks every
+    kernel of the path launched, flash_attention with the sliding and the
+    causal mask. Returns (launches summed over (A)'s chain run and (B)'s
+    fail -> repair runs, flash launches by kind, the rows)."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    launches, variants = dict.fromkeys(SERVE_KERNELS, 0), {}
+
+    def add(counts, kinds):
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
+        for k, n in kinds.items():
+            variants[k] = variants.get(k, 0) + n
+
+    cfg = get_arch("gemma2-9b")
+    directory = scratch_dir()
+    try:
+        (counts, kinds), clean, n_par = dense_chain_part(torch, dev, cfg,
+                                                         directory)
+    finally:
+        import shutil
+
+        shutil.rmtree(directory, ignore_errors=True)
+    add(counts, kinds)
+    gemma_kinds = kinds
+    print(f"  (A) kernels {json.dumps(counts)} flash by mask "
+          f"{json.dumps(kinds)}", flush=True)
+    eng = clean.engines[0]
+    toks = torch.ones(8, dtype=torch.long, device=dev)
+    pos = torch.arange(8, device=dev) + 40
+    tick = lambda: eng.model.decode_slots(eng.params, eng.cache,  # noqa: E731
+                                          toks, pos)
+    tick_ms = time_ms(tick, 10)
+    floor_ms = n_par * 4 / MEM_BW * 1e3
+    print(f"  decode tick (8 slots, full model): {tick_ms:.3f} ms; "
+          f"weight-read floor {floor_ms:.3f} ms ({n_par * 4 / 1e9:.2f} GB at "
+          f"3.35 TB/s)", flush=True)
+    profile_steps(torch, tick, "decode tick")
+    del clean, eng, tick
+    torch.cuda.empty_cache()
+    print(f"  (A) {time.perf_counter() - t0:.1f} s", flush=True)
+    by_arch = {}
+    for arch in DENSE_ARCHS:
+        counts, kinds = dense_arch_part(torch, dev, dense_serve_widths(arch))
+        add(counts, kinds)
+        by_arch[arch] = counts
+        torch.cuda.empty_cache()
+        print(f"  {arch} kernels {json.dumps(counts)} flash by mask "
+              f"{json.dumps(kinds)}; {time.perf_counter() - t0:.1f} s so far",
+              flush=True)
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"a kernel of the dense serving path never launched: {launches}")
+    check(variants.get("flash_attention:sliding", 0) > 0
+          and variants.get("flash_attention:causal", 0) > 0,
+          f"flash_attention did not run both masks: {variants}")
+    rows = dense_serve_rows(torch, F, dev, gemma_kinds,
+                            by_arch["granite-3-2b"])
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s; launches "
           f"{json.dumps(launches)}, flash by mask {json.dumps(variants)}",
           flush=True)
     return launches, rows
@@ -4959,6 +5452,19 @@ def moe_serve_only(torch, F):
     return 0
 
 
+def dense_serve_only(torch, F):
+    """``--dense-serve``: build the kernels and run phase 15 alone, print
+    its kernel rows, then exit (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    _, rows = dense_serve_phase(torch, F, torch.device("cuda"))
+    for name, row in rows.items():
+        print(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()),
+              flush=True)
+    return 0
+
+
 def bucket_host_cost_against(torch, checkout):
     """`bucket_host_cost` of this checkout's bucket wrappers beside those
     of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
@@ -5001,6 +5507,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--moe-serve"]:
         return moe_serve_only(torch, F)
+    if sys.argv[1:2] == ["--dense-serve"]:
+        return dense_serve_only(torch, F)
 
     from repro_torch.kernels import build
 
@@ -5094,7 +5602,13 @@ def main() -> int:
           "widths through fail->fail->repair->repair")
     alloc_launches = allocator_phase(torch, dev)
 
-    phase("phase 15: kernels table")
+    phase("phase 15: the serving lifecycle at full size: gemma2-9b through "
+          "failure, straggler, SDC quarantine, save, link and repairs, then "
+          "restored under TP (4, 3); granite-3-2b, minitron-4b and "
+          "chameleon-34b at full width through fail->repair")
+    dense_serve_launches, dense_serve_table = dense_serve_phase(torch, F, dev)
+
+    phase("phase 16: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
@@ -5102,7 +5616,8 @@ def main() -> int:
              (pp_ranks_launches, PP_RANKS_KERNELS),
              (moe_launches, MOE_KERNELS),
              (moe_serve_launches, SERVE_KERNELS),
-             (alloc_launches, ALLOC_KERNELS))
+             (alloc_launches, ALLOC_KERNELS),
+             (dense_serve_launches, SERVE_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -5122,6 +5637,9 @@ def main() -> int:
     for name, row in moe_serve_table.items():
         print(f"  {name} (MoE serving): " + ", ".join(
             f"{k} {v}" for k, v in row.items()), flush=True)
+    for name, row in dense_serve_table.items():
+        print(f"  {name} (dense serving, phase 15): "
+              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

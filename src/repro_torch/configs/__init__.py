@@ -1,8 +1,10 @@
 """Config registry of the port: importing this package registers the archs
-ported so far. qwen2-7b and mamba2-780m are served (`models.transformer`);
-llama4-scout and arctic-480b are registered for the MoE FFN of
-`models.mlp` and the widths of the NTP-MoE prototype, and are not built as
-served models yet (`models.transformer.validate_model_cfg` refuses MoE)."""
+ported so far, each a field-for-field copy of the reference's file. All
+are served (`models.transformer`): the dense attention archs qwen2-7b,
+granite-3-2b, minitron-4b, chameleon-34b (qk-norm) and gemma2-9b
+(post-norms, softcaps, sliding/global alternation); mamba2-780m; and the
+MoE archs llama4-scout and arctic-480b, whose widths also size the
+NTP-MoE prototype."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     EncoderSpec,
@@ -16,8 +18,12 @@ from repro_torch.configs.base import (  # noqa: F401
 
 from repro_torch.configs import (  # noqa: F401,E402
     arctic_480b,
+    chameleon_34b,
+    gemma2_9b,
+    granite_3_2b,
     llama4_scout,
     mamba2_780m,
+    minitron_4b,
     qwen2_7b,
 )
 

@@ -13,7 +13,10 @@ The JAX tree stacks each layer-pattern entry's blocks on a leading cycle
 axis (``layers`` is a tuple with one stacked block dict per pattern entry,
 ``tail`` holds the leftover blocks); the port keeps one block dict per
 layer, in the reference's execution order. Weights keep the ``(in, out)``
-layout, so the two packages compute the same products. An MoE block's FFN
+layout, so the two packages compute the same products. A post-norm block
+(gemma2) carries ``ln1_post``/``ln2_post``. Leaves of blocks the port
+does not run yet — an encoder, absolute position embeddings, cross
+attention, LayerNorm biases, RG-LRU mixers — are refused. An MoE block's FFN
 (the reference's `moe_init`) comes across leaf for leaf: ``router`` (d, E)
 in f32, the expert-stacked ``w_up`` / ``w_gate`` (E, d, ff) and ``w_down``
 (E, ff, d), and the ``shared`` expert or ``dense`` residual MLP; every
@@ -27,6 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import mode
+
+_TOP = {"embed", "final_norm", "lm_head", "layers", "tail"}
+_BLOCK = {"ln1", "ln1_post", "mixer", "ln2", "ffn", "ln2_post"}
 
 
 def _to_torch(tree, device: torch.device):
@@ -49,7 +55,14 @@ def ntp_params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
 def params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """JAX parameter tree of numpy arrays → the port's parameters on
     ``device`` (CUDA unless ``device="cpu"``)."""
-    unknown = set(tree) - {"embed", "final_norm", "lm_head", "layers", "tail"}
+    blocks = list(tree.get("layers", ())) + list(tree.get("tail", ()))
+    unknown = set(tree) - _TOP
+    for block in blocks:
+        unknown |= set(block) - _BLOCK
+        unknown |= {f"{k}/b" for k in block if k.startswith("ln")
+                    and "b" in block[k]}
+        if "lam" in block.get("mixer", {}):
+            unknown.add("mixer/lam")
     if unknown:
         raise ValueError(
             f"params_from_jax: leaves {sorted(unknown)} belong to blocks the "

@@ -21,8 +21,16 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --device cpu --requests 8
 
-Trace replay (``--trace``, ``--trace-mix`` and the flags that shape it),
-telemetry and the Pallas compile switch wait for their slices.
+  # the serving lifecycle: replay a Llama3-calibrated trace with
+  # stragglers, degraded links and SDC suspicions (quarantine drains the
+  # suspect replica), recording the telemetry stream; fold it with
+  # python -m repro_torch.launch.telemetry_report /tmp/s.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --trace 2e2 --trace-mix straggler=1,link=1,sdc=1 --telemetry /tmp/s.jsonl
+
+  # gemma2-9b (post-norms, softcaps, sliding/global) at smoke scale
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+      --device cpu --replicas 2 --requests 16 --trace 2e2
 """
 import argparse
 import time
@@ -53,6 +61,23 @@ def main(argv=None) -> dict:
                     help="per-request completion deadline: arrival + SLO "
                          "ticks (0 = no SLO; admission rejects hopeless "
                          "requests up front)")
+    ap.add_argument("--trace", type=float, default=None, metavar="RATE_MULT",
+                    help="replay a Llama3-calibrated fail/repair trace at "
+                         "this failure-rate multiplier (~2e2 suits the tiny "
+                         "default cluster: hardware repairs take 72-120 "
+                         "ticks, so much hotter rates drown the replica)")
+    ap.add_argument("--trace-seed", type=int, default=0)
+    ap.add_argument("--trace-mix", default=None, metavar="KIND=RATE[,...]",
+                    help="mix degradation kinds into the sampled trace: "
+                         "comma list of straggler=R, link=R, sdc=R onset "
+                         "rates as multiples of the binary failure rate "
+                         "(e.g. straggler=0.5,sdc=0.1); needs --trace")
+    ap.add_argument("--quarantine", choices=["on", "off"], default="on",
+                    help="SDC policy (default on): drain the suspect "
+                         "replica (in-flight requests finish, no new "
+                         "admits) until the clear; off = reprice only")
+    ap.add_argument("--ticks-per-hour", type=float, default=1.0,
+                    help="serving wall ticks per simulated trace hour")
     ap.add_argument("--max-ticks", type=int, default=5000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=25)
@@ -62,12 +87,44 @@ def main(argv=None) -> dict:
                          "with its reshard_pack kernel")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain kernel versions)")
+    ap.add_argument("--telemetry", default=None, metavar="OUT.jsonl",
+                    help="record the run's telemetry stream (admission, "
+                         "preemptions, TTFT/TPOT, transition spans) as "
+                         "JSONL; fold it offline with python -m "
+                         "repro_torch.launch.telemetry_report OUT.jsonl")
     args = ap.parse_args(argv)
+    args.trace_mix_kwargs = {}
+    if args.trace_mix is not None:
+        if args.trace is None:
+            ap.error("--trace-mix needs --trace (the mix rates scale the "
+                     "same sampled trace)")
+        from repro_torch.core.failure_model import parse_trace_mix
 
+        try:
+            args.trace_mix_kwargs = parse_trace_mix(args.trace_mix)
+        except ValueError as e:
+            ap.error(f"--trace-mix: {e}")
+    if args.quarantine == "off" and args.trace is None:
+        ap.error("--quarantine shapes the trace-driven SDC response; it "
+                 "needs --trace")
+    if args.telemetry:
+        from repro_torch import telemetry
+
+        telemetry.configure(jsonl=args.telemetry)
+        try:
+            return _serve(args)
+        finally:
+            telemetry.shutdown()
+    return _serve(args)
+
+
+def _serve(args) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.failure_model import FailureTraceConfig
+    from repro_torch.runtime import event_kind, schedule_from_trace
     from repro_torch.serve import Request, Router, ServeSession
 
     cfg = get_arch(args.arch)
@@ -78,12 +135,30 @@ def main(argv=None) -> dict:
         cfg, replicas=args.replicas, n1=args.tp, slots=args.slots,
         max_len=args.max_len, prefill_len=args.prefill_len,
         policy=args.policy, seed=args.seed, device=args.device,
+        quarantine=args.quarantine == "on",
     )
     router = Router(session)
     n_par = sum(p.numel() for p in _leaves(session.params))
     print(f"serve: arch={cfg.arch_id} params={n_par/1e6:.1f}M "
           f"replicas={args.replicas}×TP{args.tp} slots={args.slots} "
           f"policy={args.policy} device={session.device}")
+
+    schedule = []
+    if args.trace is not None:
+        trace_cfg = FailureTraceConfig(
+            n_gpus=args.replicas * args.tp, domain_size=args.tp,
+            days=args.max_ticks / args.ticks_per_hour / 24.0,
+            rate_multiplier=args.trace, seed=args.trace_seed,
+            **args.trace_mix_kwargs,
+        )
+        schedule = schedule_from_trace(
+            trace_cfg, steps=args.max_ticks, steps_per_hour=args.ticks_per_hour
+        )
+        from collections import Counter
+
+        kinds = Counter(event_kind(s.event) for s in schedule)
+        print(f"trace: {len(schedule)} events "
+              f"({', '.join(f'{k}={n}' for k, n in sorted(kinds.items()))})")
 
     rng = np.random.default_rng(args.seed)
     arrivals = np.cumsum(
@@ -104,6 +179,12 @@ def main(argv=None) -> dict:
     next_req = 0
     tick = 0
     while tick < args.max_ticks:
+        while schedule and schedule[0].step <= tick:
+            ev = schedule.pop(0).event
+            router.apply(ev)
+            print(f"*** tick {tick}: {event_kind(ev)} domain {ev.domain} -> "
+                  f"tp {session.replica_tp} "
+                  f"speeds {[round(e.rel_speed, 3) for e in session.engines]}")
         while next_req < len(reqs) and arrivals[next_req] <= tick:
             router.submit(reqs[next_req])
             next_req += 1

@@ -21,7 +21,8 @@ batch axis is the slot axis, and `decode_slots` advances every slot at its
 own position in one batched step (the slot dimension written out where the
 reference vmaps). Caches are updated in place.
 
-RMSNorm (ln1, ln2, final_norm, the SSD gated norm) runs the hand-written
+RMSNorm (ln1, ln2, the post-norms ln1_post/ln2_post of a post-norm
+block, final_norm, the SSD gated norm) runs the hand-written
 `kernels.rmsnorm`; prefill attention runs `kernels.flash_attention`; the
 SSD prefill scan runs `kernels.ssd_scan`.
 """
@@ -71,12 +72,16 @@ def block_init(cfg: ArchConfig, gen: torch.Generator, dtype,
         p["mixer"] = ssm_mod.ssm_init(cfg, gen, dtype)
     else:
         p["mixer"] = attn_mod.attn_init(cfg, gen, dtype)
+    if cfg.post_norms:
+        p["ln1_post"] = norm_init(cfg, dtype, gen.device)
     if _has_ffn(cfg, kind):
         p["ln2"] = norm_init(cfg, dtype, gen.device)
         if _moe_ffn(cfg, kind):
             p["ffn"] = mlp_mod.moe_init(cfg, gen, dtype)
         else:
             p["ffn"] = mlp_mod.mlp_init(cfg, gen, dtype)
+        if cfg.post_norms:
+            p["ln2_post"] = norm_init(cfg, dtype, gen.device)
     return p
 
 
@@ -84,7 +89,9 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
                 cache: Optional[dict], cache_pos, slots: bool = False):
     """Returns (x, cache). ``slots``: ``x`` is a decode tick of one token a
     serving slot, and an MoE FFN dispatches each slot on its own
-    (`mlp.moe_apply_slots`); otherwise its capacity is per call."""
+    (`mlp.moe_apply_slots`); otherwise its capacity is per call. A
+    post-norm block (gemma2) normalizes the mixer's and the FFN's output
+    before its residual add."""
     h = norm_apply(cfg, p["ln1"], x)
     if kind == "ssm":
         out, cache = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=cache,
@@ -93,15 +100,20 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
         out, cache = attn_mod.attn_apply(
             cfg, p["mixer"], h, kind=kind, cache=cache, cache_pos=cache_pos,
         )
+    if cfg.post_norms:
+        out = norm_apply(cfg, p["ln1_post"], out)
     x = x + out
     if _has_ffn(cfg, kind):
         h2 = norm_apply(cfg, p["ln2"], x)
         if not _moe_ffn(cfg, kind):
-            x = x + mlp_mod.mlp_apply(cfg, p["ffn"], h2)
+            out = mlp_mod.mlp_apply(cfg, p["ffn"], h2)
         elif slots:
-            x = x + mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
+            out = mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
         else:
-            x = x + mlp_mod.moe_apply(cfg, p["ffn"], h2)[0]
+            out = mlp_mod.moe_apply(cfg, p["ffn"], h2)[0]
+        if cfg.post_norms:
+            out = norm_apply(cfg, p["ln2_post"], out)
+        x = x + out
     return x, cache
 
 
@@ -111,8 +123,8 @@ SERVED_ATTN_KINDS = ("attn", "attn_sw", "attn_chunked")
 def validate_model_cfg(cfg: ArchConfig) -> None:
     """The blocks the port runs so far: causal self-attention with RoPE —
     full, sliding-window or chunked, in any pattern — and a dense or MoE
-    FFN, or Mamba-2 SSD blocks (no FFN, no RoPE), with RMSNorm and no
-    post-norms. Other archs wait for their slices."""
+    FFN, or Mamba-2 SSD blocks (no FFN, no RoPE), with RMSNorm, pre-norm
+    or with post-norms too (gemma2). Other archs wait for their slices."""
     kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
     what = f"{cfg.arch_id}: the port serves"
     if cfg.encoder is not None:
@@ -120,9 +132,6 @@ def validate_model_cfg(cfg: ArchConfig) -> None:
     if cfg.norm_type != "rms":
         raise ValueError(f"{what} RMSNorm only so far; got norm_type="
                          f"{cfg.norm_type!r}")
-    if cfg.post_norms:
-        raise ValueError(f"{what} pre-norm blocks only so far; got "
-                         "post_norms=True")
     if kinds <= set(SERVED_ATTN_KINDS):
         if cfg.d_ff > 0 and cfg.use_rope:
             return

@@ -145,6 +145,7 @@ class ServeEngine:
             self._unit_resolver(name)
         self.last_reshard: Dict = {}
         self.dead = False
+        self.draining = False                # SDC quarantine: no new admits
         self.rel_speed = 1.0                 # tokens per wall tick (<= 1)
         self.power_boost = 1.0
         self._credit = 0.0
@@ -178,7 +179,8 @@ class ServeEngine:
         return max(1, (self.slots * self._tp) // self.n1)
 
     def can_admit(self) -> bool:
-        return (not self.dead) and self.n_active < self.capacity
+        return ((not self.dead) and (not self.draining)
+                and self.n_active < self.capacity)
 
     @property
     def in_flight(self) -> List[Request]:

@@ -43,6 +43,14 @@ LOG2E = 1.4426950408889634
 NEG = -1e30
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _allowed(kind, window, chunk, qp, kp):
     if kind == "bidir":
         return torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),

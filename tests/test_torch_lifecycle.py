@@ -59,6 +59,14 @@ CHIP_TRACE = dict(n_gpus=8, domain_size=4, days=16 / 1.0 / 24.0,
 CHIP_STEPS, CHIP_STEPS_PER_HOUR = 16, 1.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ------------------------------------------------------------ PowerPolicy
 
 PLANS = [(4, 4), (3, 4), (2, 4), (1, 4), (2, 3), (4, 4, 4), (3, 3)]

@@ -334,20 +334,24 @@ def _flatten(prefix, obj, out):
 
 
 @pytest.mark.parametrize("key", ["table1_settings", "throughput_loss_curve",
-                                 "steady_state_failed_fraction"])
+                                 "steady_state_failed_fraction",
+                                 "serving_goodput"])
 def test_analytic_layer_matches_golden(key):
-    """The port's analytic values against the golden file, key by key. Its
-    fourth key, ``serving_goodput``, is computed by
-    `serve/router.py::serving_goodput_trace`, which the port does not have
-    yet (ROADMAP Queue 1 item 7), so it is not compared here."""
+    """The port's analytic values against the golden file, key by key, as
+    tests/test_golden_analytic.py computes them: ``serving_goodput`` by
+    `repro_torch.serve.serving_goodput_trace` on a 5-day trace at 50x the
+    failure rate (seed 1)."""
+    from repro_torch.serve import serving_goodput_trace
+
     with open(GOLDEN) as f:
         golden = json.load(f)[key]
     spec = tav.ClusterSpec(n_gpus=4096, domain_size=32, domains_per_replica=4)
+    spec_keys = {"n_gpus": spec.n_gpus, "domain_size": spec.domain_size,
+                 "domains_per_replica": spec.domains_per_replica}
     actual = {
         "table1_settings": lambda: tpol.table1_settings(),
         "throughput_loss_curve": lambda: {
-            "spec": {"n_gpus": spec.n_gpus, "domain_size": spec.domain_size,
-                     "domains_per_replica": spec.domains_per_replica},
+            "spec": spec_keys,
             "failed_fractions": [1e-3, 2e-3, 4e-3], "samples": 4, "seed": 0,
             "curves": tpol.throughput_loss_curve(spec, [1e-3, 2e-3, 4e-3],
                                                  samples=4, seed=0)},
@@ -356,6 +360,12 @@ def test_analytic_layer_matches_golden(key):
                 tfm.FailureTraceConfig()),
             "rate_3x": tfm.steady_state_failed_fraction(
                 tfm.FailureTraceConfig(rate_multiplier=3.0))},
+        "serving_goodput": lambda: {
+            "spec": spec_keys,
+            "trace": {"days": 5.0, "rate_multiplier": 50.0, "seed": 1},
+            "curves": serving_goodput_trace(spec, tfm.FailureTraceConfig(
+                n_gpus=spec.n_gpus, domain_size=spec.domain_size, days=5.0,
+                rate_multiplier=50.0, seed=1))},
     }[key]()
     want, got = {}, {}
     _flatten(key, golden, want)

@@ -53,6 +53,14 @@ KW = dict(d_model=64, n_kv_groups=4, q_per_kv=2, head_dim=16, d_ff=256,
 LR, LB, STEPS, SEQ = 0.05, 4, 6, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(n_layers):
     return (jnt.NTPModelConfig(n_layers=n_layers, **KW),
             tnt.NTPModelConfig(n_layers=n_layers, **KW))
