@@ -297,16 +297,41 @@ Phases (any failure exits non-zero):
    Then flash_attention at gemma2's prefill (D 256, softcap 50, sliding
    and global, against a compiled `flex_attention`) and granite's (D 64,
    against SDPA), each row with its own launches on the path;
-16. print the kernels table as one JSON line (launches summed over the
+16. the recurrent and encoder-decoder archs served at full size, one
+   model on the card at a time, f32, weights from seed 0, each on one
+   replica x n1 4, 8 slots, max_len 64, prefill 16, NTP-PW, with 12
+   requests (8 + 8 tokens, four a tick) through `HYBRID_CHAIN` (fail at
+   ticks 3 and 5, repair at 9 and 11: TP 4→3→2→3→4, with preemptions)
+   beside an uninterrupted session on the same weights
+   (`hybrid_model_part`): (A) recurrentgemma-9b (38 layers of (rglru,
+   rglru, attn_sw), two of them tail layers; d 4096, 16 heads of 256, one
+   KV head, sliding 2048, RG-LRU width 4096 in 32 blocks of 128, GeGLU
+   d_ff 12,288, tied vocab 256,000; 34.21 GB), admitted token by token,
+   its first three layers held against the CPU's plain versions (logits
+   within max(1e-4, 5e-6 x max |logit|));
+   (B) whisper-small (12 encoder + 12 decoder layers, d 768, 12 heads of
+   64, LayerNorm, pos_embed 65,536 x 768, GELU, tied vocab 51,865), each
+   request with a seeded (1500, 768) `enc_input`, its encoder and first
+   decoder layer held against the CPU. Checks: 12 of 12 streams equal;
+   each transition's bytes equal to its plans' units (gate blocks over
+   h/conv, KV heads over the rings, encoder heads over ek/ev) times a
+   unit's bytes; each model's kernels launched in its chain run ((A)
+   rmsnorm and reshard_pack, (B) reshard_pack and flash_attention bidir
+   and causal, counted by kind). Printed: the peak memory of each stage,
+   one admission's ms, (A)'s decode tick (8 slots) timed and profiled
+   beside the weight-read floor.
+   Then flash_attention at whisper's encoder (q (1, 12, 1500, 64), bidir,
+   f32) against its plain version and SDPA, with its launches on the path;
+17. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
-   serving, allocator and dense serving paths, each counted from zero just
-   before it), then the device line.
+   serving, allocator, dense serving and hybrid serving paths, each
+   counted from zero just before it), then the device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
 alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13, ``--allocator``
-phase 14, ``--dense-serve`` phase 15).
+phase 14, ``--dense-serve`` phase 15, ``--hybrid-serve`` phase 16).
 """
 import contextlib
 import dataclasses
@@ -488,7 +513,9 @@ def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
         mask &= qp[None, :] > qp[:, None] - window
     elif kind == "chunked":
         mask &= qp[None, :] // chunk == qp[:, None] // chunk
-    attn_mask = None if kind == "causal" else mask
+    elif kind == "bidir":
+        mask |= True
+    attn_mask = None if kind in ("causal", "bidir") else mask
     if softcap is None:
         libs = {"SDPA": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=kind == "causal",
@@ -4887,17 +4914,23 @@ def dense_traffic(cfg, n=32, prompt_len=24):
 
 
 def chain_serve(session, router, request_cls, runtime, prompts, *,
-                max_new=16, per_tick=4, chain=DENSE_CHAIN, save=None):
+                max_new=16, per_tick=4, chain=DENSE_CHAIN, save=None,
+                enc=None, apply=None):
     """Drive ``session`` through ``router``: request i arrives at tick
-    i // ``per_tick``; at a tick of ``chain`` its event (a class of the
+    i // ``per_tick`` (with ``enc[i]`` as its ``enc_input`` when ``enc``
+    is given); at a tick of ``chain`` its event (a class of the
     ``runtime`` module, so the tests run the JAX package's session through
     the same chain) is applied before the tick's dispatch, and a "save"
-    entry calls ``save(session, router)``. Returns a dict: ``streams``
+    entry calls ``save(session, router)``; ``apply`` (an event → the
+    requests it preempted) stands in for ``session.apply``, e.g. a probe
+    around each event. Returns a dict: ``streams``
     {rid: tokens}, ``ticks``, ``wall`` s, ``preempted`` [(tick, event,
     requests preempted)], ``admits`` [(tick, prefills a replica)] and
     ``draining`` [(tick, flag a replica)]."""
     pending = [request_cls(rid=i, prompt=p, max_new=max_new)
                for i, p in enumerate(prompts)]
+    for r, x in zip(pending, enc or ()):
+        r.enc_input = x
     out = dict(preempted=[], admits=[], draining=[])
     t0 = time.perf_counter()
     tick = 0
@@ -4909,7 +4942,7 @@ def chain_serve(session, router, request_cls, runtime, prompts, *,
             if name == "save":
                 save(session, router)
             else:
-                pre = session.apply(getattr(runtime, name)(**kw))
+                pre = (apply or session.apply)(getattr(runtime, name)(**kw))
                 router.requeue(pre)
                 out["preempted"].append((tick, name, len(pre)))
         before = [e.stats["prefills"] for e in session.engines]
@@ -4973,11 +5006,14 @@ def restore_serve(session, router_cls, request_cls, runtime, path, queued):
             len(pre), restored)
 
 
-def layers_reference(torch, dev, cfg, params, n_layers):
+def layers_reference(torch, dev, cfg, params, n_layers, enc_input=None,
+                     logits_rtol=0.0):
     """The served model's first ``n_layers`` at full width (its tensors
-    shared with the served model) on the card against the same tensors on
-    the CPU (plain kernel versions): a 32-token prefill and two decode
-    steps, within 1e-4."""
+    shared with the served model; an enc-dec model's whole encoder, over
+    ``enc_input`` (1, enc_seq, d) on the CPU) on the card against the same
+    tensors on the CPU (plain kernel versions): a 32-token prefill and two
+    decode steps, each's logits within max(1e-4, ``logits_rtol`` x the
+    CPU's max |logit|)."""
     from repro_torch.models.transformer import build_model
 
     cfg1 = dataclasses.replace(cfg, n_layers=n_layers)
@@ -4986,9 +5022,13 @@ def layers_reference(torch, dev, cfg, params, n_layers):
     cp = _to(p1, "cpu")
     toks = torch.randint(1, cfg.vocab_size, (1, 32),
                          generator=torch.Generator().manual_seed(8))
-    gl, gc = gpu.prefill(p1, toks.to(dev), gpu.init_cache(1, 40, torch.float32))
-    cl, cc = cpu.prefill(cp, toks, cpu.init_cache(1, 40, torch.float32))
+    genc = None if enc_input is None else enc_input.to(dev)
+    gl, gc = gpu.prefill(p1, toks.to(dev), gpu.init_cache(1, 40, torch.float32),
+                         enc_input=genc)
+    cl, cc = cpu.prefill(cp, toks, cpu.init_cache(1, 40, torch.float32),
+                         enc_input=enc_input)
     errs = [float((gl.cpu() - cl).abs().max())]
+    tols = [max(1e-4, logits_rtol * float(cl.abs().max()))]
     check(bool(torch.isfinite(gl).all())
           and gl.shape == (1, 32, cfg.padded_vocab()),
           f"{n_layers}-layer model: non-finite or misshapen logits")
@@ -4997,11 +5037,17 @@ def layers_reference(torch, dev, cfg, params, n_layers):
         gd, gc = gpu.decode_step(p1, gc, nxt.to(dev), pos)
         cd, cc = cpu.decode_step(cp, cc, nxt, pos)
         errs.append(float((gd.cpu() - cd).abs().max()))
+        tols.append(max(1e-4, logits_rtol * float(cd.abs().max())))
+    limit = ("tol 1e-4" if not logits_rtol else
+             f"tol max(1e-4, {logits_rtol:g} x max |logit|): "
+             + " ".join(f"{t:.3e}" for t in tols) + f"; max |logit| "
+             f"{float(cl.abs().max()):.2f}")
     print(f"  {n_layers}-layer full-width {cfg.arch_id} "
           f"{cfg.layer_pattern[:n_layers]}, card vs CPU plain versions: "
-          f"prefill max_abs_err {errs[0]:.3e}, decode {errs[1]:.3e} "
-          f"{errs[2]:.3e} (tol 1e-4)", flush=True)
-    check(max(errs) <= 1e-4, f"{n_layers}-layer model disagrees: {errs}")
+          f"prefill max_abs_err {errs[0]:.3e}, decode logits {errs[1]:.3e} "
+          f"{errs[2]:.3e} ({limit})", flush=True)
+    check(all(e <= t for e, t in zip(errs, tols)),
+          f"{n_layers}-layer model disagrees: {errs} against {tols}")
     del cp, cpu, gpu
 
 
@@ -5287,6 +5333,268 @@ def dense_serve_phase(torch, F, dev):
     return launches, rows
 
 
+HYBRID_SERVE_KW = dict(replicas=1, n1=4, slots=8, max_len=64, prefill_len=16,
+                       policy="ntp_pw")
+# fail, fail, repair, repair: TP 4 -> 3 -> 2 -> 3 -> 4, by router tick
+HYBRID_CHAIN = {3: ("FailureEvent", dict(domain=0)),
+                5: ("FailureEvent", dict(domain=0)),
+                9: ("RecoveryEvent", dict(domain=0)),
+                11: ("RecoveryEvent", dict(domain=0))}
+HYBRID_REQ, HYBRID_PROMPT, HYBRID_NEW, HYBRID_PER_TICK = 12, 8, 8, 4
+HYBRID_REF_LAYERS = {"recurrentgemma-9b": 3, "whisper-small": 1}
+# the held layers' logits: max(1e-4, this x max |logit|) (recurrentgemma's
+# tied head puts its prefill logits near 60, where the f32 head product on
+# the card alone differs from f64 by ~1.2e-4)
+HYBRID_LOGITS_RTOL = 5e-6
+# what each model's chain run must launch (kernels, flash by mask)
+HYBRID_KERNELS = {"recurrentgemma-9b": ("rmsnorm", "reshard_pack"),
+                  "whisper-small": ("reshard_pack", "flash_attention:bidir",
+                                    "flash_attention:causal")}
+
+
+def hybrid_traffic(cfg):
+    """`HYBRID_REQ` prompts of `HYBRID_PROMPT` tokens (seed 0) and, for an
+    enc-dec config, one seeded (enc_seq, d_model) f32 ``enc_input`` a
+    request (seed 1; else None)."""
+    import numpy as np
+
+    prompts = dense_traffic(cfg, n=HYBRID_REQ, prompt_len=HYBRID_PROMPT)
+    if cfg.encoder is None:
+        return prompts, None
+    rng = np.random.default_rng(1)
+    shape = (cfg.encoder.enc_seq, cfg.d_model)
+    return prompts, [(rng.standard_normal(shape) * 0.1).astype(np.float32)
+                     for _ in range(HYBRID_REQ)]
+
+
+def _state_ledger_check(cfg, engine, st):
+    """A transition's bytes: for every leaf of the cache, the units its
+    family's plan moves times one unit's bytes on that leaf (RG-LRU
+    blocks on h/conv, KV heads on the k/v rings, encoder heads on ek/ev),
+    as `reshard.state.ShardedState` counts them. Returns the units moved
+    by family."""
+    from repro_torch.reshard import planner
+    from repro_torch.reshard.units import cache_unit_resolver
+
+    res, n1 = cache_unit_resolver(cfg), engine.n1
+    want, moved = 0, {}
+    for name, t in engine.cache.items():
+        spec = res(name)
+        plan = planner.transition_plan(
+            planner.sync_key(spec.k, n1, st["tp_from"]),
+            planner.sync_key(spec.k, n1, st["tp_to"]), spec.k, spec.k)
+        unit = t.numel() // t.shape[spec.axis] * spec.unit
+        want += plan.n_moved * unit * t.element_size()
+        moved[spec.kind] = plan.n_moved
+    check(st["bytes_moved"] == want,
+          f"TP {st['tp_from']}->{st['tp_to']}: {st['bytes_moved']} B moved, "
+          f"the plans' units {moved} make {want} B")
+    return moved
+
+
+def peak_probe(torch, apply, peaks):
+    """``apply`` wrapped so that each event appends to ``peaks`` the peak
+    device memory allocated since the last reset (the ticks before it) and
+    the peak inside the event's transition, in GB."""
+    def probed(event):
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        pre = apply(event)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        return pre
+    return probed
+
+
+def hybrid_model_part(torch, dev, cfg, ref_layers):
+    """Phase 16 for one model: a session drawn on ``dev`` (seed 0,
+    `HYBRID_SERVE_KW`), its first ``ref_layers`` layers (and an enc-dec
+    model's encoder) held against the CPU's plain versions
+    (`layers_reference`), then `HYBRID_REQ` requests (`hybrid_traffic`,
+    `HYBRID_PER_TICK` a tick, `HYBRID_NEW` new tokens each) through
+    `HYBRID_CHAIN` beside an uninterrupted session on the same weights.
+    Checks: TP path [3, 2, 3, 4] with preemptions; every stream complete
+    and equal; each transition's bytes as its plans' (`_state_ledger_check`);
+    on the card, each of the model's `HYBRID_KERNELS` launched in the
+    chain run (the peak memory of each stage printed). Returns ((launches,
+    flash launches by kind) of the chain run, the uninterrupted session,
+    the params count)."""
+    from repro_torch import runtime
+    from repro_torch.kernels import mode
+    from repro_torch.serve import Request, Router, ServeSession
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    session = ServeSession.create(cfg, seed=0, device=dev, **HYBRID_SERVE_KW)
+    params = session.params
+    _sync(torch, dev)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers {cfg.layer_pattern}, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"{cfg.n_kv_heads} KV heads, norm {cfg.norm_type}, rope "
+          f"{cfg.use_rope}, encoder {cfg.encoder}, vocab {cfg.vocab_size}: "
+          f"{n_par:,} params f32 ({n_par * 4 / 1e9:.2f} GB; n_params() "
+          f"{cfg.n_params():,}) drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts, enc = hybrid_traffic(cfg)
+    tr = time.perf_counter()
+    mem = dict(created=torch.cuda.max_memory_allocated() / 1e9) if cuda \
+        else {}
+    layers_reference(torch, dev, cfg, params, min(ref_layers, cfg.n_layers),
+                     None if enc is None else torch.from_numpy(enc[0])[None],
+                     logits_rtol=HYBRID_LOGITS_RTOL)
+    print(f"    held against the CPU in {time.perf_counter() - tr:.1f} s",
+          flush=True)
+    peaks = []
+    if cuda:
+        mem["held against the CPU"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    mode.reset_launches()
+    _sync(torch, dev)
+    run = chain_serve(session, Router(session), Request, runtime, prompts,
+                      max_new=HYBRID_NEW, per_tick=HYBRID_PER_TICK,
+                      chain=HYBRID_CHAIN, enc=enc,
+                      apply=peak_probe(torch, session.apply, peaks) if cuda
+                      else None)
+    _sync(torch, dev)
+    launches = (mode.launches(), mode.variant_launches())
+    if cuda:
+        mem["chain run after its last transition"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    clean = ServeSession.create(cfg, params=params, device=dev,
+                                **HYBRID_SERVE_KW)
+    want = chain_serve(clean, Router(clean), Request, runtime, prompts,
+                       max_new=HYBRID_NEW, per_tick=HYBRID_PER_TICK, chain={},
+                       enc=enc)
+    _sync(torch, dev)
+    if cuda:
+        mem["uninterrupted run (both sessions' caches)"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    e = session.engines[0]
+    tps = [t["tp_to"] for t in session.transitions]
+    moved = [_state_ledger_check(cfg, e, t["reshard"])
+             for t in session.transitions]
+    equal = sum(run["streams"].get(r) == want["streams"][r]
+                for r in want["streams"])
+    print(f"    fail->repair: {e.stats['tokens']} tokens in {run['ticks']} "
+          f"ticks, {run['wall']:.2f} s; TP path {tps}, preempted "
+          f"{[p for _, _, p in run['preempted']]}, prefills "
+          f"{e.stats['prefills']}; uninterrupted {want['ticks']} ticks, "
+          f"{want['wall']:.2f} s; streams equal {equal} of "
+          f"{len(want['streams'])}", flush=True)
+    for t, m in zip(session.transitions, moved):
+        print(f"      TP {t['tp_from']}->{t['tp_to']}: units moved {m}, "
+              f"bytes {t['reshard']['bytes_moved']:,} (as the plans')",
+              flush=True)
+    check(tps == [3, 2, 3, 4], f"TP path {tps} != [3, 2, 3, 4]")
+    check(e.stats["preemptions"] > 0, "the chain preempted nothing")
+    check(len(want["streams"]) == len(prompts)
+          and all(len(t) == HYBRID_NEW for t in want["streams"].values()),
+          "the uninterrupted run did not complete every request")
+    check(equal == len(prompts), "fail->repair streams diverged: "
+          f"{[r for r in want['streams'] if run['streams'].get(r) != want['streams'][r]]}")
+    if cuda:
+        ran = {**launches[0], **launches[1]}
+        print("    peak device memory allocated (GB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in mem.items()) + "; chain run before / "
+            "inside each transition " + ", ".join(
+                f"{a:.2f} / {b:.2f}" for a, b in zip(peaks[::2], peaks[1::2])),
+            flush=True)
+        check(all(ran.get(k, 0) > 0 for k in HYBRID_KERNELS[cfg.arch_id]),
+              f"{cfg.arch_id}: a kernel of its serving path never launched: "
+              f"{ran}, needs {HYBRID_KERNELS[cfg.arch_id]}")
+    del session, e
+    return launches, clean, n_par
+
+
+def admission_ms(torch, clean, prompt, enc_input):
+    """Milliseconds of one admission's model work (CUDA events, mean of
+    3): the padded prefill (with the encoder) of an attention model, or
+    the length-1 prefill and teacher-forced steps of a recurrent one, on
+    a fresh one-row cache."""
+    eng = clean.engines[0]
+    toks = eng._tokens(prompt)
+    enc = None if enc_input is None else torch.from_numpy(enc_input)[None].to(
+        eng.device)
+
+    def admit():
+        cache = eng.model.init_cache(1, eng.max_len, torch.float32)
+        if eng._recurrent:
+            eng.model.prefill(eng.params, toks[None, :1], cache,
+                              enc_input=enc)
+            for pos in range(1, len(prompt)):
+                eng.model.decode_step(eng.params, cache,
+                                      toks[None, pos:pos + 1], pos)
+        else:
+            padded = torch.zeros((1, eng.prefill_len), dtype=torch.long,
+                                 device=eng.device)
+            padded[0, :len(prompt)] = toks
+            eng.model.prefill(eng.params, padded, cache, enc_input=enc)
+
+    return time_ms(admit, 3)
+
+
+def hybrid_serve_phase(torch, F, dev):
+    """Phase 16: (A) recurrentgemma-9b at full size and (B) whisper-small
+    at full size, one on the card at a time, each through
+    `hybrid_model_part`; (A)'s admission and decode tick timed (CUDA
+    events) and profiled beside the weight-read floor, (B)'s admission
+    timed; then flash_attention at whisper's encoder shape (bidir, f32)
+    against its plain version and SDPA. Returns
+    (launches summed over both chain runs, the row)."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    launches, variants = dict.fromkeys(SERVE_KERNELS, 0), {}
+    for part, (arch, ref_layers) in zip("AB", HYBRID_REF_LAYERS.items()):
+        cfg = get_arch(arch)
+        print(f"  ({part})", flush=True)
+        (counts, kinds), clean, n_par = hybrid_model_part(torch, dev, cfg,
+                                                          ref_layers)
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
+        for k, n in kinds.items():
+            variants[k] = variants.get(k, 0) + n
+        print(f"    kernels {json.dumps(counts)} flash by mask "
+              f"{json.dumps(kinds)}", flush=True)
+        prompts, enc = hybrid_traffic(cfg)
+        ms = admission_ms(torch, clean, prompts[0],
+                          None if enc is None else enc[0])
+        print(f"    one admission ({HYBRID_PROMPT}-token prompt"
+              f"{', token by token' if clean.engines[0]._recurrent else ''}"
+              f"{', the encoder over ' + str(cfg.encoder.enc_seq) + ' frames' if enc else ''}"
+              f"): {ms:.3f} ms", flush=True)
+        if arch == "recurrentgemma-9b":
+            eng = clean.engines[0]
+            toks = torch.ones(8, dtype=torch.long, device=dev)
+            pos = torch.arange(8, device=dev) + 40
+            tick = lambda: eng.model.decode_slots(  # noqa: E731
+                eng.params, eng.cache, toks, pos)
+            tick_ms = time_ms(tick, 10)
+            floor_ms = n_par * 4 / MEM_BW * 1e3
+            print(f"    decode tick (8 slots, full model): {tick_ms:.3f} ms; "
+                  f"weight-read floor {floor_ms:.3f} ms ({n_par * 4 / 1e9:.2f}"
+                  f" GB at 3.35 TB/s)", flush=True)
+            profile_steps(torch, tick, "decode tick")
+            del eng, tick
+        del clean
+        torch.cuda.empty_cache()
+        print(f"    {time.perf_counter() - t0:.1f} s so far", flush=True)
+    g = torch.Generator(device=dev).manual_seed(1616)
+    row = flash_row(torch, F, dev, g, torch.float32, (1, 12, 12, 1500, 64),
+                    "bidir", label="whisper-small encoder ")
+    rows = {"flash_attention whisper-small encoder bidir": dict(
+        launches=variants["flash_attention:bidir"], **row)}
+    torch.cuda.empty_cache()
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}, flash by mask {json.dumps(variants)}",
+          flush=True)
+    return launches, rows
+
+
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
@@ -5465,6 +5773,19 @@ def dense_serve_only(torch, F):
     return 0
 
 
+def hybrid_serve_only(torch, F):
+    """``--hybrid-serve``: build the kernels and run phase 16 alone, print
+    its kernel row, then exit (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    _, rows = hybrid_serve_phase(torch, F, torch.device("cuda"))
+    for name, row in rows.items():
+        print(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in row.items()),
+              flush=True)
+    return 0
+
+
 def bucket_host_cost_against(torch, checkout):
     """`bucket_host_cost` of this checkout's bucket wrappers beside those
     of another checkout (its `src/repro_torch/kernels/bucket.py`, loaded
@@ -5509,6 +5830,8 @@ def main() -> int:
         return moe_serve_only(torch, F)
     if sys.argv[1:2] == ["--dense-serve"]:
         return dense_serve_only(torch, F)
+    if sys.argv[1:2] == ["--hybrid-serve"]:
+        return hybrid_serve_only(torch, F)
 
     from repro_torch.kernels import build
 
@@ -5608,7 +5931,12 @@ def main() -> int:
           "chameleon-34b at full width through fail->repair")
     dense_serve_launches, dense_serve_table = dense_serve_phase(torch, F, dev)
 
-    phase("phase 16: kernels table")
+    phase("phase 16: hybrid and encoder-decoder serving at full size: "
+          "recurrentgemma-9b (RG-LRU + sliding MQA) and whisper-small "
+          "(encoder, cross-attention, LayerNorm) through fail->repair")
+    hybrid_launches, hybrid_table = hybrid_serve_phase(torch, F, dev)
+
+    phase("phase 17: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
@@ -5617,7 +5945,8 @@ def main() -> int:
              (moe_launches, MOE_KERNELS),
              (moe_serve_launches, SERVE_KERNELS),
              (alloc_launches, ALLOC_KERNELS),
-             (dense_serve_launches, SERVE_KERNELS))
+             (dense_serve_launches, SERVE_KERNELS),
+             (hybrid_launches, SERVE_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -5639,6 +5968,9 @@ def main() -> int:
             f"{k} {v}" for k, v in row.items()), flush=True)
     for name, row in dense_serve_table.items():
         print(f"  {name} (dense serving, phase 15): "
+              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+    for name, row in hybrid_table.items():
+        print(f"  {name} (hybrid and enc-dec serving, phase 16): "
               + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

@@ -1,8 +1,10 @@
-"""Config registry of the port: importing this package registers the archs
-ported so far, each a field-for-field copy of the reference's file. All
-are served (`models.transformer`): the dense attention archs qwen2-7b,
-granite-3-2b, minitron-4b, chameleon-34b (qk-norm) and gemma2-9b
-(post-norms, softcaps, sliding/global alternation); mamba2-780m; and the
+"""Config registry of the port: importing this package registers every
+arch of the reference, each a field-for-field copy of the reference's
+file, and all are served (`models.transformer`): the dense attention
+archs qwen2-7b, granite-3-2b, minitron-4b, chameleon-34b (qk-norm) and
+gemma2-9b (post-norms, softcaps, sliding/global alternation);
+mamba2-780m; recurrentgemma-9b (RG-LRU blocks with sliding-window MQA);
+whisper-small (encoder-decoder, LayerNorm, absolute positions); and the
 MoE archs llama4-scout and arctic-480b, whose widths also size the
 NTP-MoE prototype."""
 from repro_torch.configs.base import (  # noqa: F401
@@ -25,6 +27,8 @@ from repro_torch.configs import (  # noqa: F401,E402
     mamba2_780m,
     minitron_4b,
     qwen2_7b,
+    recurrentgemma_9b,
+    whisper_small,
 )
 
 ARCH_IDS = tuple(all_archs().keys())

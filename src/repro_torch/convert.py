@@ -12,15 +12,19 @@ e.g. ``jax.tree.map(np.asarray, params)``) into the port's parameter dict.
 The JAX tree stacks each layer-pattern entry's blocks on a leading cycle
 axis (``layers`` is a tuple with one stacked block dict per pattern entry,
 ``tail`` holds the leftover blocks); the port keeps one block dict per
-layer, in the reference's execution order. Weights keep the ``(in, out)``
-layout, so the two packages compute the same products. A post-norm block
-(gemma2) carries ``ln1_post``/``ln2_post``. Leaves of blocks the port
-does not run yet — an encoder, absolute position embeddings, cross
-attention, LayerNorm biases, RG-LRU mixers — are refused. An MoE block's FFN
-(the reference's `moe_init`) comes across leaf for leaf: ``router`` (d, E)
-in f32, the expert-stacked ``w_up`` / ``w_gate`` (E, d, ff) and ``w_down``
-(E, ff, d), and the ``shared`` expert or ``dense`` residual MLP; every
-leaf keeps its dtype.
+layer, in the reference's execution order (the cycles, then the tail).
+An enc-dec config's ``encoder`` ({``layers``: its stacked ``attn_bidir``
+blocks, ``final_norm``}) becomes {``layers``: a list of block dicts,
+``final_norm``}. Weights keep the ``(in, out)`` layout, so the two
+packages compute the same products, and every leaf keeps its dtype:
+a post-norm block's ``ln1_post``/``ln2_post``, a LayerNorm's bias ``b``,
+``pos_embed``, an enc-dec block's ``ln_cross``/``cross``, an RG-LRU mixer
+(its f32 ``lam``, ``bias_a`` and ``bias_i`` beside the block-diagonal
+gates) and an MoE block's FFN (the reference's `moe_init`: ``router``
+(d, E) in f32, the expert-stacked ``w_up`` / ``w_gate`` (E, d, ff) and
+``w_down`` (E, ff, d), and the ``shared`` expert or ``dense`` residual
+MLP) come across leaf for leaf. A leaf the reference's model does not
+make is refused.
 """
 from __future__ import annotations
 
@@ -31,9 +35,10 @@ import torch
 
 from repro_torch.kernels import mode
 
-_TOP = {"embed", "final_norm", "lm_head", "layers", "tail"}
-_BLOCK = {"ln1", "ln1_post", "mixer", "ln2", "ffn", "ln2_post"}
-
+_TOP = {"embed", "final_norm", "lm_head", "pos_embed", "layers", "tail",
+        "encoder"}
+_BLOCK = {"ln1", "ln1_post", "ln_cross", "cross", "ln2", "ffn", "ln2_post",
+          "mixer"}
 
 def _to_torch(tree, device: torch.device):
     """Dicts, lists and tuples are containers (the NTP trees keep their
@@ -55,36 +60,41 @@ def ntp_params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
 def params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """JAX parameter tree of numpy arrays → the port's parameters on
     ``device`` (CUDA unless ``device="cpu"``)."""
-    blocks = list(tree.get("layers", ())) + list(tree.get("tail", ()))
+    enc = tree.get("encoder", {})
+    blocks = [*tree.get("layers", ()), *tree.get("tail", ()),
+              *enc.get("layers", ())]
     unknown = set(tree) - _TOP
+    unknown |= {f"encoder/{k}" for k in set(enc) - {"layers", "final_norm"}}
     for block in blocks:
         unknown |= set(block) - _BLOCK
-        unknown |= {f"{k}/b" for k in block if k.startswith("ln")
-                    and "b" in block[k]}
-        if "lam" in block.get("mixer", {}):
-            unknown.add("mixer/lam")
     if unknown:
         raise ValueError(
-            f"params_from_jax: leaves {sorted(unknown)} belong to blocks the "
-            "port does not run yet"
+            f"params_from_jax: leaves {sorted(unknown)} are not leaves of "
+            "the reference's model"
         )
     dev = mode.resolve_device(device)
-    layers = []
-    cycles = tree.get("layers", ())
-    n_cyc = len(next(iter(cycles[0]["ln1"].values()))) if cycles else 0
-    for c in range(n_cyc):
-        for block in cycles:
-            layers.append(_to_torch(_index(block, c), dev))
-    for block in tree.get("tail", ()):
-        layers.append(_to_torch(block, dev))
     out = {
         "embed": _to_torch(tree["embed"], dev),
         "final_norm": _to_torch(tree["final_norm"], dev),
-        "layers": layers,
+        "layers": (_unstack(tree.get("layers", ()), dev)
+                   + [_to_torch(block, dev) for block in tree.get("tail", ())]),
     }
-    if "lm_head" in tree:
-        out["lm_head"] = _to_torch(tree["lm_head"], dev)
+    for name in ("lm_head", "pos_embed"):
+        if name in tree:
+            out[name] = _to_torch(tree[name], dev)
+    if enc:
+        out["encoder"] = {"layers": _unstack(enc["layers"], dev),
+                          "final_norm": _to_torch(enc["final_norm"], dev)}
     return out
+
+
+def _unstack(cycles, dev):
+    """The blocks of stacked pattern entries ``cycles`` (a tuple of block
+    dicts whose leaves carry a leading cycle axis), one dict per layer in
+    execution order: cycle by cycle, each cycle's entries in order."""
+    n_cyc = len(next(iter(cycles[0]["ln1"].values()))) if cycles else 0
+    return [_to_torch(_index(block, c), dev)
+            for c in range(n_cyc) for block in cycles]
 
 
 def _index(block, c: int):

@@ -31,6 +31,18 @@ Examples:
   # gemma2-9b (post-norms, softcaps, sliding/global) at smoke scale
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --device cpu --replicas 2 --requests 16 --trace 2e2
+
+  # recurrentgemma-9b (RG-LRU blocks and sliding-window MQA, admitted token
+  # by token) at smoke scale on the CPU, and at full size on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --device cpu --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --full --requests 12 --prompt-len 8 \
+      --max-new 8 --max-len 64
+
+whisper-small is served through `ServeSession` with each `Request`'s
+``enc_input``; this launcher builds none, so the engine refuses it, as
+the reference's launcher does.
 """
 import argparse
 import time

@@ -1,5 +1,6 @@
-"""Self-attention with GQA, RoPE, QKV bias, qk-norm, logit softcap and a
-slot-addressed KV cache (port of `repro/models/attention.py`).
+"""Self- and cross-attention with GQA, RoPE (where ``cfg.use_rope``), QKV
+bias, qk-norm, logit softcap and a slot-addressed KV cache (port of
+`repro/models/attention.py`).
 
 Prefill (S > 1) attends the fresh K/V through the hand-written flash
 kernel (`kernels.flash_attention`), which computes exactly the reference's
@@ -16,6 +17,12 @@ than the ring keeps only its tail (it attends its own fresh K/V, so early
 queries still see their whole window), and decode reads row ``i`` as
 absolute position ``last − ((last − i) mod w)``, masking rows not yet
 written. Full attention keeps a full-length cache.
+
+An encoder's ``attn_bidir`` blocks run the flash kernel with its bidir
+mask. Cross-attention (enc-dec decoders) attends the encoder output
+bidirectionally and naively, as the reference does: at prefill it
+computes the encoder K/V and banks them (``ek``/``ev``,
+`init_cross_kv_cache`), and decode reads the bank.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ RING_KINDS = ("attn_sw", "attn_chunked")
 # ---------------------------------------------------------------------------
 # params
 
-def attn_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
+def attn_init(cfg: ArchConfig, gen: torch.Generator, dtype, *,
+              cross: bool = False) -> dict:
     d, nh, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
@@ -46,7 +54,7 @@ def attn_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
         "wv": dense_init(gen, (d, kvh * hd), d, dtype),
         "wo": dense_init(gen, (nh * hd, d), nh * hd, dtype),
     }
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         p["bq"] = torch.zeros(nh * hd, dtype=dtype, device=dev)
         p["bk"] = torch.zeros(kvh * hd, dtype=dtype, device=dev)
         p["bv"] = torch.zeros(kvh * hd, dtype=dtype, device=dev)
@@ -105,12 +113,23 @@ def attn_apply(
     kind: str,
     cache: Optional[dict] = None,   # {'k','v'} (B, T, kvh, hd), written in place
     cache_pos=None,       # prefill: int write offset; decode: int or (B,)
+    kv_x=None,            # cross-attention source (B, T_enc, d); None = self
+    cross_cache: Optional[dict] = None,  # {'ek','ev'} (B, T_enc, kvh, hd)
 ):
     """Returns (out, cache). The cache-less forward and prefill (S > 1)
     run at positions 0..S-1; a one-token step against a cache runs each
-    row at its write position ``cache_pos``."""
+    row at its write position ``cache_pos``. RoPE applies iff
+    ``cfg.use_rope``.
+
+    Cross-attention (``kv_x`` or ``cross_cache`` given) attends the
+    encoder K/V bidirectionally, naively, as the reference does: with
+    ``kv_x`` its K/V are computed (and banked into ``cross_cache`` when
+    one is given, the prefill); without, they are read from the bank (the
+    decode). Returns (out, cross_cache) then."""
     nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
+    if kv_x is not None or cross_cache is not None:
+        return _cross_apply(cfg, p, x, kv_x, cross_cache)
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -130,8 +149,9 @@ def attn_apply(
         positions = cache_pos[:, None]                       # (B, 1)
     else:
         positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if not decode:
         if cache is not None:
@@ -163,6 +183,32 @@ def attn_apply(
 
     out = out.reshape(b, s, nh * hd).to(x.dtype)
     return out @ p["wo"], cache
+
+
+def _cross_apply(cfg: ArchConfig, p: dict, x, kv_x, cross_cache):
+    """Cross-attention of ``x`` (B, S, d) over the encoder output ``kv_x``
+    (B, T_enc, d) or, without it, over the bank ``cross_cache``; no RoPE,
+    no mask."""
+    nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, nh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if kv_x is None:
+        # decode against the bank: computed (and qk-normed) once at prefill
+        k, v = cross_cache["ek"], cross_cache["ev"]
+    else:
+        t = kv_x.shape[1]
+        k = (kv_x @ p["wk"]).reshape(b, t, kvh, hd)
+        v = (kv_x @ p["wv"]).reshape(b, t, kvh, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cross_cache is not None:
+            cross_cache["ek"].copy_(k)
+            cross_cache["ev"].copy_(v)
+    out = _attend_naive(_group(q, kvh), k, v, 0.0, cfg.attn_softcap)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, nh * hd).to(x.dtype)
+    return out @ p["wo"], cross_cache
 
 
 def _write_prefill(cache: dict, k, v, cache_pos: int, ring: bool) -> None:
@@ -199,3 +245,16 @@ def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
              cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cross_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, dtype,
+                        device) -> dict:
+    """Encoder K/V bank of ``n_layers`` enc-dec decoder layers, stacked on a
+    leading layer axis: ek/ev (n_layers, batch, enc_seq, kvh, hd). Filled
+    once at prefill from the encoder output and read by every
+    cross-attention decode step (no ring: cross-attention is
+    bidirectional over the whole encoded input)."""
+    shape = (n_layers, batch, cfg.encoder.enc_seq, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"ek": torch.zeros(shape, dtype=dtype, device=device),
+            "ev": torch.zeros(shape, dtype=dtype, device=device)}

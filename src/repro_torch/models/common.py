@@ -23,6 +23,17 @@ def rms_norm(x, weight, eps: float, *, plus_one: bool = False):
     return (y * w).to(dt)
 
 
+def layer_norm(x, weight, bias, eps: float):
+    """LayerNorm over the last axis in f32, with the population variance
+    (``jnp.var``'s ddof 0; ``torch.var`` defaults to the unbiased one)."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def softplus(x):
     """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (logaddexp(x, 0)),
     with no large-x cut-off."""

@@ -1,30 +1,40 @@
-"""Model assembly for the serving path: decoder-only stacks of attention
-blocks (full, sliding-window or chunked, mixed in a layer pattern) with a
-dense or Mixture-of-Experts FFN, or of Mamba-2 SSD blocks (port of
-`repro/models/transformer.py`).
+"""Model assembly for the serving path (port of
+`repro/models/transformer.py`): decoder stacks over any pattern of
+attention blocks (full, sliding-window or chunked), Mamba-2 SSD blocks and
+RG-LRU blocks, with a dense or Mixture-of-Experts FFN, RMSNorm or
+LayerNorm, RoPE or absolute position embeddings, and an optional encoder
+whose output every decoder block cross-attends (enc-dec, whisper).
 
 Parameters are a plain dict in the reference's layout — ``embed`` (vp, d),
-``lm_head`` (d, vp) unless the embeddings are tied, ``final_norm.w`` and one
+``lm_head`` (d, vp) unless the embeddings are tied, ``pos_embed``
+(max_position, d) for attention without RoPE, ``final_norm`` and one
 block dict per layer in ``layers`` (a list: a Python loop over layers
-replaces ``lax.scan``), with every weight kept ``(in, out)``.
+replaces ``lax.scan``; the reference's ``tail`` blocks follow its cycles),
+and for an enc-dec config ``encoder`` = {``layers``: its ``attn_bidir``
+blocks, ``final_norm``}. Every weight is kept ``(in, out)``.
 
 The cache is a flat dict of leaves grouped as the reference's cache tree
 groups them (`cache_groups`): one group per layer-pattern entry, stacking
 that entry's layers of every full pattern cycle on a leading axis, and one
 group per leftover ("tail") layer. A pattern of one entry keeps the bare
 leaf names — ``{"k", "v"}`` with leaves (layers, batch, T, kvh, hd) for
-attention, ``{"h", "conv"}`` with leaves (layers, batch, nh, hp, ds) and
-(layers, batch, K-1, di+2ds) for Mamba-2; a longer pattern suffixes each
-name with its group (``k.0`` … ``k.3``, ``k.t0`` for tail layer 0), since
-its groups may differ in kind and ring length. For continuous batching the
-batch axis is the slot axis, and `decode_slots` advances every slot at its
-own position in one batched step (the slot dimension written out where the
-reference vmaps). Caches are updated in place.
+attention, ``{"h", "conv"}`` for Mamba-2 ((layers, batch, nh, hp, ds) and
+(layers, batch, K-1, di+2ds)) and RG-LRU ((layers, batch, di) f32 and
+(layers, batch, K-1, di)); a longer pattern suffixes each name with its
+group (``k.0`` … ``k.3``, ``k.t0`` for tail layer 0), since its groups may
+differ in kind and ring length. An enc-dec config banks the encoder K/V
+``ek``/``ev`` (layers, batch, enc_seq, kvh, hd) in every group beside its
+own state: `prefill` runs the encoder once and fills the bank, decode
+reads it. For continuous batching the batch axis is the slot axis, and
+`decode_slots` advances every slot at its own position in one batched
+step (the slot dimension written out where the reference vmaps). Caches
+are updated in place.
 
 RMSNorm (ln1, ln2, the post-norms ln1_post/ln2_post of a post-norm
 block, final_norm, the SSD gated norm) runs the hand-written
-`kernels.rmsnorm`; prefill attention runs `kernels.flash_attention`; the
-SSD prefill scan runs `kernels.ssd_scan`.
+`kernels.rmsnorm`; LayerNorm is plain PyTorch, as the reference's is plain
+jnp; prefill self-attention and the encoder's bidirectional attention run
+`kernels.flash_attention`; the SSD prefill scan runs `kernels.ssd_scan`.
 """
 from __future__ import annotations
 
@@ -37,19 +47,31 @@ from repro_torch.kernels import mode
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import embed_init, softcap
+from repro_torch.models.common import embed_init, layer_norm, softcap
+
+# the block kinds a decoder serves (the reference's serve engine's), and
+# those whose state is cumulative
+DECODER_KINDS = ("attn", "attn_sw", "attn_chunked", "ssm", "rglru")
+RECURRENT_KINDS = ("ssm", "rglru")
 
 
 # ---------------------------------------------------------------------------
 # norms
 
 def norm_init(cfg: ArchConfig, dtype, device) -> dict:
-    # gemma-style (1+w): init w to zero
-    return {"w": torch.zeros(cfg.d_model, dtype=dtype, device=device)}
+    if cfg.norm_type == "ln":
+        return {"w": torch.ones(cfg.d_model, dtype=dtype, device=device),
+                "b": torch.zeros(cfg.d_model, dtype=dtype, device=device)}
+    # gemma-style (1+w): an RMSNorm's w starts at zero
+    fill = torch.zeros if cfg.norm_type == "rms" else torch.ones
+    return {"w": fill(cfg.d_model, dtype=dtype, device=device)}
 
 
 def norm_apply(cfg: ArchConfig, p: dict, x):
+    if cfg.norm_type == "ln":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     flat = x.reshape(-1, x.shape[-1])
     return rmsnorm(flat, p["w"], eps=cfg.norm_eps, plus_one=True).reshape(x.shape)
 
@@ -65,44 +87,67 @@ def _moe_ffn(cfg: ArchConfig, kind: str) -> bool:
     return cfg.moe is not None and kind in ATTN_KINDS
 
 
-def block_init(cfg: ArchConfig, gen: torch.Generator, dtype,
-               kind: str) -> dict:
-    p = {"ln1": norm_init(cfg, dtype, gen.device)}
-    if kind == "ssm":
-        p["mixer"] = ssm_mod.ssm_init(cfg, gen, dtype)
-    else:
+def block_init(cfg: ArchConfig, gen: torch.Generator, dtype, kind: str, *,
+               cross: bool = False) -> dict:
+    dev = gen.device
+    p = {"ln1": norm_init(cfg, dtype, dev)}
+    if kind in ATTN_KINDS:
         p["mixer"] = attn_mod.attn_init(cfg, gen, dtype)
+    elif kind == "ssm":
+        p["mixer"] = ssm_mod.ssm_init(cfg, gen, dtype)
+    elif kind == "rglru":
+        p["mixer"] = rglru_mod.rglru_init(cfg, gen, dtype)
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
-        p["ln1_post"] = norm_init(cfg, dtype, gen.device)
+        p["ln1_post"] = norm_init(cfg, dtype, dev)
+    if cross:
+        p["ln_cross"] = norm_init(cfg, dtype, dev)
+        p["cross"] = attn_mod.attn_init(cfg, gen, dtype, cross=True)
     if _has_ffn(cfg, kind):
-        p["ln2"] = norm_init(cfg, dtype, gen.device)
+        p["ln2"] = norm_init(cfg, dtype, dev)
         if _moe_ffn(cfg, kind):
             p["ffn"] = mlp_mod.moe_init(cfg, gen, dtype)
         else:
             p["ffn"] = mlp_mod.mlp_init(cfg, gen, dtype)
         if cfg.post_norms:
-            p["ln2_post"] = norm_init(cfg, dtype, gen.device)
+            p["ln2_post"] = norm_init(cfg, dtype, dev)
     return p
 
 
 def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
-                cache: Optional[dict], cache_pos, slots: bool = False):
+                cache: Optional[dict], cache_pos, slots: bool = False,
+                enc_out=None):
     """Returns (x, cache). ``slots``: ``x`` is a decode tick of one token a
     serving slot, and an MoE FFN dispatches each slot on its own
     (`mlp.moe_apply_slots`); otherwise its capacity is per call. A
     post-norm block (gemma2) normalizes the mixer's and the FFN's output
-    before its residual add."""
+    before its residual add. An enc-dec block cross-attends after its
+    mixer: over ``enc_out`` (banking its K/V into the cache's ``ek``/``ev``
+    when there is a cache), or over the bank."""
+    cross_cache, self_cache = None, cache
+    if cache is not None and "ek" in cache:
+        cross_cache = {"ek": cache["ek"], "ev": cache["ev"]}
+        self_cache = {n: c for n, c in cache.items() if n not in ("ek", "ev")}
     h = norm_apply(cfg, p["ln1"], x)
-    if kind == "ssm":
-        out, cache = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=cache,
-                                       cache_pos=cache_pos)
+    if kind in ATTN_KINDS:
+        out, _ = attn_mod.attn_apply(cfg, p["mixer"], h, kind=kind,
+                                     cache=self_cache, cache_pos=cache_pos)
+    elif kind == "ssm":
+        out, _ = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=self_cache,
+                                   cache_pos=cache_pos)
+    elif kind == "rglru":
+        out, _ = rglru_mod.rglru_apply(cfg, p["mixer"], h, cache=self_cache)
     else:
-        out, cache = attn_mod.attn_apply(
-            cfg, p["mixer"], h, kind=kind, cache=cache, cache_pos=cache_pos,
-        )
+        raise ValueError(kind)
     if cfg.post_norms:
         out = norm_apply(cfg, p["ln1_post"], out)
     x = x + out
+    if "cross" in p:
+        hc = norm_apply(cfg, p["ln_cross"], x)
+        out, _ = attn_mod.attn_apply(cfg, p["cross"], hc, kind="attn_bidir",
+                                     kv_x=enc_out, cross_cache=cross_cache)
+        x = x + out
     if _has_ffn(cfg, kind):
         h2 = norm_apply(cfg, p["ln2"], x)
         if not _moe_ffn(cfg, kind):
@@ -117,35 +162,23 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     return x, cache
 
 
-SERVED_ATTN_KINDS = ("attn", "attn_sw", "attn_chunked")
-
-
 def validate_model_cfg(cfg: ArchConfig) -> None:
-    """The blocks the port runs so far: causal self-attention with RoPE —
-    full, sliding-window or chunked, in any pattern — and a dense or MoE
-    FFN, or Mamba-2 SSD blocks (no FFN, no RoPE), with RMSNorm, pre-norm
-    or with post-norms too (gemma2). Other archs wait for their slices."""
+    """Refuse what the reference cannot serve: a decoder block kind outside
+    `DECODER_KINDS` (an ``attn_bidir`` block serves only in the encoder),
+    or an SSD or RG-LRU block without its spec."""
     kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
-    what = f"{cfg.arch_id}: the port serves"
-    if cfg.encoder is not None:
-        raise ValueError(f"{what} decoder-only stacks so far; got an encoder")
-    if cfg.norm_type != "rms":
-        raise ValueError(f"{what} RMSNorm only so far; got norm_type="
-                         f"{cfg.norm_type!r}")
-    if kinds <= set(SERVED_ATTN_KINDS):
-        if cfg.d_ff > 0 and cfg.use_rope:
-            return
-    elif kinds == {"ssm"}:
-        if (cfg.ssm is not None and cfg.d_ff == 0 and cfg.moe is None
-                and not cfg.use_rope):
-            return
-    raise ValueError(
-        f"{what} full-attention decoders, with sliding-window and chunked "
-        f"layers in any pattern ({SERVED_ATTN_KINDS}), RoPE and a dense or "
-        f"MoE FFN, and Mamba-2 SSD stacks (d_ff=0, no RoPE, no MoE), so "
-        f"far; got kinds {sorted(kinds)}, moe={cfg.moe is not None}, "
-        f"d_ff={cfg.d_ff}, use_rope={cfg.use_rope}"
-    )
+    bad = sorted(kinds - set(DECODER_KINDS))
+    if bad:
+        raise ValueError(
+            f"{cfg.arch_id}: the port serves decoder blocks of kinds "
+            f"{DECODER_KINDS}; got {bad}"
+        )
+    for kind, spec in (("ssm", cfg.ssm), ("rglru", cfg.rglru)):
+        if kind in kinds and spec is None:
+            raise ValueError(
+                f"{cfg.arch_id}: {kind!r} blocks in the pattern, but "
+                f"cfg.{kind} is None"
+            )
 
 
 def cache_groups(cfg: ArchConfig) -> List[Tuple[str, str, List[int]]]:
@@ -189,33 +222,50 @@ class Model:
             raise ValueError(
                 f"generator on {generator.device}, model on {self.device}"
             )
-        cfg, dt = self.cfg, self.param_dtype
+        cfg, dt, dev = self.cfg, self.param_dtype, self.device
         vp = cfg.padded_vocab()
+        cross = cfg.encoder is not None
         params: Dict[str, Any] = {
             "embed": embed_init(generator, (vp, cfg.d_model), dt),
-            "final_norm": norm_init(cfg, dt, self.device),
-            "layers": [block_init(cfg, generator, dt, cfg.block_kind(i))
+            "final_norm": norm_init(cfg, dt, dev),
+            "layers": [block_init(cfg, generator, dt, cfg.block_kind(i),
+                                  cross=cross)
                        for i in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(generator, (cfg.d_model, vp), dt)
+        if _has_pos_embed(cfg):
+            params["pos_embed"] = embed_init(
+                generator, (cfg.max_position, cfg.d_model), dt)
+        if cross:
+            params["encoder"] = {
+                "layers": [block_init(cfg, generator, dt, "attn_bidir")
+                           for _ in range(cfg.encoder.n_layers)],
+                "final_norm": norm_init(cfg, dt, dev),
+            }
         return params
 
     # ---- caches ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> dict:
-        """Every layer's state, by `cache_groups` (an SSD state does not
-        grow with ``max_len``; a ring attention layer's stops at its
-        window or chunk)."""
+        """Every layer's state, by `cache_groups` (an SSD or RG-LRU state
+        does not grow with ``max_len``; a ring attention layer's stops at
+        its window or chunk), with an enc-dec config's encoder K/V bank
+        beside each group's own state."""
+        cfg, dev = self.cfg, self.device
         cache = {}
-        for sfx, kind, layers in cache_groups(self.cfg):
+        for sfx, kind, layers in cache_groups(cfg):
+            n = len(layers)
             if kind == "ssm":
-                group = ssm_mod.init_ssm_cache(self.cfg, len(layers), batch,
-                                               dtype, self.device)
+                group = ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)
+            elif kind == "rglru":
+                group = rglru_mod.init_rglru_cache(cfg, n, batch, dtype, dev)
             else:
-                group = attn_mod.init_kv_cache(self.cfg, len(layers), batch,
-                                               max_len, dtype, self.device,
-                                               kind=kind)
+                group = attn_mod.init_kv_cache(cfg, n, batch, max_len, dtype,
+                                               dev, kind=kind)
+            if cfg.encoder is not None:
+                group.update(attn_mod.init_cross_kv_cache(cfg, n, batch,
+                                                          dtype, dev))
             cache.update({name + sfx: leaf for name, leaf in group.items()})
         return cache
 
@@ -229,21 +279,43 @@ class Model:
     def layer_cache(self, cache: dict, i: int) -> dict:
         """Layer ``i``'s views into ``cache``, under the bare leaf names."""
         sfx, j = self._cache_at[i]
-        names = ("h", "conv") if self.cfg.block_kind(i) == "ssm" else ("k", "v")
+        names = (("h", "conv") if self.cfg.block_kind(i) in RECURRENT_KINDS
+                 else ("k", "v"))
+        if self.cfg.encoder is not None:
+            names += ("ek", "ev")
         return {n: cache[n + sfx][j] for n in names}
 
     # ---- forward ---------------------------------------------------------
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, positions=None):
+        """Token embeddings (B, S, d), plus ``pos_embed`` at ``positions``
+        (an int for a one-token step, (S,) shared by the batch, or (B, S);
+        0..S-1 when None) where the config has it."""
         x = params["embed"][tokens]
         if self.cfg.scale_embeddings:
             x = x * self.cfg.d_model ** 0.5
+        if "pos_embed" in params:
+            if positions is None:
+                positions = torch.arange(tokens.shape[1],
+                                         device=tokens.device)
+            x = x + params["pos_embed"][positions]
         return x
 
-    def _trunk(self, params, x, cache, cache_pos, slots: bool = False):
+    def _encode(self, params, enc_input):
+        """The encoder over ``enc_input`` (B, enc_seq, d) frame embeddings:
+        its ``attn_bidir`` blocks (no cache), then its final norm."""
+        x = enc_input
+        for lp in params["encoder"]["layers"]:
+            x, _ = block_apply(self.cfg, lp, x, kind="attn_bidir", cache=None,
+                               cache_pos=None)
+        return norm_apply(self.cfg, params["encoder"]["final_norm"], x)
+
+    def _trunk(self, params, x, cache, cache_pos, slots: bool = False,
+               enc_out=None):
         for i, lp in enumerate(params["layers"]):
             lc = None if cache is None else self.layer_cache(cache, i)
             x, _ = block_apply(self.cfg, lp, x, kind=self.cfg.block_kind(i),
-                               cache=lc, cache_pos=cache_pos, slots=slots)
+                               cache=lc, cache_pos=cache_pos, slots=slots,
+                               enc_out=enc_out)
         return x
 
     def _logits(self, params, x):
@@ -252,17 +324,27 @@ class Model:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return softcap((x @ head).float(), cfg.final_softcap)
 
-    def prefill(self, params, tokens, cache):
-        """Forward that also fills the cache from position 0."""
+    def prefill(self, params, tokens, cache, *, enc_input=None):
+        """Forward that also fills the cache from position 0; an enc-dec
+        config encodes ``enc_input`` (B, enc_seq, d) once and banks every
+        decoder layer's cross K/V in the cache."""
+        enc_out = None
+        if self.cfg.encoder is not None:
+            if enc_input is None:
+                raise ValueError(
+                    f"{self.cfg.arch_id} is enc-dec: prefill needs enc_input")
+            enc_out = self._encode(params, enc_input)
         x = self._embed(params, tokens)
-        x = self._trunk(params, x, cache, 0)
+        x = self._trunk(params, x, cache, 0, enc_out=enc_out)
         return self._logits(params, x), cache
 
     def decode_step(self, params, cache, tokens, pos: int):
-        """One-token decode of every batch row at write index ``pos``.
-        tokens: (B, 1). Returns (logits (B, 1, vp), cache)."""
-        x = self._embed(params, tokens)
-        x = self._trunk(params, x, cache, int(pos))
+        """One-token decode of every batch row at write index ``pos``
+        (cross-attention reads the encoder bank). tokens: (B, 1). Returns
+        (logits (B, 1, vp), cache)."""
+        pos = int(pos)
+        x = self._embed(params, tokens, pos)
+        x = self._trunk(params, x, cache, pos)
         return self._logits(params, x), cache
 
     def decode_slots(self, params, cache, tokens, pos):
@@ -272,9 +354,15 @@ class Model:
         slot is its own MoE dispatch group, as in the reference's vmap
         (`decode_step` instead dispatches its batch as one call).
         Returns (logits (slots, vocab_padded), cache)."""
-        x = self._embed(params, tokens.long()[:, None])
-        x = self._trunk(params, x, cache, pos.long(), slots=True)
+        pos = pos.long()
+        x = self._embed(params, tokens.long()[:, None], pos[:, None])
+        x = self._trunk(params, x, cache, pos, slots=True)
         return self._logits(params, x)[:, 0], cache
+
+
+def _has_pos_embed(cfg: ArchConfig) -> bool:
+    """Absolute position embeddings: attention blocks without RoPE."""
+    return not cfg.use_rope and any(k in ATTN_KINDS for k in cfg.layer_pattern)
 
 
 def build_model(cfg: ArchConfig, *, param_dtype=torch.float32,

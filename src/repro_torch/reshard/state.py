@@ -104,16 +104,19 @@ class ShardedState:
         self._names = list(tree)
         self._specs: List[UnitSpec] = [resolver(n) for n in self._names]
         self._ndims = [tree[n].ndim for n in self._names]
+        self._shard(tree)
+        self.last_reshard: Dict[str, Any] = {}
+
+    def _layout(self, spec: UnitSpec, tp: int) -> sm.Layout:
+        return degree_layout(spec.k, tp, self.n1)
+
+    def _shard(self, tree: Dict[str, torch.Tensor]) -> None:
         self._bufs, self._tails = [], []
         for n, spec in zip(self._names, self._specs):
             b, t = shard_state_leaf(tree[n], spec,
                                     self._layout(spec, self._tp), spec.k)
             self._bufs.append(b)
             self._tails.append(t)
-        self.last_reshard: Dict[str, Any] = {}
-
-    def _layout(self, spec: UnitSpec, tp: int) -> sm.Layout:
-        return degree_layout(spec.k, tp, self.n1)
 
     # -------------------------------------------------------------- views
 
@@ -134,6 +137,14 @@ class ShardedState:
                 self._names, self._bufs, self._tails, self._specs, self._ndims
             )
         }
+
+    def update(self, tree: Dict[str, torch.Tensor]) -> None:
+        """Re-scatter a dense state dict with this state's leaf names into
+        the current rank layout."""
+        if sorted(tree) != sorted(self._names):
+            raise ValueError(f"leaves {sorted(tree)} are not this state's "
+                             f"{sorted(self._names)}")
+        self._shard(tree)
 
     # ------------------------------------------------------------- reshard
 

@@ -14,8 +14,11 @@ one pair per cache group (``k.<g>``, ``k.t<j>`` where the layer pattern
 has several entries; rings and full caches alike).
 Mamba-2 state splits by SSD head (``ssm_head``): ``h`` (..., nh, hp, ds)
 on axis -3, and ``conv`` (..., K-1, di + 2·ds) on axis -1 in blocks of hp
-channels, with its B/C columns a replicated tail of 2·ds. The rgLRU-block family
-waits for its slice.
+channels, with its B/C columns a replicated tail of 2·ds. RG-LRU state
+splits by Griffin gate block (``rglru_block``): ``h`` (..., di) and
+``conv`` (..., K-1, di) on axis -1 in blocks of ``block_width`` channels.
+An enc-dec config's encoder K/V bank ``ek``/``ev`` (..., enc_seq, kvh, hd)
+splits by head (``enc_kv_head``, axis -2) in every block kind.
 """
 from __future__ import annotations
 
@@ -56,16 +59,29 @@ def _kind_state_specs(cfg: ArchConfig, kind: str) -> Dict[str, UnitSpec]:
     """State-leaf specs of one block kind."""
     if kind in ATTN_KINDS:
         kv = UnitSpec("kv_head", cfg.n_kv_heads, axis=-2)
-        return {"k": kv, "v": kv}
-    if kind == "ssm":
+        specs = {"k": kv, "v": kv}
+    elif kind == "ssm":
         s = cfg.ssm
         nh = s.n_heads(cfg.d_model)
-        return {
+        specs = {
             "h": UnitSpec("ssm_head", nh, axis=-3),
             "conv": UnitSpec("ssm_head", nh, axis=-1, unit=s.head_dim,
                              tail=2 * s.d_state),
         }
-    raise ValueError(f"no state units for block kind {kind!r} in the port")
+    elif kind == "rglru":
+        g = cfg.rglru
+        w = g.block_width
+        block = UnitSpec("rglru_block", g.d_inner(cfg.d_model) // w,
+                         axis=-1, unit=w)
+        specs = {"h": block, "conv": block}
+    else:
+        raise ValueError(f"no state units for block kind {kind!r}")
+    if cfg.encoder is not None:
+        # every enc-dec decoder block banks the encoder K/V: its heads
+        # reshard as self-attention KV heads do, as their own family
+        ekv = UnitSpec("enc_kv_head", cfg.n_kv_heads, axis=-2)
+        specs = dict(specs, ek=ekv, ev=ekv)
+    return specs
 
 
 def arch_unit_counts(cfg: ArchConfig) -> Dict[str, int]:

@@ -5,17 +5,22 @@ A fixed pool of cache slots, each holding one in-flight request at its
 own position; `Model.decode_slots` advances every slot in one batched
 step (an MoE FFN dispatching each slot on its own, as the reference's
 vmap does). The cache is the model's grouped dict (one group per
-layer-pattern entry, ring caches for sliding-window and chunked layers),
-and every group is admitted, resharded and zeroed alike. On a TP transition the cache is resharded mid-decode through
-`reshard.ShardedState`: KV heads (attention) or SSD heads (Mamba-2 h and
-conv state) move between the replica's (emulated) ranks through the
+layer-pattern entry, ring caches for sliding-window and chunked layers,
+an enc-dec config's encoder K/V bank in every group), and every group is
+admitted, resharded and zeroed alike. On a TP transition the cache is
+resharded mid-decode through `reshard.ShardedState`: KV heads (attention),
+SSD heads (Mamba-2 h and conv state), RG-LRU gate blocks (h and conv) and
+encoder K/V heads move between the replica's (emulated) ranks through the
 hand-written `reshard_pack` send-bucket kernel, and decoding continues on
 the dense view (shard ∘ gather is the bit-exact identity).
 
 Attention requests are admitted by one padded prefill. Recurrent state is
 cumulative, so a padded prefill would fold pad tokens into it: recurrent
 archs are admitted token by token, a length-1 prefill followed by
-teacher-forced one-token decode steps, as in the reference.
+teacher-forced one-token decode steps, as in the reference. An enc-dec
+request carries its ``enc_input`` (enc_seq, d_model); the (first)
+prefill encodes it and banks the encoder K/V, and a re-admission after
+preemption encodes it again.
 
 A replica at TP ``t < n1`` decodes slower by the head-quantized
 `stage_slowdown`, modelled as a token-bucket ``rel_speed``; its KV memory
@@ -36,14 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import (
+    DECODER_KINDS, RECURRENT_KINDS, build_model,
+)
 from repro_torch.reshard.state import ShardedState
 from repro_torch.reshard.units import cache_unit_resolver
-
-# the reference's serveable block kinds; the port's model narrows them
-# further (`models.transformer.validate_model_cfg`)
-DECODER_KINDS = ("attn", "attn_sw", "attn_chunked", "ssm", "rglru")
-RECURRENT_KINDS = ("ssm", "rglru")
 
 
 def validate_serve_cfg(cfg: ArchConfig) -> set:
@@ -69,6 +71,10 @@ class Request:
     max_new: int
     arrival: float = 0.0                 # router ticks
     deadline: Optional[float] = None     # SLO: completion-time bound (ticks)
+    # enc-dec only: the (enc_seq, d_model) frame embeddings, kept so that a
+    # re-admission after preemption encodes them again (not checkpointed,
+    # as in the reference)
+    enc_input: Optional[np.ndarray] = None
     generated: List[int] = field(default_factory=list)
     done: bool = False
     first_token_time: Optional[float] = None  # router ticks
@@ -190,8 +196,10 @@ class ServeEngine:
     def cache(self) -> Dict[str, torch.Tensor]:
         """The dense slot-stacked cache, by `models.transformer.
         cache_groups` (leaves (layers, slots, ...): k/v (layers, slots, T,
-        kvh, hd), or h (layers, slots, nh, hp, ds) and conv (layers, slots,
-        K-1, di+2ds))."""
+        kvh, hd); Mamba-2 h (layers, slots, nh, hp, ds) and conv (layers,
+        slots, K-1, di+2ds); RG-LRU h (layers, slots, di) and conv
+        (layers, slots, K-1, di); an enc-dec config's ek/ev (layers,
+        slots, enc_seq, kvh, hd))."""
         return self._cache
 
     # ---------------------------------------------------------------- admit
@@ -205,6 +213,7 @@ class ServeEngine:
         only EMITTED by a later credited tick."""
         if not self.can_admit():
             return False
+        enc = self._enc_input(req)
         b = int(np.flatnonzero(self._rid < 0)[0])
         toks = req.full_prompt()
         n = len(toks)
@@ -218,8 +227,10 @@ class ServeEngine:
         if self._recurrent:
             # the prompt token by token: a length-1 prefill, then
             # teacher-forced one-token decode steps
+            # (an enc-dec config banks the encoder K/V in this prefill)
             logits, cache1 = self.model.prefill(
-                self.params, self._tokens(toks[:1][None]), cache1
+                self.params, self._tokens(toks[:1][None]), cache1,
+                enc_input=enc,
             )
             last_logits, pos = logits[0, 0], 1
             for t in toks[1:]:
@@ -229,7 +240,8 @@ class ServeEngine:
                 pos += 1
                 last_logits = last[0, 0]
         else:
-            last_logits, pos, cache1 = self._prefill_padded(toks, cache1)
+            last_logits, pos, cache1 = self._prefill_padded(toks, cache1,
+                                                            enc)
         first = int(torch.argmax(last_logits[: self.cfg.vocab_size]))
 
         for name, leaf in self._cache.items():
@@ -243,7 +255,29 @@ class ServeEngine:
         self.stats["prefills"] += 1
         return True
 
-    def _prefill_padded(self, toks, cache1):
+    def _enc_input(self, req: Request):
+        """An enc-dec request's ``enc_input`` as a (1, enc_seq, d_model)
+        f32 tensor on the engine's device, checked before a slot is taken
+        (None for a decoder-only config)."""
+        enc = self.cfg.encoder
+        if enc is None:
+            return None
+        if req.enc_input is None:
+            raise ValueError(
+                f"{self.cfg.arch_id} is enc-dec: Request.enc_input must "
+                f"carry the ({enc.enc_seq}, {self.cfg.d_model}) frame "
+                "embeddings"
+            )
+        x = torch.as_tensor(np.asarray(req.enc_input, np.float32),
+                            device=self.device)
+        if tuple(x.shape) != (enc.enc_seq, self.cfg.d_model):
+            raise ValueError(
+                f"Request.enc_input has shape {tuple(x.shape)}, expected "
+                f"({enc.enc_seq}, {self.cfg.d_model})"
+            )
+        return x[None]
+
+    def _prefill_padded(self, toks, cache1, enc=None):
         """Attention admission: one prefill of the first ``prefill_len``
         tokens (zero-padded), the overflow of a resumed request fed
         teacher-forced through the decode path. Returns (logits of the last
@@ -253,7 +287,7 @@ class ServeEngine:
         head = toks[: min(n, p)]
         padded[: len(head)] = head
         logits, cache1 = self.model.prefill(
-            self.params, self._tokens(padded[None]), cache1
+            self.params, self._tokens(padded[None]), cache1, enc_input=enc
         )
         if n <= p:
             return logits[0, n - 1], n, cache1

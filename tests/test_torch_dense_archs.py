@@ -8,9 +8,10 @@ untied) and chameleon-34b (qk-norm) — on the CPU against the JAX package:
 * prefill logits, the written caches and decode equal the JAX `Model`'s
   within 3e-5 in f32 (2e-2 with bf16 caches), gemma2 with a window short
   enough that its sliding layers mask;
-* `params_from_jax` carries the post-norms and refuses what is unported;
-  `validate_model_cfg` accepts post-norms and still refuses an encoder and
-  LayerNorm;
+* `params_from_jax` carries the post-norms, the RG-LRU and the enc-dec
+  leaves, and refuses a leaf the reference's model does not make; `validate_model_cfg` accepts
+  post-norms, LayerNorm and an encoder, and refuses what the reference
+  does not serve;
 * `chip_smoke.py`'s mixed chain on each arch, reduced (gemma2's rings
   wrapping): streams, transition records and telemetry equal to the JAX
   `ServeSession`'s, and the restore under TP (4, 3);
@@ -178,24 +179,43 @@ def test_params_from_jax_carries_post_norms(models):
     ("whisper-small", ["cross", "encoder", "ln1/b", "ln_cross", "pos_embed"]),
 ])
 def test_params_from_jax_refuses_the_unported(arch, leaves):
+    """The RG-LRU and enc-dec leaves, once refused, are carried now, each
+    with its dtype; a leaf the reference's model does not make is still
+    refused."""
     # the reference's parameter tree by shape alone, as zeros
     shapes = jax.eval_shape(jbuild_model(jreduced(jget_arch(arch))).init,
                             jax.random.PRNGKey(0))
     p = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
-    with pytest.raises(ValueError, match="does not run yet") as e:
-        params_from_jax(p, device="cpu")
+    tp = params_from_jax(p, device="cpu")
     for leaf in leaves:
-        assert repr(leaf) in str(e.value)
+        node = tp if leaf in tp else tp["layers"][0]
+        for key in leaf.split("/"):
+            node = node[key]
+        assert node is not None, leaf
+    if arch == "recurrentgemma-9b":
+        assert tp["layers"][0]["mixer"]["lam"].dtype == torch.float32
+    for bad in ({**p, "vision_tower": np.zeros(2)},
+                {**p, "layers": (dict(p["layers"][0], adapter={}),
+                                 *p["layers"][1:])}):
+        with pytest.raises(ValueError, match="not leaves of the reference"):
+            params_from_jax(bad, device="cpu")
 
 
 def test_validate_model_cfg_accepts_post_norms_only():
+    """Post-norms, LayerNorm and an encoder are served now; a decoder
+    block outside the reference's serving kinds, or a recurrent block
+    without its spec, is still refused."""
     _, gemma = _cfgs("gemma2-9b")
     validate_model_cfg(gemma)
-    with pytest.raises(ValueError, match="RMSNorm only"):
-        validate_model_cfg(dataclasses.replace(gemma, norm_type="ln"))
-    with pytest.raises(ValueError, match="decoder-only"):
+    validate_model_cfg(dataclasses.replace(gemma, norm_type="ln"))
+    validate_model_cfg(dataclasses.replace(
+        gemma, encoder=EncoderSpec(n_layers=2, enc_seq=64)))
+    with pytest.raises(ValueError, match="decoder blocks of kinds"):
         validate_model_cfg(dataclasses.replace(
-            gemma, encoder=EncoderSpec(n_layers=2, enc_seq=64)))
+            gemma, layer_pattern=("attn_sw", "attn_bidir")))
+    with pytest.raises(ValueError, match="cfg.rglru is None"):
+        validate_model_cfg(dataclasses.replace(
+            gemma, layer_pattern=("rglru", "attn")))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -54,6 +54,7 @@ PORT_MODULES = [
     "repro_torch.models.attention",
     "repro_torch.models.common",
     "repro_torch.models.mlp",
+    "repro_torch.models.rglru",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
     "repro_torch.optim",
@@ -72,6 +73,7 @@ PORT_MODULES = [
     "repro_torch.runtime.orchestrator",
     "repro_torch.runtime.session",
     "repro_torch.serve",
+    "repro_torch.serve.kv_shard",
     "repro_torch.telemetry",
     "repro_torch.telemetry.export",
     "repro_torch.telemetry.recorder",

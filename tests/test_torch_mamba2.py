@@ -170,8 +170,14 @@ def test_ssm_apply_contract(models):
         ssm_apply(cfg, p, x[:, :32], cache=cache, cache_pos=5)
     out, _ = ssm_apply(cfg, p, x[:, :32])        # cache-less forward
     assert out.shape == (1, 32, cfg.d_model) and torch.isfinite(out).all()
-    with pytest.raises(ValueError, match="Mamba-2 SSD stacks"):
-        build_model(dataclasses.replace(cfg, d_ff=512), device="cpu")
+    # an SSD block has no FFN whatever d_ff says (the reference's
+    # `_has_ffn`), so such a config is served, as the reference serves it;
+    # an SSD block without its spec is refused
+    wide = build_model(dataclasses.replace(cfg, d_ff=512), device="cpu")
+    block = wide.init(torch.Generator().manual_seed(0))["layers"][0]
+    assert "ffn" not in block and "ln2" not in block
+    with pytest.raises(ValueError, match="cfg.ssm is None"):
+        build_model(dataclasses.replace(cfg, ssm=None), device="cpu")
 
 
 def test_init_is_seeded():

@@ -15,7 +15,7 @@ from repro.configs import get_arch as jget_arch
 from repro.configs import reduced as jreduced
 from repro.models import common as jcommon
 from repro.models.transformer import build_model as jbuild_model
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import RGLRUSpec, get_arch, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import common as tcommon
 from repro_torch.models.transformer import build_model
@@ -176,8 +176,19 @@ def test_prefill_takes_any_length_and_batch(models):
 
 def test_model_rejects_unported_archs():
     # a griffin-style pattern: rgLRU blocks mixed with sliding-window
-    # attention wait for their slice
-    tcfg = dataclasses.replace(reduced(get_arch("qwen2-7b")),
+    # attention are served with their spec, refused without it (the
+    # reference cannot build them either); a bidirectional decoder block
+    # is refused, as the reference's serve engine refuses it
+    tcfg = dataclasses.replace(reduced(get_arch("qwen2-7b")), n_layers=3,
                                layer_pattern=("rglru", "rglru", "attn_sw"))
-    with pytest.raises(ValueError, match="full-attention decoders"):
+    with pytest.raises(ValueError, match="cfg.rglru is None"):
         build_model(tcfg, device="cpu")
+    griffin = dataclasses.replace(tcfg, rglru=RGLRUSpec(block_width=64))
+    model = build_model(griffin, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    logits, cache = model.prefill(params, torch.ones((1, 5), dtype=torch.long),
+                                  model.init_cache(1, 8, torch.float32))
+    assert torch.isfinite(logits).all() and cache["h.0"].abs().sum() > 0
+    with pytest.raises(ValueError, match="decoder blocks of kinds"):
+        build_model(dataclasses.replace(tcfg, layer_pattern=("attn_bidir",)),
+                    device="cpu")

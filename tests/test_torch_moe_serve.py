@@ -355,21 +355,27 @@ def test_cache_groups_and_resolver_follow_the_reference_tree():
 
 
 def test_refusals_follow_the_reference():
-    _, tcfg = _cfgs("llama4-scout-17b-a16e")
-    with pytest.raises(ValueError, match="RMSNorm only"):
-        validate_model_cfg(dataclasses.replace(tcfg, norm_type="ln"))
-    # post-norm blocks are served (gemma2-9b), MoE FFN included
+    jscout, tcfg = _cfgs("llama4-scout-17b-a16e")
+    # LayerNorm (whisper-small) and post-norm blocks (gemma2-9b) are
+    # served, MoE FFN included
+    validate_model_cfg(dataclasses.replace(tcfg, norm_type="ln"))
     validate_model_cfg(dataclasses.replace(tcfg, post_norms=True))
     whisper = reduced(get_arch("qwen2-7b"))
     from repro_torch.configs.base import EncoderSpec
 
-    with pytest.raises(ValueError, match="decoder-only"):
-        validate_model_cfg(dataclasses.replace(
-            whisper, encoder=EncoderSpec(n_layers=2, enc_seq=64)))
-    with pytest.raises(ValueError, match="full-attention decoders"):
-        validate_model_cfg(dataclasses.replace(tcfg, use_rope=False))
+    # an encoder, and attention without RoPE (absolute positions)
+    validate_model_cfg(dataclasses.replace(
+        whisper, encoder=EncoderSpec(n_layers=2, enc_seq=64)))
+    validate_model_cfg(dataclasses.replace(tcfg, use_rope=False))
     validate_model_cfg(dataclasses.replace(
         tcfg, layer_pattern=("attn_sw", "attn", "attn_chunked")))
+    # a decoder kind outside the reference's DECODER_KINDS: both refuse
+    bidir = ("attn_bidir", "attn")
+    with pytest.raises(ValueError, match="decoder blocks of kinds"):
+        validate_model_cfg(dataclasses.replace(tcfg, layer_pattern=bidir))
+    with pytest.raises(ValueError, match="serve engine supports kinds"):
+        JServeEngine(dataclasses.replace(jscout, layer_pattern=bidir), None,
+                     n1=4)
 
     # the engine's prefill_len refusals, under the reference's conditions
     cases = [(("attn_sw", "attn"), dict(window=8), 9, "sliding-window"),
