@@ -59,7 +59,7 @@ Phases (any failure exits non-zero):
    and the reference's plain `_ssd_chunked` each against the sequential
    recurrence, as the yardstick of the chunked form's f32 error; prefill
    and decode timed and profiled, peak memory; then the same serving run
-   as phase 4 on the model's first `MAMBA_SERVE_LAYERS` (16) layers (a
+   as phase 4 on the model's first `MAMBA_SERVE_LAYERS` (8) layers (a
    served tick costs host time a layer, and the script has a time limit;
    24 of 24
    token streams identical through TP 4→3→2→3→4, reshard_pack launched on
@@ -81,7 +81,8 @@ Phases (any failure exits non-zero):
    events), transition time and bytes, peak memory, and a torch.profiler
    view of one degraded step of each session, with the reshard_pack
    calls it made by shape, are printed;
-7. replay a mixed failure trace against the same model (one session, TP 4
+7. replay a mixed failure trace against the same model at depth 2
+   (`TRACE_LAYERS`; one session, TP 4
    x 2 replicas, overlap on, `power_policy("ntp_pw")`, quarantine on):
    `schedule_from_trace` over 16 steps (a failure and its repair, a link
    degrade and its repair, an SDC suspicion that rolls back to the step-0
@@ -93,7 +94,7 @@ Phases (any failure exits non-zero):
    to its `session.transition` span; per-step plans, local batches and
    `PowerDecision`s equal to the same schedule run through the port on the
    CPU; reshard_pack, bucket_pack and bucket_unpack launched; at step 8 a
-   canonical checkpoint (about 7 GB, under `build/`) saved and restored
+   canonical checkpoint (about 5 GB, under `build/`) saved and restored
    into a fresh session under the live plan, bit-identical. Printed: step
    ms per regime (healthy, degraded at TP (3, 4), repriced, quarantined),
    each event's apply ms and bytes, snapshot and rollback ms, the
@@ -101,10 +102,11 @@ Phases (any failure exits non-zero):
    peak memory; then the schedule again with verify off, timed, with the
    host syncs outside the transitions (at most one per `drain_every`
    steps, the metrics drain);
-8. pipeline parallelism at pp=2 (stages (0, 2, 4)) on the same model,
-   mesh, batch and SGD: (a) two sessions, overlap off with microbatches 1
-   and overlap on with microbatches 2, in lockstep with the dense
-   reference on the card through the stage-addressed chain of
+8. pipeline parallelism at pp=2 (stages (0, 1, 2)) on the same model at
+   depth 2 (`PP2_LAYERS`), mesh, batch and SGD: (a) two sessions,
+   overlap off with microbatches 1 and overlap on with microbatches 2, in
+   lockstep with the dense reference on the card through the
+   stage-addressed chain of
    tests/dist/session_pp_lifecycle.py (14 steps: stage 1 fails at 2, stage
    0 at 5, stage 1 repaired at 8, stage 0 at 11): every loss within 1e-4
    of the reference and 1e-5 between the sessions, both replicas'
@@ -132,7 +134,7 @@ Phases (any failure exits non-zero):
    `--nproc 8 --pp 2 --mesh 2x2 --microbatches 2 --fail-stage 1 --seq-len
    64 --batch 2` (the README's staged mesh of eight processes);
 10. ranks as processes: the training cell's model at qwen2-7b widths,
-   its depth cut from phases 6-8's 4 layers to 1 (gloo's host staging makes
+   its depth cut from phase 6's 4 layers to 1 (gloo's host staging makes
    a process step 20-40 times the emulated one, and the script has a time
    limit), on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
    rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 3 steps,
@@ -152,12 +154,13 @@ Phases (any failure exits non-zero):
    bytes a step, each rank's peak memory, what gloo staged (nothing).
    (c) The lifecycle over processes: the same model, mesh, batch and SGD
    with overlap on, `power_policy("ntp_pw")` and quarantine, a snapshot at
-   step 0, through `LIFE_STEPS` steps of `_life_chain` (replica 1 fails,
-   a link degrades and is repaired, an SDC suspicion rolls back to the
-   snapshot under TP (1, 2) and clears, the repair, a straggler and its
-   clear), first as the emulated (2, 2) session in this process (its
-   canonical params at step 0 and at the end under `build/`), then as 4
-   spawned ranks. Checks: every rank's loss within 1e-5 of the emulated;
+   step 0, through `LIFE_STEPS` (5) steps of `_life_chain` (replica 1
+   fails, a link degrades and is repaired, an SDC suspicion rolls back to
+   the snapshot under TP (1, 2) and clears, a straggler with the repair
+   of the link, the repair with the straggler's clear), first as the
+   emulated (2, 2) session in this process (its canonical params at step
+   0 and at the end under `build/`), then as 4 spawned ranks. Checks:
+   every rank's loss within 1e-5 of the emulated;
    every step's local batches and `PowerDecision` equal; every ledger
    equal to the emulated and to `expected_transfer`; rank 0's canonical
    params right after the rollback bit-identical to step 0's, at the end
@@ -179,7 +182,7 @@ Phases (any failure exits non-zero):
    its stage's `PP_RANKS_MEMORY_SHARE` of the card; SGD lr 1e-2, local batch 4,
    microbatches 2, sequence 256, overlap on; a healthy step,
    `FailureEvent(replica=1, stage=1)` (stage 1 to TP (1, 2), stage 0
-   untouched) and two steps, the repair and one step. The emulated pp=2
+   untouched) and one step, the repair and one step. The emulated pp=2
    session runs first on the same seed, chain and batches and is freed
    before the spawn. Checks: every process's loss within 1e-5 of the
    emulated, local batches equal; each transition's ledger equal to the
@@ -243,7 +246,7 @@ Phases (any failure exits non-zero):
    models' prefill shapes and reshard_pack at their KV-head rows against
    their plain versions and library calls;
 14. the global repack allocator (`repro_torch.cluster.GreedyAllocator`):
-   phase 8's pp=2 geometry (qwen2-7b widths, 4 layers, stages (0, 2, 4), 2
+   phase 6's model at pp=2 (qwen2-7b widths, 4 layers, stages (0, 2, 4), 2
    replicas x TP 4, local batch 4, sequence 256, SGD lr 1e-2, f32) with one
    spare domain, overlap on, microbatches 2, through the chain of
    tests/dist/session_allocator_lifecycle.py (`ALLOC_CHAIN`, 12 steps: fail
@@ -322,21 +325,46 @@ Phases (any failure exits non-zero):
    beside the weight-read floor.
    Then flash_attention at whisper's encoder (q (1, 12, 1500, 64), bidir,
    f32) against its plain version and SDPA, with its launches on the path;
-17. print the kernels table as one JSON line (launches summed over the
+17. train the uniform arch stack (`train.steps.make_setup`,
+   `NTPSession.from_arch`; f32, weights from seed 0, AdamW at a constant
+   rate, remat on), one model on the card at a time: (A) qwen2-7b at full
+   width (d 3584, 28 heads of 128, 4 KV heads, QKV bias, SwiGLU 18,944,
+   untied vocab 152,064; depth cut to 2: 1,556,138,496 params, about
+   24.9 GB with grads and AdamW's moments), 6 steps at 4 x 256 of the
+   synthetic stream; (B) mamba2-780m at full size (48 layers), 3 steps at
+   2 x 512; (C) whisper-small at full size, 2 steps at 2 x 64, each row
+   with a seeded (1500, 768) `enc_input`. Checks: (i) step 0's gradient
+   finite and not all zero in every leaf (the training route computes in
+   plain ops: no leaf may lose its gradient to a forward-only kernel);
+   (ii) `Model.forward`'s last logits equal `make_setup(prefill)`'s (the
+   served model's rmsnorm and flash_attention, ssd_scan for (B), which
+   must launch) within max(1e-4, 5e-6 x max |logit|) (5e-4 for (B)); and
+   for (A): (iii) step 0's loss and grad_norm at depth 1 on a 1 x 64
+   batch equal the CPU's within the same rule; (iv) a microbatches=2 step
+   equals the plain step (params 1e-5) and (v) remat off equals remat on
+   (params 1e-6), both from the seed-0 weights at AdamW rate 1e-6, their
+   first moments compared too; (vi) the loss at step 5 below step 0's.
+   The training steps launch no kernel. Printed: losses, step ms (CUDA
+   events), peak allocated memory, and (A)'s profiled step with its idle
+   share;
+18. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
-   serving, allocator, dense serving and hybrid serving paths, each
-   counted from zero just before it), then the device line.
+   serving, allocator, dense serving, hybrid serving and arch-training
+   prefill paths, each counted from zero just before it), then the device
+   line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
 alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13, ``--allocator``
-phase 14, ``--dense-serve`` phase 15, ``--hybrid-serve`` phase 16).
+phase 14, ``--dense-serve`` phase 15, ``--hybrid-serve`` phase 16,
+``--arch-train`` phase 17).
 """
 import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import signal
 import statistics
@@ -1548,7 +1576,7 @@ SERVE_KERNELS = ("rmsnorm", "flash_attention", "reshard_pack")
 TRAIN_KERNELS = ("bucket_pack", "bucket_unpack", "reshard_pack")
 MAMBA_KERNELS = ("rmsnorm", "reshard_pack", "ssd_scan")
 # phase 5 (d) serves the first 16 of mamba2-780m's 48 layers
-MAMBA_SERVE_LAYERS = 16
+MAMBA_SERVE_LAYERS = 8
 
 
 def train_phase(torch, dev):
@@ -2102,7 +2130,7 @@ def trace_phase(torch, dev):
     from repro_torch.runtime import NTPSession, TraceRunner, power_policy
     from repro_torch.optim import sgd
 
-    cfg = qwen_widths()
+    cfg = qwen_widths(TRACE_LAYERS)
     launches, schedule, batches = replay_trace(
         torch, dev, cfg, TRACE, ckpt_step=TRACE_CKPT_STEP)
     start, end = (torch.cuda.Event(enable_timing=True),
@@ -2172,6 +2200,10 @@ def _pp2_fields(session, metrics):
             "collectives": session.step_fn.collectives}
 
 
+# phases 7 and 8 run phase 6's model at depth 2 (one layer a stage at
+# pp=2): their trace replays and in-turns timings repeat the model many
+# times, and the script has a time limit
+TRACE_LAYERS = PP2_LAYERS = 2
 PP2_SESSIONS = {"off": dict(overlap=False, microbatches=1),
                 "on": dict(overlap=True, microbatches=2)}
 
@@ -2185,7 +2217,7 @@ def _pp2_host_chain(torch):
 
     cfg = nt.NTPModelConfig(d_model=64, n_kv_groups=4, q_per_kv=7,
                             head_dim=16, d_ff=256, unit_rows=64, vocab=128,
-                            n_layers=4)
+                            n_layers=PP2_LAYERS)
     chain, out = _pp2_chain(), {}
     for name, kw in PP2_SESSIONS.items():
         s = NTPSession.create(cfg, (2, 4), local_batch=4, optimizer=sgd(1e-2),
@@ -2216,7 +2248,7 @@ def pp2_phase(torch, dev, pp1_transitions):
     from repro_torch.optim import sgd
     from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
 
-    cfg = qwen_widths()
+    cfg = qwen_widths(PP2_LAYERS)
     lr, lb, seq = 1e-2, 4, 256
     chain = _pp2_chain()
     want = _pp2_host_chain(torch)
@@ -2230,9 +2262,10 @@ def pp2_phase(torch, dev, pp1_transitions):
                                         device=dev, pp=2, **kw)
                 for name, kw in PP2_SESSIONS.items()}
     torch.cuda.synchronize()
-    check(all(s.stage_boundaries == (0, 2, 4) for s in sessions.values()),
+    bounds = (0, PP2_LAYERS // 2, PP2_LAYERS)
+    check(all(s.stage_boundaries == bounds for s in sessions.values()),
           "stage boundaries")
-    print(f"  (a) pp=2 (stages (0, 2, 4)) on 2 replicas x TP 4: sessions "
+    print(f"  (a) pp=2 (stages {bounds}) on 2 replicas x TP 4: sessions "
           f"overlap off/microbatches 1 and overlap on/microbatches 2, and "
           f"the dense reference on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3227,7 +3260,7 @@ def rank_bucket_rows(torch, dev, cfg, plan):
 # quarantines it and rolls back to the step-0 snapshot under TP (1, 2);
 # 3: its clear and the link's repair; 4: the repair (TP (2, 2)) and a
 # straggler; 5: the straggler's clear. 6 steps.
-LIFE_STEPS = 6
+LIFE_STEPS = 5
 
 
 def _life_chain():
@@ -3240,10 +3273,10 @@ def _life_chain():
                 LinkDegradeEvent(step=1, domain=1, bw_frac=0.5)],
             2: [SdcSuspectEvent(step=2, replica=1)],
             3: [SdcClearEvent(step=3, replica=1),
-                LinkRepairEvent(step=3, domain=1, bw_frac=0.5)],
+                LinkRepairEvent(step=3, domain=1, bw_frac=0.5),
+                StragglerEvent(step=3, domain=0, slowdown=2.0)],
             4: [RecoveryEvent(step=4, replica=0),
-                StragglerEvent(step=4, domain=0, slowdown=2.0)],
-            5: [StragglerClearEvent(step=5, domain=0, slowdown=2.0)]}
+                StragglerClearEvent(step=4, domain=0, slowdown=2.0)]}
 
 
 # the degraded step after which part (c) measures its (bucketed) sync;
@@ -3624,9 +3657,9 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
 # phase 11: pp=2 ranks as processes, a staged mesh (`make_staged_mesh`) of
 # pp x D x N1 gloo processes on this card, one layer a stage. The chain:
 # a healthy step; the last replica's stage 1 loses a GPU (TP (1, 2) there,
-# stage 0 untouched) and two steps; the repair and one step.
+# stage 0 untouched) and one step; the repair and one step.
 PP_RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
-PP_RANKS_STEPS = 4
+PP_RANKS_STEPS = 3
 PP_RANKS_MB = 2
 # each process's share of the card by stage (stage 1 holds `head` and the
 # microbatch logits, and packs a degraded layer wider): 4 x (0.10 + 0.125)
@@ -3638,7 +3671,7 @@ def _pp_ranks_chain(n_data):
     from repro_torch.runtime import FailureEvent, RecoveryEvent
 
     return {1: FailureEvent(step=1, replica=n_data - 1, stage=1, n_gpus=1),
-            3: RecoveryEvent(step=3, replica=0, stage=1, n_gpus=1)}
+            2: RecoveryEvent(step=2, replica=0, stage=1, n_gpus=1)}
 
 
 def _pp_ranks_session(torch, cfg, mesh, dev, canon):
@@ -5595,6 +5628,252 @@ def hybrid_serve_phase(torch, F, dev):
     return launches, rows
 
 
+# phase 17: the uniform arch stack trained (`train.steps`, `NTPSession
+# .from_arch`), f32, weights from seed 0 on the card; the plain route runs
+# no kernel, `make_setup(prefill)` launches these
+ARCH_TRAIN_KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
+ARCH_TRAIN_LR = 1e-3        # AdamW's rate in the sessions (a constant one)
+ARCH_PROBE_LR = 1e-6        # and in the step-equality probes (iv), (v)
+# (name, arch, depth (None: the config's), batch, sequence, session steps,
+# the prefill's kernel tolerance (ssd_scan's is 5e-4))
+ARCH_TRAIN = (("A", "qwen2-7b", 2, 4, 256, 6, 1e-4),
+              ("B", "mamba2-780m", None, 2, 512, 3, 5e-4),
+              ("C", "whisper-small", None, 2, 64, 2, 1e-4))
+
+
+def const_schedule(step):
+    return 1.0
+
+
+def _arch_batch(torch, cfg, batch, seq, dev, step=0):
+    """The synthetic stream's batch ``step`` on ``dev``, with a seeded
+    (batch, enc_seq, d) ``enc_input`` for an enc-dec config."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+
+    out = SyntheticLMPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
+                              device=dev).batch(step)
+    if cfg.encoder is not None:
+        g = torch.Generator(device=dev).manual_seed(17)
+        out["enc_input"] = 0.1 * torch.randn(
+            (batch, cfg.encoder.enc_seq, cfg.d_model), generator=g,
+            device=dev)
+    return out
+
+
+def arch_grads_check(torch, su, params, batch, name):
+    """(i): the train step's gradient (`Setup.grad_fn`) at ``params`` is
+    finite and not all zero in every leaf — no leaf lost its gradient to a
+    forward-only kernel."""
+    from repro_torch import tree as tr
+
+    (_, ce), grads = su.grad_fn(params, batch)
+    bad = [tr.path_key(p) for p, g in tr.leaves_with_path(grads)
+           if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    n = len(tr.leaves(grads))
+    print(f"  ({name} i) step 0's gradient: {n - len(bad)} of {n} leaves "
+          f"finite and nonzero (loss {float(ce):.4f})", flush=True)
+    check(not bad, f"({name}) leaves without a gradient: {bad[:8]}")
+
+
+def arch_prefill_check(torch, cfg, model, params, batch, seq, tol, name):
+    """(ii): `Model.forward`'s last logits (plain route) against
+    `make_setup(prefill)`'s (the served model's kernels) within max(tol,
+    5e-6 x max |logit|). Returns the prefill's kernel launches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import mode
+    from repro_torch.train.steps import make_setup
+
+    b = batch["tokens"].shape[0]
+    su = make_setup(cfg, ShapeSpec("prefill", seq, b, "prefill"),
+                    param_dtype=torch.float32, device=model.device)
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+    with torch.no_grad():
+        full = model.forward(params, batch["tokens"],
+                             enc_input=batch.get("enc_input"))[0][:, -1]
+    torch.cuda.synchronize()
+    mode.reset_launches()
+    last, cache = su.step_fn(params, inputs)
+    torch.cuda.synchronize()
+    launches = mode.launches()
+    del cache
+    err = float((full - last).abs().max())
+    lim = max(tol, 5e-6 * float(full.abs().max()))
+    print(f"  ({name} ii) forward vs make_setup(prefill) last logits: "
+          f"max_abs_err {err:.3e} (tol {lim:.3e}, max |logit| "
+          f"{float(full.abs().max()):.2f}); prefill launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(err <= lim, f"({name}) forward and prefill disagree: {err}")
+    return launches
+
+
+def arch_cpu_check(torch, cfg, params, dev):
+    """(A iii): step 0's loss and grad_norm of the model's first layer
+    (its tensors shared) on a 1 x 64 batch, on the card and on the CPU,
+    within max(1e-4, 5e-6 x max |logit|)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.optim import global_norm
+    from repro_torch.train.steps import make_setup
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    p1 = dict(params, layers=params["layers"][:1])
+    got = []
+    for where, p in ((dev, p1), (torch.device("cpu"), _to(p1, "cpu"))):
+        su = make_setup(cfg1, ShapeSpec("t", 64, 1, "train"),
+                        param_dtype=torch.float32, device=where)
+        batch = _arch_batch(torch, cfg1, 1, 64, where)
+        (_, ce), grads = su.grad_fn(p, batch)
+        with torch.no_grad():
+            top = float(su.model.forward(p, batch["tokens"])[0].abs().max())
+        got.append((float(ce), float(global_norm(grads)), top))
+        del grads
+    lim = max(1e-4, 5e-6 * got[1][2])
+    errs = [abs(a - b) for a, b in zip(got[0][:2], got[1][:2])]
+    print(f"  (A iii) depth 1, 1 x 64: loss {got[0][0]:.6f} card / "
+          f"{got[1][0]:.6f} CPU, grad_norm {got[0][1]:.6f} / {got[1][1]:.6f}"
+          f" (tol {lim:.3e}, max |logit| {got[1][2]:.2f})", flush=True)
+    check(max(errs) <= lim, f"(A) card and CPU step 0 disagree: {errs}")
+
+
+def arch_probes(torch, cfg, batch, seq, dev):
+    """(A iv, v): from the seed-0 weights, one step with microbatches=2 and
+    one with remat off, each against the plain step (AdamW at
+    `ARCH_PROBE_LR`, so a weight whose gradient is rounding noise moves by
+    at most ~lr either way): params within 1e-5 and 1e-6, and the first
+    moment (the clipped gradients) within 1e-4 and 1e-6 of the plain
+    step's largest."""
+    from repro_torch import tree as tr
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_setup
+
+    b = batch["tokens"].shape[0]
+
+    def setup(**kw):
+        return make_setup(cfg, ShapeSpec("t", seq, b, "train"),
+                          param_dtype=torch.float32, device=dev,
+                          opt_cfg=AdamWConfig(lr=ARCH_PROBE_LR),
+                          lr_schedule=const_schedule, **kw)
+
+    plain = setup()
+    p0 = plain.model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def probe(su):
+        p = tr.tree_map(torch.clone, p0)
+        p, o, _ = su.step_fn(p, adamw_init(p, su.opt_cfg), batch)
+        return p, o["m"]
+
+    ref_p, ref_m = probe(plain)
+    top = max(float(m.abs().max()) for m in tr.leaves(ref_m))
+    for name, su, ptol, mtol in (("A iv", setup(microbatches=2), 1e-5, 1e-4),
+                                 ("A v", setup(remat=False), 1e-6, 1e-6)):
+        p, m = probe(su)
+        dp = max(float((a - r).abs().max())
+                 for a, r in zip(tr.leaves(p), tr.leaves(ref_p)))
+        dm = max(float((a - r).abs().max())
+                 for a, r in zip(tr.leaves(m), tr.leaves(ref_m))) / top
+        what = "microbatches=2" if name == "A iv" else "remat off"
+        print(f"  ({name}) {what} vs the plain step: params max_abs_err "
+              f"{dp:.3e} (tol {ptol:g}), first moment {dm:.3e} of its "
+              f"largest {top:.3e} (tol {mtol:g})", flush=True)
+        check(dp <= ptol and dm <= mtol, f"({name}) {what} differs")
+        del p, m
+    del p0, ref_p, ref_m
+    torch.cuda.empty_cache()
+
+
+def arch_train_part(torch, dev, name, arch, depth, batch, seq, steps, tol):
+    """One model of phase 17 through `NTPSession.from_arch` (AdamW at
+    `ARCH_TRAIN_LR`, remat on); checks (i), (ii), and for (A) (iii)-(vi).
+    Returns the prefill's launches."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import mode
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import NTPSession
+
+    cfg = get_arch(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    data = [_arch_batch(torch, cfg, batch, seq, dev, i) for i in range(steps)]
+    if name == "A":
+        arch_probes(torch, cfg, data[0], seq, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = NTPSession.from_arch(cfg, ShapeSpec("t", seq, batch, "train"),
+                             device=dev, opt_cfg=AdamWConfig(lr=ARCH_TRAIN_LR),
+                             lr_schedule=const_schedule)
+    n_par = sum(p.numel() for p in tr.leaves(s.params))
+    torch.cuda.synchronize()
+    print(f"  ({name}) {cfg.arch_id}: {cfg.n_layers} layers, {n_par:,} "
+          f"params ({n_par * 4 / 1e9:.2f} GB f32), batch {batch} x {seq}, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    arch_grads_check(torch, s.setup, s.params, data[0], name)
+    if name == "A":
+        arch_cpu_check(torch, cfg, s.params, dev)
+    mode.reset_launches()
+    losses, ms = [], []
+    for i in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        m = s.step(data[i])
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    trained = mode.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  ({name}) {steps} steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + ", ".join(f"{x:.1f}" for x in ms) + f"; peak {peak:.2f} GB "
+          f"allocated; kernel launches in training "
+          f"{sum(trained.values())}", flush=True)
+    check(all(v == 0 for v in trained.values()),
+          f"({name}) the training route launched kernels: {trained}")
+    check(all(map(math.isfinite, losses)), f"({name}) non-finite loss")
+    if name == "A":
+        check(losses[-1] < losses[0],
+              f"(A vi) the loss did not fall: {losses}")
+        print(f"  (A vi) loss at step {steps - 1} {losses[-1]:.4f} < step 0 "
+              f"{losses[0]:.4f}", flush=True)
+        profile_steps(torch, lambda: s.step(data[-1]), "step", ticks=1)
+    launches = arch_prefill_check(torch, cfg, s.setup.model, s.params,
+                                  data[0], seq, tol, name)
+    del s
+    torch.cuda.empty_cache()
+    return launches
+
+
+def arch_train_phase(torch, dev):
+    """Phase 17. Returns the launch counts of the prefill steps, summed."""
+    total = dict.fromkeys(ARCH_TRAIN_KERNELS, 0)
+    for name, arch, depth, batch, seq, steps, tol in ARCH_TRAIN:
+        launches = arch_train_part(torch, dev, name, arch, depth, batch, seq,
+                                   steps, tol)
+        want = (("rmsnorm", "ssd_scan") if arch == "mamba2-780m" else
+                ("flash_attention",) if arch == "whisper-small" else
+                ("rmsnorm", "flash_attention"))
+        check(all(launches[k] > 0 for k in want),
+              f"({name}) the prefill did not launch {want}: {launches}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def arch_train_only(torch):
+    """``--arch-train``: build the kernels and run phase 17 alone, then exit
+    (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = arch_train_phase(torch, torch.device("cuda"))
+    print(f"  phase 17: {time.perf_counter() - t0:.1f} s; prefill launches "
+          f"{launches}", flush=True)
+    return 0
+
+
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
@@ -5824,6 +6103,8 @@ def main() -> int:
         return moe_only(torch)
     if sys.argv[1:2] == ["--allocator"]:
         return allocator_only(torch)
+    if sys.argv[1:2] == ["--arch-train"]:
+        return arch_train_only(torch)
     import torch.nn.functional as F
 
     if sys.argv[1:2] == ["--moe-serve"]:
@@ -5936,7 +6217,12 @@ def main() -> int:
           "(encoder, cross-attention, LayerNorm) through fail->repair")
     hybrid_launches, hybrid_table = hybrid_serve_phase(torch, F, dev)
 
-    phase("phase 17: kernels table")
+    phase("phase 17: train the uniform arch stack: qwen2-7b at full width "
+          "(2 layers), mamba2-780m and whisper-small at full size, through "
+          "NTPSession.from_arch")
+    arch_launches = arch_train_phase(torch, dev)
+
+    phase("phase 18: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
@@ -5946,7 +6232,8 @@ def main() -> int:
              (moe_serve_launches, SERVE_KERNELS),
              (alloc_launches, ALLOC_KERNELS),
              (dense_serve_launches, SERVE_KERNELS),
-             (hybrid_launches, SERVE_KERNELS))
+             (hybrid_launches, SERVE_KERNELS),
+             (arch_launches, ARCH_TRAIN_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)

@@ -25,6 +25,12 @@ gates) and an MoE block's FFN (the reference's `moe_init`: ``router``
 ``w_down`` (E, ff, d), and the ``shared`` expert or ``dense`` residual
 MLP) come across leaf for leaf. A leaf the reference's model does not
 make is refused.
+
+`opt_state_from_jax` does the same for the reference's AdamW state of such
+a tree (`repro.optim.adamw_init` and its updates): ``m``, ``v`` and, with
+low-precision params, ``master`` are parameter trees and convert as the
+params do; ``step`` stays an int32 scalar. With it both packages can start
+a training step from one state.
 """
 from __future__ import annotations
 
@@ -85,6 +91,21 @@ def params_from_jax(tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     if enc:
         out["encoder"] = {"layers": _unstack(enc["layers"], dev),
                           "final_norm": _to_torch(enc["final_norm"], dev)}
+    return out
+
+
+def opt_state_from_jax(state: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """The reference's AdamW state (numpy) → the port's, on ``device``
+    (CUDA unless ``device="cpu"``)."""
+    unknown = set(state) - {"m", "v", "master", "step"}
+    if unknown:
+        raise ValueError(
+            f"opt_state_from_jax: keys {sorted(unknown)} are not keys of "
+            "the reference's AdamW state"
+        )
+    out = {k: params_from_jax(state[k], device=device)
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = _to_torch(state["step"], mode.resolve_device(device))
     return out
 
 

@@ -138,6 +138,7 @@ def flash_attention(
     if mode.on_cpu(q, k, v, kernel="flash_attention"):
         return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
                                        chunk=chunk, softcap=softcap)
+    mode.check_forward_only(q, k, v, kernel="flash_attention")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention: the CUDA kernel takes f32 or bf16 q/k/v of "

@@ -6,6 +6,13 @@ has no interpret mode. A kernel wrapper takes its plain PyTorch version
 kernel when they lie on a CUDA device, and raises otherwise: there is no
 override and no fallback.
 
+The CUDA kernels are forward-only: `rmsnorm`, `flash_attention` and
+`ssd_scan` call `check_forward_only` before a launch, which raises when
+grad mode is on and an input requires grad — the kernel's output would
+carry no gradient, and everything upstream would silently get none. (Their
+plain versions on the CPU are differentiable; training computes with plain
+ops on every device.)
+
 Each wrapper adds one to its kernel's counter where it launches the kernel
 and nowhere else, so a run can show that a path really went through the
 kernels (`reset_launches` before it, `launches` after it); a wrapper with
@@ -80,6 +87,18 @@ def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
                                       mode="cpu")
         return True
     raise ValueError(f"{kernel}: no kernel for device {device}")
+
+
+def check_forward_only(*tensors: torch.Tensor, kernel: str) -> None:
+    """Raise a RuntimeError naming ``kernel`` when grad mode is on and any of
+    ``tensors`` requires grad (a launch would drop the gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel is forward-only, but grad mode is on "
+            "and an input requires grad, so its output would carry no "
+            "gradient; run it under torch.no_grad(), or train through the "
+            "plain route (models.transformer.Model.forward)"
+        )
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

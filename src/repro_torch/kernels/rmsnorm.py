@@ -106,6 +106,7 @@ def rmsnorm(x, w, *, eps: float = 1e-6, plus_one: bool = False,
             )
     if mode.on_cpu(x, w, kernel="rmsnorm"):
         return ref.rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)
+    mode.check_forward_only(x, w, kernel="rmsnorm")
     xp, wp = x.data_ptr(), w.data_ptr()
     # y comes from the caching allocator, whose blocks are 512-byte aligned
     key = (x.dtype, w.dtype, d, plus_one, eps, not (xp | wp) % WORD_BYTES)

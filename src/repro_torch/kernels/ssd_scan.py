@@ -111,6 +111,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, final_state: bool = False):
         )
     if mode.on_cpu(x, dt, A, B, C, kernel="ssd_scan"):
         return ref.ssd_scan_ref(x, dt, A, B, C, final_state=final_state)
+    mode.check_forward_only(x, dt, A, B, C, kernel="ssd_scan")
     dev = x.device
     if 0 in (bh, hp, ds):                     # nothing to scan: y = 0
         y = torch.zeros((bh, s, hp), dtype=torch.float32, device=dev)

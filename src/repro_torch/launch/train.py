@@ -1,9 +1,18 @@
-"""Training launcher of the port: the NTP prototype through `NTPSession`,
-with an injected mid-run GPU failure or a replayed failure trace (port of
-the ``--ntp`` path of `repro/launch/train.py`: ``_run_ntp`` and
-``_run_ntp_trace``).
+"""Training launcher of the port (port of `repro/launch/train.py`): an
+arch config's uniform training (``--arch``, through
+`NTPSession.from_arch`), or the NTP prototype through `NTPSession.create`,
+with an injected mid-run GPU failure or a replayed failure trace
+(``--ntp``: ``_run_ntp`` and ``_run_ntp_trace``).
 
 Examples:
+
+  # on the GPU: train reduced qwen2-7b on the synthetic Markov stream
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --reduced --steps 20 --seq-len 128 --batch 8
+
+  # the same on the CPU, 2 steps of 16 tokens, with a checkpoint
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --reduced --device cpu --steps 2 --seq-len 16 --ckpt /tmp/arch.npz
 
   # on the GPU: 2 emulated replicas x TP 4, fail one GPU before step 3
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --steps 8 \\
@@ -70,8 +79,15 @@ mesh of ``N = P * D * N1`` processes, ``--mesh`` sizing each stage. Global
 rank 0 prints and writes the telemetry stream, the other ranks record into
 memory. ``--allocator greedy`` (``--pp`` > 1) makes every replan the global
 repack planner's (`repro_torch.cluster`), which is what lets ``--spares``
-work at ``--pp`` > 1; each event prints its verdict. The uniform arch-stack
-launcher (``--arch``) waits for its slice (ROADMAP).
+work at ``--pp`` > 1; each event prints its verdict.
+
+``--arch`` trains on one device with `make_setup`'s step (AdamW, the
+warmup-cosine schedule, f32 weights drawn from ``--seed``; each batch of
+an enc-dec arch gets zero frame embeddings as its ``enc_input``, as the
+reference's launcher gives it) and writes ``--ckpt`` as {"params",
+"opt"} in the port's layout (one entry per layer). The reference's
+``--dry-run`` (ROADMAP item 8) and its ``--devices`` mesh (ROADMAP
+'sharded arch-stack execution') are not ported and are refused.
 """
 import argparse
 import time
@@ -79,16 +95,23 @@ import time
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="arch config id (required unless --ntp)")
     ap.add_argument("--ntp", action="store_true",
-                    help="train the NTP prototype via the runtime session "
-                         "(the only launcher path ported so far)")
+                    help="train the NTP prototype via the runtime session")
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the smoke-scale variant of the arch family")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="lower and account at the production mesh (not "
+                         "ported: refused)")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages (stage-partitioned layers, "
                          "per-(replica, stage) health; a failure degrades "
                          "only its stage)")
     ap.add_argument("--microbatches", type=int, default=1,
-                    help="1F1B microbatch chunks per step (must divide "
-                         "--batch)")
+                    help="microbatch chunks per step (must divide --batch; "
+                         "1F1B chunks with --ntp, gradient accumulation "
+                         "with --arch)")
     ap.add_argument("--overlap", choices=["on", "off"], default="off",
                     help="overlapped, bucketed gradient sync")
     ap.add_argument("--fail-at", type=int, default=None,
@@ -158,10 +181,12 @@ def main(argv=None) -> dict:
                          "it): nccl needs one card per process, gloo shares "
                          "one card or runs on the CPU")
     args = ap.parse_args(argv)
+    if args.arch is None and not args.ntp:
+        ap.error("--arch is required unless --ntp is given")
+    if args.ntp and args.dry_run:
+        ap.error("--ntp has no --dry-run path")
     if not args.ntp:
-        ap.error("only --ntp is ported: the uniform arch-stack launcher "
-                 "(--arch) waits for its slice (ROADMAP Queue 1, 'uniform "
-                 "arch launcher')")
+        return _run_arch(ap, args)
     if args.trace is not None and args.fail_at is not None:
         ap.error("--trace and --fail-at are mutually exclusive")
     from repro_torch.configs.shapes import SUPPORTED_PP
@@ -252,6 +277,98 @@ def _run_ntp(args) -> dict:
     if args.trace is not None:
         return _run_ntp_trace(args, session, pipe)
     return _train_loop(args, session, pipe, print)
+
+
+def _run_arch(ap, args) -> dict:
+    """``--arch``: uniform training of an arch config through
+    `NTPSession.from_arch` on one device. Returns the per-step losses and
+    the final params and optimizer state."""
+    if args.dry_run:
+        ap.error("--dry-run is not ported to repro_torch yet (ROADMAP Queue "
+                 "1, item 8: the dry-run and HLO tools)")
+    if args.devices:
+        ap.error("--devices (an arch run on a mesh) is not ported to "
+                 "repro_torch yet (ROADMAP Queue 1: 'sharded arch-stack "
+                 "execution'); --arch trains on one device")
+    ntp_only = [flag for flag, on in (
+        ("--trace", args.trace is not None),
+        ("--fail-at", args.fail_at is not None),
+        ("--power-policy", args.power_policy), ("--pp", args.pp != 1),
+        ("--fail-stage", args.fail_stage is not None),
+        ("--overlap", args.overlap == "on"),
+        ("--quarantine", args.quarantine == "off"),
+        ("--allocator", args.allocator != "off"), ("--spares", args.spares),
+        ("--nproc", args.nproc), ("--mesh", args.mesh),
+        ("--backend", args.backend)) if on]
+    if ntp_only:
+        ap.error(f"{', '.join(ntp_only)} "
+                 f"{'needs' if len(ntp_only) == 1 else 'need'} --ntp "
+                 "(lifecycle, pipeline and process-group training are "
+                 "NTP-backend-only)")
+    if args.telemetry:
+        from repro_torch import telemetry
+
+        telemetry.configure(jsonl=args.telemetry)
+        try:
+            return _arch_loop(args)
+        finally:
+            telemetry.shutdown()
+    return _arch_loop(args)
+
+
+def _arch_loop(args) -> dict:
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels.mode import resolve_device
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import NTPSession
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    cfg = reduced(cfg) if args.reduced else cfg
+    session = NTPSession.from_arch(
+        cfg, ShapeSpec("cli", args.seq_len, args.batch, "train"),
+        opt_cfg=AdamWConfig(lr=args.lr), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        microbatches=args.microbatches,
+    )
+    n_par = sum(p.numel() for p in tr.leaves(session.params))
+    print(f"arch={cfg.arch_id} params={n_par/1e6:.1f}M device={dev}")
+
+    pipe = SyntheticLMPipeline(
+        DataConfig(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed),
+        device=dev)
+
+    def save(step):
+        save_checkpoint(args.ckpt, {"params": session.params,
+                                    "opt": session.opt_state}, step=step)
+
+    losses = []
+    t0 = time.time()
+    for i in range(args.steps):
+        batch = pipe.batch(i)
+        if cfg.encoder is not None:
+            batch["enc_input"] = torch.zeros(
+                (args.batch, cfg.encoder.enc_seq, cfg.d_model), device=dev)
+        metrics = session.step(batch)
+        losses.append(float(metrics["loss"]))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:5d}  loss {losses[-1]:.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.3f}  "
+                  f"({(time.time()-t0):.1f}s)", flush=True)
+        if args.ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+            save(i + 1)
+            print(f"  saved checkpoint -> {args.ckpt}")
+    if args.ckpt:
+        save(args.steps)
+        print(f"final checkpoint -> {args.ckpt}")
+    return {"losses": losses, "params": session.params,
+            "opt": session.opt_state}
 
 
 def _train_loop(args, session, pipe, log) -> dict:

@@ -19,7 +19,12 @@ absolute position ``last − ((last − i) mod w)``, masking rows not yet
 written. Full attention keeps a full-length cache.
 
 An encoder's ``attn_bidir`` blocks run the flash kernel with its bidir
-mask. Cross-attention (enc-dec decoders) attends the encoder output
+mask. The training forward takes the plain route instead (``plain=True``):
+the reference's `_attend_naive` under `_mask_bias` up to
+``FLASH_SEQ_THRESHOLD`` (8192) tokens and its blockwise online softmax
+(`_attend_blockwise`, blocks of 512 queries and 1024 keys) above, in
+plain, differentiable PyTorch (the flash kernel is forward-only).
+Cross-attention (enc-dec decoders) attends the encoder output
 bidirectionally and naively, as the reference does: at prefill it
 computes the encoder K/V and banks them (``ek``/``ev``,
 `init_cross_kv_cache`), and decode reads the bank.
@@ -29,12 +34,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.models.common import P, apply_rope, dense_init, rms_norm, softcap
 
 NEG_INF = -2.0e38  # fp32-safe mask value
+# the plain route (`attn_apply(plain=True)`, the training forward) attends
+# naively up to this many tokens and blockwise, in blocks of FLASH_BLOCK_Q
+# queries and FLASH_BLOCK_K keys, above it, as the reference does
+FLASH_SEQ_THRESHOLD = 8192
+FLASH_BLOCK_Q = 512
+FLASH_BLOCK_K = 1024
 INT32_MAX = 2 ** 31 - 1
 FLASH_KIND = {"attn": "causal", "attn_sw": "sliding",
               "attn_chunked": "chunked", "attn_bidir": "bidir"}
@@ -62,6 +74,20 @@ def attn_init(cfg: ArchConfig, gen: torch.Generator, dtype, *,
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=dev)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=dev)
     return p
+
+
+def attn_specs(cfg: ArchConfig, tp: str = "model", *, cross: bool = False) -> dict:
+    s = {
+        "wq": P(None, tp),
+        "wk": P(None, None),  # kv_heads < TP: replicated (Megatron GQA)
+        "wv": P(None, None),
+        "wo": P(tp, None),
+    }
+    if cfg.attn_bias and not cross:
+        s.update(bq=P(tp), bk=P(None), bv=P(None))
+    if cfg.qk_norm:
+        s.update(q_norm=P(None), k_norm=P(None))
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +128,50 @@ def _attend_naive(q, k, v, bias, cap: Optional[float]):
     return torch.einsum("bkgqs,bskh->bkgqh", probs, v.float())
 
 
+def _attend_blockwise(q, k, v, q_pos, k_pos, kind, window, chunk, cap):
+    """The reference's blockwise `_attend_flash` in plain PyTorch: an online
+    softmax over K/V blocks of FLASH_BLOCK_K keys for each block of
+    FLASH_BLOCK_Q queries, each query block recomputed in the backward
+    (checkpointed) instead of stored.
+
+    q: (B,kvh,g,Sq,hd); k/v: (B,Sk,kvh,hd); returns (B,kvh,g,Sq,hd) f32."""
+    b, kvh, g, sq, hd = q.shape
+    sk = k.shape[1]
+    bq, bk = min(FLASH_BLOCK_Q, sq), min(FLASH_BLOCK_K, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(
+            f"blockwise attention: sequence lengths ({sq}, {sk}) are not "
+            f"multiples of the blocks ({bq}, {bk})")
+    nq, nk = sq // bq, sk // bk
+    ks = k.reshape(b, nk, bk, kvh, hd).permute(1, 0, 3, 2, 4)  # (nk,B,kvh,bk,hd)
+    vs = v.reshape(b, nk, bk, kvh, hd).permute(1, 0, 3, 2, 4)
+    kps = k_pos.reshape(nk, bk)
+    qs = q.reshape(b, kvh, g, nq, bq, hd).permute(3, 0, 1, 2, 4, 5) \
+        * hd ** -0.5
+    qps = q_pos.reshape(nq, bq)
+
+    def q_block(qi, qp):
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m = torch.full((b, kvh, g, bq), NEG_INF, **f32)
+        l = torch.zeros((b, kvh, g, bq), **f32)
+        acc = torch.zeros((b, kvh, g, bq, hd), **f32)
+        for j in range(nk):
+            s = torch.einsum("bkgqh,bksh->bkgqs", qi.float(), ks[j].float())
+            s = softcap(s, cap) + _mask_bias(kind, qp, kps[j], window, chunk)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bksh->bkgqh", p, vs[j].float())
+            m = m_new
+        return acc / torch.clamp(l, min=1e-38)[..., None]
+
+    out = torch.stack([checkpoint(q_block, qs[i], qps[i], use_reentrant=False)
+                       for i in range(nq)])                # (nq,B,kvh,g,bq,hd)
+    return out.permute(1, 2, 3, 0, 4, 5).reshape(b, kvh, g, sq, hd)
+
+
 # ---------------------------------------------------------------------------
 # public apply
 
@@ -115,11 +185,18 @@ def attn_apply(
     cache_pos=None,       # prefill: int write offset; decode: int or (B,)
     kv_x=None,            # cross-attention source (B, T_enc, d); None = self
     cross_cache: Optional[dict] = None,  # {'ek','ev'} (B, T_enc, kvh, hd)
+    plain: bool = False,  # the training route: plain ops, no cache
+    positions=None,       # plain route: (S,) query positions (0..S-1)
 ):
     """Returns (out, cache). The cache-less forward and prefill (S > 1)
     run at positions 0..S-1; a one-token step against a cache runs each
     row at its write position ``cache_pos``. RoPE applies iff
     ``cfg.use_rope``.
+
+    ``plain`` is the cache-less training forward in plain, differentiable
+    PyTorch, as the reference's forward computes it: the queries at
+    ``positions`` (0..S-1 when None) against keys at 0..S-1, `_attend_naive`
+    up to FLASH_SEQ_THRESHOLD tokens and `_attend_blockwise` above.
 
     Cross-attention (``kv_x`` or ``cross_cache`` given) attends the
     encoder K/V bidirectionally, naively, as the reference does: with
@@ -147,13 +224,25 @@ def attn_apply(
     if decode:
         cache_pos = torch.as_tensor(cache_pos, device=x.device).expand(b)
         positions = cache_pos[:, None]                       # (B, 1)
-    else:
+    elif positions is None or not plain:
         positions = torch.arange(s, device=x.device)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if not decode:
+    if plain:
+        k_pos = torch.arange(s, device=x.device)
+        qg = _group(q, kvh)
+        if s > FLASH_SEQ_THRESHOLD:
+            out = _attend_blockwise(qg, k, v, positions, k_pos, kind,
+                                    cfg.window, cfg.chunk_size,
+                                    cfg.attn_softcap)
+        else:
+            bias = _mask_bias(kind, positions, k_pos, cfg.window,
+                              cfg.chunk_size)
+            out = _attend_naive(qg, k, v, bias, cfg.attn_softcap)
+        out = out.permute(0, 3, 1, 2, 4)                     # (B,S,kvh,g,hd)
+    elif not decode:
         if cache is not None:
             _write_prefill(cache, k, v, cache_pos, kind in RING_KINDS)
         # (B,H,S,hd) / (B,KVH,S,hd): GQA resolved inside the kernel

@@ -1,12 +1,65 @@
-"""Shared model utilities: norms, activations, softcap, RoPE, initializers
-(port of `repro/models/common.py`; the sharding context has no counterpart
-here — the port emulates a replica's ranks on one device)."""
+"""Shared model utilities: partition specs, norms, activations, softcap,
+RoPE, initializers (port of `repro/models/common.py`; the sharding context
+has no counterpart here — the port emulates a replica's ranks on one
+device, and its spec trees are layouts for sharded execution to consume).
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# partition specs
+
+class P:
+    """A partition spec, as ``jax.sharding.PartitionSpec`` holds one: an
+    entry per leading dim of a tensor — a mesh axis name, a tuple of names,
+    or None (replicated); dims past the last entry are replicated. Not a
+    tuple, so it is one leaf of the port's spec trees (`repro_torch.tree`
+    walks tuples); ``tuple(spec)`` gives its entries. As JAX does, a
+    one-name tuple entry is kept as the bare name and an empty one as
+    None."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(
+            (e[0] if len(e) == 1 else e or None) if isinstance(e, tuple)
+            else e for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __eq__(self, other):
+        return isinstance(other, P) and self.entries == other.entries
+
+    def __hash__(self):
+        return hash(self.entries)
+
+    def __repr__(self):
+        return f"P{self.entries!r}"
+
+
+def sanitize_spec(mesh_shape: dict, shape, spec: P) -> P:
+    """Drop spec axes whose mesh-size does not divide the dim (e.g. 12 whisper
+    heads over model=16 → replicate instead of erroring)."""
+    out = []
+    for d, names in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if names is None:
+            out.append(None)
+            continue
+        tup = names if isinstance(names, tuple) else (names,)
+        size = 1
+        for n in tup:
+            size *= mesh_shape[n]
+        out.append(names if shape[d] % size == 0 else None)
+    return P(*out)
 
 
 # ---------------------------------------------------------------------------

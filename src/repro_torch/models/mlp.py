@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoESpec
-from repro_torch.models.common import act_fn, dense_init
+from repro_torch.models.common import P, act_fn, dense_init
 
 
 # ---------------------------------------------------------------------------
@@ -38,6 +38,13 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, dtype,
     if cfg.ffn_gated:
         p["w_gate"] = dense_init(gen, (d, ff), d, dtype)
     return p
+
+
+def mlp_specs(cfg: ArchConfig, tp: str = "model") -> dict:
+    s = {"w_up": P(None, tp), "w_down": P(tp, None)}
+    if cfg.ffn_gated:
+        s["w_gate"] = P(None, tp)
+    return s
 
 
 def mlp_apply(cfg: ArchConfig, p: dict, x):
@@ -75,6 +82,23 @@ def moe_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
     if m.dense_residual:
         p["dense"] = mlp_init(cfg, gen, dtype)
     return p
+
+
+def moe_specs(cfg: ArchConfig, tp: str = "model") -> dict:
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.arch_id} has no MoE spec")
+    s = {
+        "router": P(None, None),
+        "w_up": P(tp, None, None),   # expert-parallel over the scale-up domain
+        "w_down": P(tp, None, None),
+    }
+    if cfg.ffn_gated:
+        s["w_gate"] = P(tp, None, None)
+    if cfg.moe.shared_expert:
+        s["shared"] = mlp_specs(cfg, tp)
+    if cfg.moe.dense_residual:
+        s["dense"] = mlp_specs(cfg, tp)
+    return s
 
 
 def _route(m: MoESpec, logits):

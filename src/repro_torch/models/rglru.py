@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense_init, softplus
+from repro_torch.models.common import P, dense_init, softplus
 from repro_torch.models.ssm import _causal_conv
 
 _C = 8.0  # Griffin's fixed recurrence sharpness
@@ -51,6 +51,21 @@ def rglru_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
         "bias_i": torch.zeros(di, dtype=torch.float32, device=dev),
         "lam": lam,
         "w_out": dense_init(gen, (di, d), di, dtype),
+    }
+
+
+def rglru_specs(cfg: ArchConfig, tp: str = "model") -> dict:
+    return {
+        "w_x": P(None, tp),
+        "w_y": P(None, tp),
+        "conv_w": P(None, tp),
+        "conv_b": P(tp),
+        "gate_a": P(tp, None, None),
+        "gate_i": P(tp, None, None),
+        "bias_a": P(tp),
+        "bias_i": P(tp),
+        "lam": P(tp),
+        "w_out": P(tp, None),
     }
 
 

@@ -10,9 +10,11 @@ call that would continue from a cached (non-zero) state is reached by no
 entry point — the serve engine feeds recurrent prompts one token at a
 time — and raises. The gated RMSNorm runs `kernels.rmsnorm`.
 
-`_ssd_chunked` is the reference model's own chunked formulation, kept as a
-plain version to hold the kernel's outputs (y and the final state)
-against; nothing on the model path calls it.
+The training forward (``plain=True``) computes the block as the
+reference's forward does, in plain differentiable PyTorch: the scan is the
+reference model's own chunked formulation `_ssd_chunked` (also the plain
+version the kernel's outputs, y and the final state, are held against)
+and the gated norm is `common.rms_norm`.
 
 Layout as in the reference: d_inner channels are nh contiguous SSD heads
 of hp channels; B/C are one group (ngroups = 1) shared by every head of a
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.common import dense_init, softplus
+from repro_torch.models.common import P, dense_init, rms_norm, softplus
 
 
 def ssm_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
@@ -52,6 +54,23 @@ def ssm_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
     p["norm"] = torch.ones(di, dtype=dtype, device=dev)
     p["w_out"] = dense_init(gen, (di, d), di, dtype)
     return p
+
+
+def ssm_specs(cfg: ArchConfig, tp: str = "model") -> dict:
+    return {
+        "w_z": P(None, tp),
+        "w_x": P(None, tp),
+        "w_B": P(None, None),
+        "w_C": P(None, None),
+        "w_dt": P(None, tp),
+        "dt_bias": P(tp),
+        "conv_w": P(None, None),  # mixed di+2ds channels; small — replicate
+        "conv_b": P(None),
+        "A_log": P(tp),
+        "D": P(tp),
+        "norm": P(tp),
+        "w_out": P(tp, None),
+    }
 
 
 def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
@@ -143,9 +162,11 @@ def ssm_apply(
     *,
     cache: Optional[dict] = None,   # {'conv','h'}, written in place
     cache_pos=None,                 # prefill: 0; decode: any
+    plain: bool = False,            # the training route: plain ops, no cache
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns (out, cache). cache: {'conv': (B,K-1,di+2ds), 'h':
-    (B,nh,hp,ds) f32}."""
+    (B,nh,hp,ds) f32}. ``plain``: the cache-less training forward in
+    plain PyTorch (`_ssd_chunked`, `common.rms_norm`)."""
     s = cfg.ssm
     b, S, d = x.shape
     di, ds = s.d_inner(d), s.d_state
@@ -170,6 +191,9 @@ def ssm_apply(
         inj = torch.einsum("bn,bs,bnp->bnps", dt1, Bf[:, 0], xh[:, 0])
         h_new = cache["h"] * da[:, :, None, None] + inj
         y = torch.einsum("bs,bnps->bnp", Cf[:, 0], h_new)[:, None]
+    elif plain:
+        y, h_new = _ssd_chunked(xh, dt, A, Bf, Cf,
+                                xh.new_zeros((b, nh, hp, ds)), s.chunk)
     else:
         # (b·nh, S, ·) rows; B/C stay (b, S, ds), shared by a row's heads
         y, h_new = ssd_scan(
@@ -184,10 +208,14 @@ def ssm_apply(
         cache["h"].copy_(h_new)
 
     y = y + p["D"][None, None, :, None] * xh
-    y = (y.reshape(b, S, di).to(x.dtype) * F.silu(z)).reshape(b * S, di)
+    y = y.reshape(b, S, di).to(x.dtype) * F.silu(z)
     # gated RMSNorm (mamba2): norm(y * silu(z)), one kernel row per token
-    y = rmsnorm(y, p["norm"], eps=cfg.norm_eps)
-    return y.reshape(b, S, di) @ p["w_out"], cache
+    if plain:
+        y = rms_norm(y, p["norm"], cfg.norm_eps)
+    else:
+        y = rmsnorm(y.reshape(b * S, di), p["norm"],
+                    eps=cfg.norm_eps).reshape(b, S, di)
+    return y @ p["w_out"], cache
 
 
 def init_ssm_cache(cfg: ArchConfig, n_layers: int, batch: int, dtype,

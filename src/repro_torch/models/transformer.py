@@ -30,17 +30,33 @@ reads it. For continuous batching the batch axis is the slot axis, and
 step (the slot dimension written out where the reference vmaps). Caches
 are updated in place.
 
-RMSNorm (ln1, ln2, the post-norms ln1_post/ln2_post of a post-norm
-block, final_norm, the SSD gated norm) runs the hand-written
-`kernels.rmsnorm`; LayerNorm is plain PyTorch, as the reference's is plain
-jnp; prefill self-attention and the encoder's bidirectional attention run
+Serving (`prefill`, `decode_step`, `decode_slots`) runs the hand-written
+kernels: RMSNorm (ln1, ln2, the post-norms ln1_post/ln2_post of a
+post-norm block, final_norm, the SSD gated norm) runs `kernels.rmsnorm`;
+LayerNorm is plain PyTorch, as the reference's is plain jnp; prefill
+self-attention and the encoder's bidirectional attention run
 `kernels.flash_attention`; the SSD prefill scan runs `kernels.ssd_scan`.
+
+The teacher-forced `forward` (the training step's, `train.steps`) takes
+the plain route instead (``plain=True`` through `block_apply`): the
+reference's training forward runs no Pallas kernel, and the hand kernels
+are forward-only, so it computes what the reference computes in plain,
+differentiable PyTorch — `common.rms_norm`, naive attention (blockwise
+above `attention.FLASH_SEQ_THRESHOLD` tokens), `ssm._ssd_chunked` — and
+sums the MoE load-balance loss over the layers. With ``remat`` each cycle
+of ``layer_pattern`` (and each encoder layer) is recomputed in the
+backward instead of stored, as the reference checkpoints its scan body.
+
+`param_specs` and `cache_specs` give the reference's Megatron layouts of
+the parameter and cache trees (`common.P` leaves, mirroring the port's
+trees), for `sharding.specs` to resolve against a mesh shape.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig
 from repro_torch.kernels import mode
@@ -49,7 +65,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import embed_init, layer_norm, softcap
+from repro_torch.models.common import (
+    P, embed_init, layer_norm, rms_norm, sanitize_spec, softcap,
+)
 
 # the block kinds a decoder serves (the reference's serve engine's), and
 # those whose state is cumulative
@@ -69,9 +87,18 @@ def norm_init(cfg: ArchConfig, dtype, device) -> dict:
     return {"w": fill(cfg.d_model, dtype=dtype, device=device)}
 
 
-def norm_apply(cfg: ArchConfig, p: dict, x):
+def norm_specs(cfg: ArchConfig) -> dict:
+    s = {"w": P(None)}
+    if cfg.norm_type == "ln":
+        s["b"] = P(None)
+    return s
+
+
+def norm_apply(cfg: ArchConfig, p: dict, x, plain: bool = False):
     if cfg.norm_type == "ln":
         return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    if plain:
+        return rms_norm(x, p["w"], cfg.norm_eps, plus_one=True)
     flat = x.reshape(-1, x.shape[-1])
     return rmsnorm(flat, p["w"], eps=cfg.norm_eps, plus_one=True).reshape(x.shape)
 
@@ -115,51 +142,82 @@ def block_init(cfg: ArchConfig, gen: torch.Generator, dtype, kind: str, *,
     return p
 
 
+def block_specs(cfg: ArchConfig, kind: str, tp: str = "model", *,
+                cross: bool = False) -> dict:
+    """The Megatron layout of one block's parameters (`block_init`'s tree)."""
+    s: Dict[str, Any] = {"ln1": norm_specs(cfg)}
+    if kind in ATTN_KINDS:
+        s["mixer"] = attn_mod.attn_specs(cfg, tp)
+    elif kind == "ssm":
+        s["mixer"] = ssm_mod.ssm_specs(cfg, tp)
+    elif kind == "rglru":
+        s["mixer"] = rglru_mod.rglru_specs(cfg, tp)
+    if cfg.post_norms:
+        s["ln1_post"] = norm_specs(cfg)
+    if cross:
+        s["ln_cross"] = norm_specs(cfg)
+        s["cross"] = attn_mod.attn_specs(cfg, tp, cross=True)
+    if _has_ffn(cfg, kind):
+        s["ln2"] = norm_specs(cfg)
+        if _moe_ffn(cfg, kind):
+            s["ffn"] = mlp_mod.moe_specs(cfg, tp)
+        else:
+            s["ffn"] = mlp_mod.mlp_specs(cfg, tp)
+        if cfg.post_norms:
+            s["ln2_post"] = norm_specs(cfg)
+    return s
+
+
 def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
                 cache: Optional[dict], cache_pos, slots: bool = False,
-                enc_out=None):
-    """Returns (x, cache). ``slots``: ``x`` is a decode tick of one token a
-    serving slot, and an MoE FFN dispatches each slot on its own
+                enc_out=None, plain: bool = False, positions=None):
+    """Returns (x, cache, aux): ``aux`` is the MoE FFN's load-balance loss
+    (0.0 for a block without one). ``slots``: ``x`` is a decode tick of one
+    token a serving slot, and an MoE FFN dispatches each slot on its own
     (`mlp.moe_apply_slots`); otherwise its capacity is per call. A
     post-norm block (gemma2) normalizes the mixer's and the FFN's output
     before its residual add. An enc-dec block cross-attends after its
     mixer: over ``enc_out`` (banking its K/V into the cache's ``ek``/``ev``
-    when there is a cache), or over the bank."""
+    when there is a cache), or over the bank. ``plain``: the cache-less
+    training route, every op plain PyTorch, attention at ``positions``."""
     cross_cache, self_cache = None, cache
     if cache is not None and "ek" in cache:
         cross_cache = {"ek": cache["ek"], "ev": cache["ev"]}
         self_cache = {n: c for n, c in cache.items() if n not in ("ek", "ev")}
-    h = norm_apply(cfg, p["ln1"], x)
+    aux = 0.0
+    h = norm_apply(cfg, p["ln1"], x, plain)
     if kind in ATTN_KINDS:
         out, _ = attn_mod.attn_apply(cfg, p["mixer"], h, kind=kind,
-                                     cache=self_cache, cache_pos=cache_pos)
+                                     cache=self_cache, cache_pos=cache_pos,
+                                     plain=plain, positions=positions)
     elif kind == "ssm":
         out, _ = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=self_cache,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, plain=plain)
     elif kind == "rglru":
         out, _ = rglru_mod.rglru_apply(cfg, p["mixer"], h, cache=self_cache)
     else:
         raise ValueError(kind)
     if cfg.post_norms:
-        out = norm_apply(cfg, p["ln1_post"], out)
+        out = norm_apply(cfg, p["ln1_post"], out, plain)
     x = x + out
     if "cross" in p:
-        hc = norm_apply(cfg, p["ln_cross"], x)
+        hc = norm_apply(cfg, p["ln_cross"], x, plain)
         out, _ = attn_mod.attn_apply(cfg, p["cross"], hc, kind="attn_bidir",
                                      kv_x=enc_out, cross_cache=cross_cache)
         x = x + out
     if _has_ffn(cfg, kind):
-        h2 = norm_apply(cfg, p["ln2"], x)
+        h2 = norm_apply(cfg, p["ln2"], x, plain)
         if not _moe_ffn(cfg, kind):
             out = mlp_mod.mlp_apply(cfg, p["ffn"], h2)
         elif slots:
             out = mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
         else:
-            out = mlp_mod.moe_apply(cfg, p["ffn"], h2)[0]
+            out, moe_aux = mlp_mod.moe_apply(cfg, p["ffn"], h2)
+            aux = moe_aux["moe_aux_loss"]
         if cfg.post_norms:
-            out = norm_apply(cfg, p["ln2_post"], out)
+            out = norm_apply(cfg, p["ln2_post"], out, plain)
         x = x + out
-    return x, cache
+    return x, cache, aux
 
 
 def validate_model_cfg(cfg: ArchConfig) -> None:
@@ -203,11 +261,12 @@ class Model:
     """Functional model bundle for one architecture on one device."""
 
     def __init__(self, cfg: ArchConfig, *, param_dtype=torch.float32,
-                 device=None):
+                 device=None, remat: bool = True):
         validate_model_cfg(cfg)
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.device = mode.resolve_device(device)
+        self.remat = remat
         # layer i's cache: (leaf-name suffix, index on the group's axis)
         self._cache_at: List[Optional[Tuple[str, int]]] = [None] * cfg.n_layers
         for sfx, _, layers in cache_groups(cfg):
@@ -245,6 +304,30 @@ class Model:
             }
         return params
 
+    def param_specs(self, tp: str = "model") -> dict:
+        """The Megatron layout of `init`'s tree over the tensor-parallel
+        axis ``tp``: the reference's `param_specs`, each layer's spec that
+        of its stacked pattern entry less the leading cycle axis."""
+        cfg = self.cfg
+        cross = cfg.encoder is not None
+        specs: Dict[str, Any] = {
+            "embed": P(tp, None),
+            "final_norm": norm_specs(cfg),
+            "layers": [block_specs(cfg, cfg.block_kind(i), tp, cross=cross)
+                       for i in range(cfg.n_layers)],
+        }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = P(None, tp)
+        if _has_pos_embed(cfg):
+            specs["pos_embed"] = P(None, None)
+        if cross:
+            specs["encoder"] = {
+                "layers": [block_specs(cfg, "attn_bidir", tp)
+                           for _ in range(cfg.encoder.n_layers)],
+                "final_norm": norm_specs(cfg),
+            }
+        return specs
+
     # ---- caches ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> dict:
@@ -268,6 +351,40 @@ class Model:
                                                           dtype, dev))
             cache.update({name + sfx: leaf for name, leaf in group.items()})
         return cache
+
+    def cache_specs(self, cache: dict, mesh_shape: Optional[dict] = None,
+                    dp: Tuple[str, ...] = ("data",),
+                    tp: str = "model") -> dict:
+        """The reference's cache layout, per leaf of `init_cache`'s dict
+        (every leaf carries the leading layer-group axis, replicated): the
+        batch over the ``dp`` axes when it divides, else — K/V only — the
+        sequence over ``dp`` and ``tp`` (context-parallel long decode);
+        K/V heads, the conv channels and the state heads over ``tp``;
+        sanitized against ``mesh_shape``. Without a mesh every leaf is
+        replicated (``P()``)."""
+        if mesh_shape is None:
+            return {name: P() for name in cache}
+        dp = tuple(dp)
+        dp_size = 1
+        for a in dp:
+            dp_size *= mesh_shape[a]
+
+        def spec_for(name, leaf):
+            kind = name.split(".")[0]
+            b_axis = dp if leaf.shape[1] % dp_size == 0 else None
+            if kind in ("k", "v", "ek", "ev"):
+                if b_axis is not None:
+                    return P(None, b_axis, tp, None, None)
+                return P(None, None, dp + (tp,), None, None)
+            if kind == "conv":
+                return P(None, b_axis, None, tp)
+            if kind == "h":
+                return P(None, b_axis, tp, *(None,) * (leaf.ndim - 3))
+            return P(*(None,) * leaf.ndim)
+
+        return {name: sanitize_spec(mesh_shape, leaf.shape,
+                                    spec_for(name, leaf))
+                for name, leaf in cache.items()}
 
     def init_slot_cache(self, slots: int, max_len: int,
                         dtype=torch.bfloat16) -> dict:
@@ -300,29 +417,84 @@ class Model:
             x = x + params["pos_embed"][positions]
         return x
 
-    def _encode(self, params, enc_input):
+    def _encode(self, params, enc_input, plain: bool = False):
         """The encoder over ``enc_input`` (B, enc_seq, d) frame embeddings:
-        its ``attn_bidir`` blocks (no cache), then its final norm."""
+        its ``attn_bidir`` blocks (no cache), then its final norm.
+        ``plain``: the training route, each layer recomputed in the
+        backward when ``remat``."""
         x = enc_input
-        for lp in params["encoder"]["layers"]:
-            x, _ = block_apply(self.cfg, lp, x, kind="attn_bidir", cache=None,
-                               cache_pos=None)
-        return norm_apply(self.cfg, params["encoder"]["final_norm"], x)
+        layers = params["encoder"]["layers"]
+        for i in range(len(layers)):
+            x, _ = self._blocks(layers, x, i, i + 1, kinds=("attn_bidir",),
+                                plain=plain, remat=plain and self.remat)
+        return norm_apply(self.cfg, params["encoder"]["final_norm"], x, plain)
+
+    def _blocks(self, layers, x, i0: int, i1: int, *, kinds, plain: bool,
+                remat: bool, positions=None, enc_out=None):
+        """Blocks ``i0`` .. ``i1 - 1`` of ``layers`` (kinds cycling through
+        ``kinds``) on the cache-less route, checkpointed as one unit when
+        ``remat``. Returns (x, their summed MoE aux loss)."""
+        def run(x):
+            aux = 0.0
+            for i in range(i0, i1):
+                x, _, a = block_apply(
+                    self.cfg, layers[i], x, kind=kinds[i % len(kinds)],
+                    cache=None, cache_pos=None, enc_out=enc_out, plain=plain,
+                    positions=positions)
+                aux = aux + a
+            return x, aux
+
+        if remat:
+            return checkpoint(run, x, use_reentrant=False)
+        return run(x)
 
     def _trunk(self, params, x, cache, cache_pos, slots: bool = False,
                enc_out=None):
         for i, lp in enumerate(params["layers"]):
             lc = None if cache is None else self.layer_cache(cache, i)
-            x, _ = block_apply(self.cfg, lp, x, kind=self.cfg.block_kind(i),
-                               cache=lc, cache_pos=cache_pos, slots=slots,
-                               enc_out=enc_out)
+            x, _, _ = block_apply(self.cfg, lp, x,
+                                  kind=self.cfg.block_kind(i), cache=lc,
+                                  cache_pos=cache_pos, slots=slots,
+                                  enc_out=enc_out)
         return x
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, plain: bool = False):
         cfg = self.cfg
-        x = norm_apply(cfg, params["final_norm"], x)
+        x = norm_apply(cfg, params["final_norm"], x, plain)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return softcap((x @ head).float(), cfg.final_softcap)
+
+    def forward(self, params, tokens, *, enc_input=None, positions=None):
+        """Teacher-forced forward on the plain route (differentiable on
+        every device; no kernel runs). tokens: (B, S); ``positions`` (S,)
+        default 0..S-1. Returns (logits (B, S, vp) f32, {"moe_aux_loss":
+        the MoE load-balance loss summed over the layers, f32 scalar}).
+        With ``remat`` each full cycle of ``layer_pattern`` is recomputed
+        in the backward; the leftover ("tail") layers are not, as in the
+        reference."""
+        cfg = self.cfg
+        tokens = tokens.long()
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        enc_out = None
+        if cfg.encoder is not None:
+            if enc_input is None:
+                raise ValueError(
+                    f"{cfg.arch_id} is enc-dec: forward needs enc_input")
+            enc_out = self._encode(params, enc_input, plain=True)
+        x = self._embed(params, tokens, positions)
+        pat, layers = len(cfg.layer_pattern), params["layers"]
+        n_cyc = cfg.n_layers // pat
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # the full cycles (each remat as one unit), then the tail (never)
+        for i0, i1, remat in [(c, c + pat, self.remat)
+                              for c in range(0, n_cyc * pat, pat)] \
+                + [(n_cyc * pat, cfg.n_layers, False)]:
+            x, a = self._blocks(layers, x, i0, i1, kinds=cfg.layer_pattern,
+                                plain=True, remat=remat, positions=positions,
+                                enc_out=enc_out)
+            aux = aux + a
+        return self._logits(params, x, plain=True), {"moe_aux_loss": aux}
 
     def prefill(self, params, tokens, cache, *, enc_input=None):
         """Forward that also fills the cache from position 0; an enc-dec
@@ -366,5 +538,5 @@ def _has_pos_embed(cfg: ArchConfig) -> bool:
 
 
 def build_model(cfg: ArchConfig, *, param_dtype=torch.float32,
-                device=None) -> Model:
-    return Model(cfg, param_dtype=param_dtype, device=device)
+                device=None, remat: bool = True) -> Model:
+    return Model(cfg, param_dtype=param_dtype, device=device, remat=remat)

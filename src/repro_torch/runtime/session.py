@@ -72,8 +72,14 @@ On a process-group run every process plans on its replicated ledger, and
 the cost model is calibrated from the process's own slots
 (`TransitionCostModel.from_rank_trees`), checked equal on every process.
 
-Not ported yet (raises `NotImplementedError` naming its ROADMAP row): the
-uniform arch backend (`from_arch`).
+`NTPSession.from_arch` is the second backend, as in the reference: a
+uniform session over the production arch stack (`train.steps.make_setup`'s
+train step on one device), backend ``"arch"``, `Mode.UNIFORM`, whose
+`step()` returns the step's metrics. A failure there is a full restart:
+the lifecycle calls (`apply`, `save`/`restore`, `snapshot`/`rollback`,
+`measure_sync`, canonical weights and local-batch accounting) raise
+`NotImplementedError` naming the NTP backend, with the reference's
+wording.
 """
 from __future__ import annotations
 
@@ -103,18 +109,13 @@ from repro_torch.runtime.events import (
 )
 
 
-def _not_ported(what: str, row: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"NTPSession: {what} is not ported to repro_torch yet "
-        f"(ROADMAP Queue 1: {row})")
-
-
 class NTPSession:
     """Stateful training session: owns packed params + optimizer state, the
     step for the current FailurePlan, and the health ledger."""
 
     def __init__(self, *_, **__):
-        raise TypeError("use NTPSession.create(...)")
+        raise TypeError(
+            "use NTPSession.create(...) or NTPSession.from_arch(...)")
 
     @classmethod
     def create(
@@ -281,11 +282,79 @@ class NTPSession:
         return self
 
     @classmethod
-    def from_arch(cls, *_, **__):
-        raise _not_ported("the uniform arch-stack backend (from_arch)",
-                          "'uniform arch launcher'")
+    def from_arch(
+        cls,
+        cfg,                    # repro_torch.configs.base.ArchConfig
+        shape,                  # repro_torch.configs.shapes.ShapeSpec (train)
+        mesh=None,
+        *,
+        opt_cfg: Optional[AdamWConfig] = None,
+        param_dtype=torch.float32,
+        lr_schedule=None,
+        generator: Optional[torch.Generator] = None,
+        params: Optional[Dict] = None,
+        device=None,
+        microbatches: int = 1,
+    ) -> "NTPSession":
+        """Uniform session over the production arch stack
+        (`train.steps.make_setup`) on ``device`` (CUDA unless
+        ``device="cpu"``). ``params`` are the model's parameters in the
+        port's layout (tensors or numpy arrays, e.g.
+        `convert.params_from_jax` of the reference's `init`), copied, each
+        leaf keeping its dtype; by default they are drawn from
+        ``generator`` (seed 0). The AdamW state starts from `adamw_init`;
+        ``microbatches`` > 1 accumulates the gradients of that many equal
+        chunks of each batch. ``mesh`` is refused by `make_setup`
+        (sharded execution is not ported)."""
+        from repro_torch.optim import adamw_init
+        from repro_torch.train.steps import make_setup
+
+        kw = {} if lr_schedule is None else {"lr_schedule": lr_schedule}
+        setup = make_setup(cfg, shape, mesh, param_dtype=param_dtype,
+                           opt_cfg=opt_cfg, microbatches=microbatches,
+                           device=device, **kw)
+        self = object.__new__(_ArchSession)
+        self._setup = setup
+        self._step_fn = setup.step_fn
+        self._cfg = cfg
+        self._mesh = mesh
+        self._device = setup.model.device
+        self._mode = Mode.UNIFORM
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=self._device).manual_seed(0)
+            self._params = setup.model.init(generator)
+        else:
+            self._params = tr.tree_map(
+                lambda a: torch.as_tensor(a).to(self._device, copy=True),
+                params)
+        self._opt = adamw_init(self._params, setup.opt_cfg)
+        self._health = self._plan = None
+        self._rank_mesh = None
+        self._events = []
+        self._policy = self._decision = self._stage_rel = None
+        self._spares = 0
+        self._overlap = False
+        self._pp = 1
+        self._boundaries = (0, cfg.n_layers)
+        self._microbatches = microbatches
+        self._allocator = None
+        self._quarantine = False
+        self._quarantined = ()
+        self._snapshot = None
+        self.last_transition = None
+        self.last_global_plan = None
+        self.last_rollback = False
+        return self
 
     # ------------------------------------------------------------- introspect
+
+    @property
+    def backend(self) -> str:
+        """``"ntp"`` (`create`, the full lifecycle surface) or ``"arch"``
+        (`from_arch`, uniform training only — lifecycle calls raise
+        `NotImplementedError` naming the alternative)."""
+        return "ntp"
 
     @property
     def mode(self) -> Mode:
@@ -755,6 +824,78 @@ class NTPSession:
                 if k in self._optimizer.param_like else v)
             for k, v in canonical_opt.items()
         }
+
+
+def _require_ntp(method: str, what: str) -> NotImplementedError:
+    """The refusal of a feature the arch backend does not implement (the
+    reference's ``_require_ntp`` wording), naming the public method that
+    hit it and the ``what`` feature."""
+    return NotImplementedError(
+        f"NTPSession.{method}() needs {what}, which only the NTP prototype "
+        "backend implements — this session was built with "
+        "NTPSession.from_arch() (uniform training via "
+        "train/steps.make_setup; a failure there is a full restart). Build "
+        "the session with NTPSession.create(...) — e.g. launch/train.py "
+        "--ntp instead of --arch — to use lifecycle events, canonical "
+        "checkpoints, or power policies."
+    )
+
+
+class _ArchSession(NTPSession):
+    """`NTPSession.from_arch`'s session: the arch stack's train step on one
+    device, no plan, no health ledger."""
+
+    @property
+    def backend(self) -> str:
+        return "arch"
+
+    @property
+    def setup(self):
+        """The `train.steps.Setup` the session steps with (its ``model``,
+        ``opt_cfg`` and ``step_fn``)."""
+        return self._setup
+
+    @property
+    def optimizer(self):
+        raise _require_ntp("optimizer", "a pluggable optimizer")
+
+    @property
+    def local_batches(self):
+        raise _require_ntp("local_batches", "local batch accounting")
+
+    def canonical_params(self, replica: int = 0) -> Dict:
+        raise _require_ntp("canonical_params",
+                           "canonical weight reconstruction")
+
+    def step(self, batch) -> Dict[str, Any]:
+        """One optimizer step on ``batch`` ({"tokens", "targets"} (B, S),
+        and ``enc_input`` for an enc-dec arch); returns the metrics dict
+        (loss, total_loss, grad_norm, lr). Values are device tensors:
+        reading one waits for the step. With telemetry active the step is
+        a ``session.step`` span (the host's dispatch)."""
+        with telemetry.get().span("session.step", backend="arch", pp=1,
+                                  overlap="off"):
+            self._params, self._opt, metrics = self._step_fn(
+                self._params, self._opt, batch)
+        return metrics
+
+    def measure_sync(self, batch) -> Dict[str, Any]:
+        raise _require_ntp("measure_sync", "sync measurement")
+
+    def apply(self, event: LifecycleEvent):
+        raise _require_ntp("apply", "lifecycle replanning")
+
+    def save(self, path: str) -> None:
+        raise _require_ntp("save", "canonical checkpointing")
+
+    def restore(self, path: str) -> int:
+        raise _require_ntp("restore", "canonical checkpointing")
+
+    def snapshot(self) -> None:
+        raise _require_ntp("snapshot", "SDC rollback snapshots")
+
+    def rollback(self) -> int:
+        raise _require_ntp("rollback", "SDC rollback snapshots")
 
 
 class _RankSession(NTPSession):

@@ -1,0 +1,6 @@
+"""Step functions of the uniform arch stack (port of `repro.train`)."""
+from repro_torch.train.steps import (  # noqa: F401
+    Setup,
+    cross_entropy,
+    make_setup,
+)

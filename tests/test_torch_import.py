@@ -74,10 +74,14 @@ PORT_MODULES = [
     "repro_torch.runtime.session",
     "repro_torch.serve",
     "repro_torch.serve.kv_shard",
+    "repro_torch.sharding",
+    "repro_torch.sharding.specs",
     "repro_torch.telemetry",
     "repro_torch.telemetry.export",
     "repro_torch.telemetry.recorder",
     "repro_torch.telemetry.sinks",
+    "repro_torch.train",
+    "repro_torch.train.steps",
     "repro_torch.tree",
 ]
 
@@ -115,11 +119,15 @@ def test_entry_points_raise_without_card(no_card):
     from repro_torch.models.transformer import Model
     from repro_torch.serve import ServeSession
 
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core.ntp_train import NTPModelConfig, init_canonical
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.launch.train import main as train_main
     from repro_torch.runtime import NTPSession
+    from repro_torch.train.steps import make_setup
 
     cfg = reduced(get_arch("qwen2-7b"))
+    shape = ShapeSpec("t", 8, 2, "train")
     ntp = NTPModelConfig(n_layers=1)
     for call in (
         lambda: resolve_device(None),
@@ -132,6 +140,11 @@ def test_entry_points_raise_without_card(no_card):
         lambda: train_main(["--ntp", "--steps", "1"]),
         lambda: NTPSession.create(ntp),
         lambda: init_canonical(ntp),
+        lambda: NTPSession.from_arch(cfg, shape),
+        lambda: make_setup(cfg, shape),
+        lambda: train_main(["--arch", "qwen2-7b", "--reduced", "--steps",
+                            "1"]),
+        lambda: SyntheticLMPipeline(DataConfig(512, 8, 2)).batch(0),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -152,9 +152,10 @@ def test_session_ledger_with_adamw_moments():
 
 
 def test_session_refuses_what_is_not_ported():
-    """Only the uniform arch backend still raises, naming its ROADMAP row;
-    pp>1, microbatches and the global allocator (pp>1 only: at pp=1 it is
-    refused as the reference refuses it) are ported."""
+    """pp>1, microbatches and the global allocator (pp>1 only: at pp=1 it is
+    refused as the reference refuses it) are ported, and so is the uniform
+    arch backend: `from_arch` builds an ``"arch"`` session in
+    `Mode.UNIFORM` (tests/test_torch_arch_session.py holds its steps)."""
     from repro_torch.cluster import GreedyAllocator
 
     cfg = nt.NTPModelConfig(n_layers=2, **KW)
@@ -167,8 +168,14 @@ def test_session_refuses_what_is_not_ported():
     for kw in (dict(pp=2), dict(microbatches=2)):
         assert NTPSession.create(cfg, (2, 4), device="cpu", **kw).pp == \
             kw.get("pp", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NTPSession.from_arch()
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.shapes import ShapeSpec
+
+    arch = NTPSession.from_arch(reduced(get_arch("qwen2-7b")),
+                                ShapeSpec("t", 8, 2, "train"), device="cpu")
+    assert (arch.backend, arch.mode, arch.plan) == ("arch", nt.Mode.UNIFORM,
+                                                    None)
+    assert NTPSession.create(cfg, (2, 4), device="cpu").backend == "ntp"
     with pytest.raises(TypeError, match="create"):
         NTPSession()
     with pytest.raises(ValueError, match="packed order"):
