@@ -31,7 +31,7 @@ Phases (any failure exits non-zero):
    checkout at DIR, in turns, and exits). rmsnorm, flash_attention,
    reshard_pack, bucket_pack and bucket_unpack are timed in turns with their library calls (F.rms_norm;
    F.scaled_dot_product_attention; src[idx] and index_select; torch.cat;
-   split + .contiguous()), 5 rounds, medians: the call ms (back-to-back
+   split + .contiguous()), 3 rounds, medians: the call ms (back-to-back
    wrapper calls) and the device ms (the same calls in a CUDA graph,
    replayed); ssd_scan's device ms comes from a CUDA graph too.
    flash_attention is timed at the serving prefill (q (1,28,32,128), kv 4,
@@ -69,7 +69,7 @@ Phases (any failure exits non-zero):
    --full --batch 4 --prompt-len 2048 --new 32`;
 6. train the NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups
    of 7 query heads, head_dim 128, d_ff 18944, vocab 152064; depth cut to
-   4 layers) on 2 emulated DP replicas x TP 4, local batch 4, sequence 256,
+   2 layers) on 2 emulated DP replicas x TP 4, local batch 4, sequence 256,
    SGD: steps 0-2 healthy (UNIFORM), a FailureEvent before step 3 (TP
    (3, 4), NTP), a RecoveryEvent before step 6 (healthy), 9 steps. Two
    sessions, overlap on and off, run in lockstep with a dense one-copy
@@ -134,12 +134,12 @@ Phases (any failure exits non-zero):
    `--nproc 8 --pp 2 --mesh 2x2 --microbatches 2 --fail-stage 1 --seq-len
    64 --batch 2` (the README's staged mesh of eight processes);
 10. ranks as processes: the training cell's model at qwen2-7b widths,
-   its depth cut from phase 6's 4 layers to 1 (gloo's host staging makes
+   its depth cut from phase 6's 2 layers to 1 (gloo's host staging makes
    a process step 20-40 times the emulated one, and the script has a time
    limit), on a (2, 2) mesh of 4 processes (`launch.spawn`, gloo, every
-   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 3 steps,
-   `FailureEvent(replica=1)` before step 1 (TP (1, 2)) and its repair
-   before step 2. The emulated (2, 2) session runs first on the same seed,
+   rank on cuda:0), SGD lr 1e-2, local batch 4, sequence 256, 2 steps,
+   `FailureEvent(replica=1)` before step 0 (TP (1, 2)) and its repair
+   before step 1. The emulated (2, 2) session runs first on the same seed,
    chain and batches, its canonical params written under `build/` after
    each transition and at the end; the card is freed and the 4 ranks are
    spawned (`PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`). Each rank
@@ -154,10 +154,10 @@ Phases (any failure exits non-zero):
    bytes a step, each rank's peak memory, what gloo staged (nothing).
    (c) The lifecycle over processes: the same model, mesh, batch and SGD
    with overlap on, `power_policy("ntp_pw")` and quarantine, a snapshot at
-   step 0, through `LIFE_STEPS` (5) steps of `_life_chain` (replica 1
-   fails, a link degrades and is repaired, an SDC suspicion rolls back to
-   the snapshot under TP (1, 2) and clears, a straggler with the repair
-   of the link, the repair with the straggler's clear), first as the
+   step 0, through `LIFE_STEPS` (3) steps of `_life_chain` (replica 1
+   fails, a link degrades and a domain straggles after the snapshot, an
+   SDC suspicion rolls back to the snapshot under TP (1, 2), then the
+   clears and the repairs), first as the
    emulated (2, 2) session in this process (its canonical params at step
    0 and at the end under `build/`), then as 4 spawned ranks. Checks:
    every rank's loss within 1e-5 of the emulated;
@@ -180,7 +180,7 @@ Phases (any failure exits non-zero):
    of 8 processes, gloo, all on cuda:0, each holding its stage's share
    (`embed` on stage 0, `head` and `final_norm` on stage 1), each capped at
    its stage's `PP_RANKS_MEMORY_SHARE` of the card; SGD lr 1e-2, local batch 4,
-   microbatches 2, sequence 256, overlap on; a healthy step,
+   microbatches 2, sequence 256, overlap on;
    `FailureEvent(replica=1, stage=1)` (stage 1 to TP (1, 2), stage 0
    untouched) and one step, the repair and one step. The emulated pp=2
    session runs first on the same seed, chain and batches and is freed
@@ -210,11 +210,12 @@ Phases (any failure exits non-zero):
    row = 41,943,040 f32), timed in turns against `src[idx]` and
    `index_select`. (B) the prototype at arctic-480b's widths (d_model
    7168, 8 kv-groups of 7, head_dim 128, d_ff 4864, the reference's
-   `reduced()` 4 experts top-2, vocab 32000, 2 layers) on (2, 2), local
-   batch 4, sequence 256, SGD: the dense reference alone, then the
-   emulated pp=1 sessions (overlap on, off) through a fail before step 1
-   and the repair before step 2 (3 steps), then 4 gloo processes on
-   cuda:0 (overlap on); then the emulated pp=2 session (microbatches 2,
+   `reduced()` 4 experts top-2, vocab 32000; 1 layer at pp=1, 2 at pp=2,
+   one a stage) on (2, 2), local batch 4, sequence 256, SGD: the dense
+   reference alone, then the emulated pp=1 sessions (overlap on, off)
+   through a fail before step 0 and the repair before step 1 (2 steps),
+   then 4 gloo processes on cuda:0 (overlap on); then the emulated pp=2
+   session (microbatches 2,
    overlap on) and 8 processes on `make_staged_mesh(2, 2, 2)` through
    the same chain on stage 1. Checks: losses 1e-4 from the reference and
    1e-5 between the routes, canonical params 1e-4, the routers within
@@ -246,7 +247,8 @@ Phases (any failure exits non-zero):
    models' prefill shapes and reshard_pack at their KV-head rows against
    their plain versions and library calls;
 14. the global repack allocator (`repro_torch.cluster.GreedyAllocator`):
-   phase 6's model at pp=2 (qwen2-7b widths, 4 layers, stages (0, 2, 4), 2
+   the training cell's model at pp=2 (qwen2-7b widths, 4 layers, stages
+   (0, 2, 4), 2
    replicas x TP 4, local batch 4, sequence 256, SGD lr 1e-2, f32) with one
    spare domain, overlap on, microbatches 2, through the chain of
    tests/dist/session_allocator_lifecycle.py (`ALLOC_CHAIN`, 12 steps: fail
@@ -271,14 +273,15 @@ Phases (any failure exits non-zero):
    cost model's `seconds()` at its 9e11 B/s (a model parameter, not this
    card's rate), step ms by regime, peak device memory;
 15. the serving lifecycle and the dense attention archs, one model on the
-   card at a time, f32, weights from seed 0: (A) gemma2-9b at full size
-   (42 layers alternating sliding 4096 and global attention, d 3584, 16
-   heads of 256, 8 KV heads, softcaps 50 / 30, post-norms, tied vocab
-   256,000; 9,241,705,984 params, 36.97 GB), its first two layers held
-   against the CPU's plain versions (1e-4); two replicas x n1 4, 8 slots,
-   max_len 96, prefill 32, NTP-PW, quarantine on; 32 requests (24 + 16
-   tokens, four a tick over ticks 0-7) through `DENSE_CHAIN` (failure of
-   domain 0 at tick 4, a 1.5x straggler on domain 1 at 6, an SDC
+   card at a time, f32, weights from seed 0: (A) gemma2-9b at full width
+   (22 of its 42 layers, alternating sliding 4096 and global attention,
+   d 3584, 16 heads of 256, 8 KV heads, softcaps 50 / 30, post-norms,
+   tied vocab 256,000; 5,277,801,984 params, 21.11 GB), its first two
+   layers held against the CPU's plain versions (1e-4); two replicas x n1
+   4, 8 slots, max_len 96, prefill 32, NTP-PW, quarantine on; 32
+   requests (24 + 16 tokens, four a tick over ticks 0-7) through
+   `DENSE_CHAIN` (failure of domain 0 at tick 4, a 1.5x straggler on
+   domain 1 at 6, an SDC
    suspicion on domain 1 at 8, a checkpoint at 10, a link at half
    bandwidth on domain 0 at 12, the clears at 14, 16 and 17, the repair
    at 18) with telemetry recorded, beside an uninterrupted session on the
@@ -347,18 +350,37 @@ Phases (any failure exits non-zero):
    The training steps launch no kernel. Printed: losses, step ms (CUDA
    events), peak allocated memory, and (A)'s profiled step with its idle
    share;
-18. print the kernels table as one JSON line (launches summed over the
+18. sharded execution of the uniform arch stack (`make_setup` on a
+   `launch.mesh.RankMesh`): qwen2-7b at full width, depth cut to 2 (as
+   17 (A)), f32, weights from seed 0. The parent first runs the
+   one-device step for 2 steps at 4 x 256 (AdamW at 1e-6, constant),
+   then a prefill of 4 x 64 seeded tokens and 8 greedy decode steps on the
+   trained weights, writes those weights under `build/` (one .npy a
+   leaf) and frees the card; then 4 gloo processes on cuda:0, a (2, 2)
+   mesh (`NTPSession.from_arch(mesh)`: each draws the seed-0 weights and
+   keeps its shards), take the same 2 steps and the same prefill and
+   greedy decode, sharded. Checks: every process's loss within 1e-5 and
+   grad_norm within 1e-5 relative of the one-device step's; its param
+   shards within 2e-6 of the slices of the one-device params; every
+   leaf's first moment after step 0 finite and nonzero (a gradient in
+   every leaf); prefill logits within max(1e-4, 5e-6 x max |logit|) and
+   the 8 greedy tokens equal; the training steps launch no kernel, every
+   process's prefill launches rmsnorm and flash_attention and its decode
+   rmsnorm. Printed: step ms (max over processes) beside the one-device
+   step, process (0, 0)'s collective calls and bytes a step by (op,
+   group), each process's peak allocated memory, the phase's seconds;
+19. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
-   serving, allocator, dense serving, hybrid serving and arch-training
-   prefill paths, each counted from zero just before it), then the device
-   line.
+   serving, allocator, dense serving, hybrid serving, arch-training
+   prefill and sharded arch-stack prefill and decode paths, each counted
+   from zero just before it), then the device line.
 
 ``python3 chip_smoke.py --gloo-probe`` times gloo alone on the card and
 reports which tensors its point-to-point `send`/`recv` take.
 ``python3 chip_smoke.py --moe`` builds the kernels and runs phase 12
 alone (``--pp-ranks`` phase 11, ``--moe-serve`` phase 13, ``--allocator``
 phase 14, ``--dense-serve`` phase 15, ``--hybrid-serve`` phase 16,
-``--arch-train`` phase 17).
+``--arch-train`` phase 17, ``--arch-ranks`` phase 18).
 """
 import contextlib
 import dataclasses
@@ -855,7 +877,7 @@ def host_us(torch, f, reps=1000):
     return t / reps * 1e6
 
 
-def in_turns(torch, kern, libs, reps, calls, rounds=5):
+def in_turns(torch, kern, libs, reps, calls, rounds=3):
     """Median call ms and device ms of the kernel wrapper ``kern`` and of
     each yardstick in ``libs`` (name -> fn), timed in turns: every round
     runs the yardsticks, the kernel twice, then the yardsticks in reverse
@@ -1564,7 +1586,7 @@ def mamba_launcher_phase():
 def qwen_widths(n_layers=4):
     """The NTP prototype at qwen2-7b's widths (d_model 3584, 4 kv-groups of
     7 query heads, head_dim 128, d_ff 18944, vocab 152064), depth cut to
-    ``n_layers``: 4 in phases 6-8, 1 in phase 10."""
+    ``n_layers``: 4 in phase 14, 2 in phases 6-8, 1 in phase 10."""
     from repro_torch.core import ntp_train as nt
 
     return nt.NTPModelConfig(d_model=3584, n_kv_groups=4, q_per_kv=7,
@@ -1592,7 +1614,7 @@ def train_phase(torch, dev):
     from repro_torch.reshard.transition import expected_transfer
     from repro_torch.runtime import FailureEvent, NTPSession, RecoveryEvent
 
-    cfg = qwen_widths()
+    cfg = qwen_widths(TRACE_LAYERS)
     lr, lb, seq, steps = 1e-2, 4, 256, 9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2200,8 +2222,8 @@ def _pp2_fields(session, metrics):
             "collectives": session.step_fn.collectives}
 
 
-# phases 7 and 8 run phase 6's model at depth 2 (one layer a stage at
-# pp=2): their trace replays and in-turns timings repeat the model many
+# phases 6-8 run the training cell's model at depth 2 (one layer a stage
+# at pp=2): their trace replays and in-turns timings repeat the model many
 # times, and the script has a time limit
 TRACE_LAYERS = PP2_LAYERS = 2
 PP2_SESSIONS = {"off": dict(overlap=False, microbatches=1),
@@ -2851,12 +2873,13 @@ def launcher_phase():
 
 RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
 # phase 10's chain on the (2, 2) mesh of processes: replica 1 loses a GPU
-# before step 1 (TP (1, 2): packing puts it in replica 0) and is repaired
-# before step 2, 3 steps (healthy, degraded, repaired)
-RANKS_EVENTS = {1: ("fail", 1), 2: ("repair", 0)}
+# before step 0 (TP (1, 2): packing puts it in replica 0) and is repaired
+# before step 1, 2 steps (degraded, repaired; a first healthy step was cut
+# for the script's time)
+RANKS_EVENTS = {0: ("fail", 1), 1: ("repair", 0)}
 RANKS_LR, RANKS_LB = 1e-2, 4
 # the degraded step after which part (b) measures its (per-leaf) sync
-RANKS_SYNC_AFTER = 1
+RANKS_SYNC_AFTER = 0
 
 
 def _ranks_event(i):
@@ -2977,6 +3000,7 @@ def rank_worker(cfg, seq, steps, directory, device):
     from repro_torch.optim import sgd
     from repro_torch.runtime import NTPSession
 
+    t_part = time.perf_counter()
     mesh = make_test_mesh(2, 2, backend="gloo", device=device)
     dev, cuda = mesh.device, mesh.device.type == "cuda"
     takes = _gloo_takes(torch, mesh)
@@ -3046,10 +3070,26 @@ def rank_worker(cfg, seq, steps, directory, device):
                       torch.cuda.max_memory_reserved(dev) / 1e9) if cuda \
         else (0.0, 0.0)
     out["rank"] = (mesh.replica, mesh.rank)
+    out["part_s"] = time.perf_counter() - t_part
     return out
 
 
-def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
+def ranks_worker(cfg, seq, steps, directory, directory_c, device):
+    """Phase 10's processes: part (b) (`rank_worker`), then, in the same
+    processes and process group, part (c) (`lifecycle_worker`) with the
+    card memory (b) cached handed back first."""
+    import gc
+
+    import torch
+
+    b = rank_worker(cfg, seq, steps, directory, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return b, lifecycle_worker(cfg, seq, LIFE_STEPS, directory_c, device)
+
+
+def ranks_phase(torch, dev, cfg=None, seq=256, steps=2):
     """Phase 10: ranks as processes. The NTP prototype at qwen2-7b widths
     (``cfg``; 1 layer from `main`) on a (2, 2) mesh of 4 processes, gloo on this card, through
     fail → repair with SGD, held to the emulated session run first on the
@@ -3073,7 +3113,7 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
             capture_output=True, text=True, check=True, timeout=60
         ).stdout.strip()
         print(f"  compute_mode {mode_}: 4 processes share cuda:0", flush=True)
-    tmp = scratch_dir()
+    tmp, tmp_c = scratch_dir(), scratch_dir()
     # four processes share the card: segments that grow in place keep each
     # rank's cached-but-free memory small (the ranks read it at start)
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
@@ -3083,6 +3123,12 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
         print(f"  emulated (2, 2) session: {steps} steps in "
               f"{time.perf_counter() - t0:.1f} s with its checkpoints, step "
               f"ms {', '.join(f'{m:.1f}' for m in ref_ms)}", flush=True)
+        t0 = time.perf_counter()
+        ref_c = lifecycle_reference(torch, dev, cfg, seq, LIFE_STEPS, tmp_c)
+        check(ref_c["healthy_end"], "the chain does not end pristine")
+        print(f"  (c)'s emulated (2, 2) session, overlap on: {LIFE_STEPS} "
+              f"steps in {time.perf_counter() - t0:.1f} s with its "
+              f"checkpoints", flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             free, total = torch.cuda.mem_get_info(dev)
@@ -3091,23 +3137,28 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
                   f"{free / 1e9:.2f} of {total / 1e9:.2f} GB", flush=True)
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         t0 = time.perf_counter()
-        ranks = spawn(rank_worker, 4, backend="gloo", device=dev.type,
-                      deadline_s=600, args=(cfg, seq, steps, tmp, dev.type))
+        # one spawn runs (b), then (c), in the same four processes
+        both = spawn(ranks_worker, 4, backend="gloo", device=dev.type,
+                     deadline_s=900,
+                     args=(cfg, seq, steps, tmp, tmp_c, dev.type))
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp_c, ignore_errors=True)
         if alloc_conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks = [b for b, _ in both]
     r0 = ranks[0]
     b_steps = [(regime, max(r["step_ms"][i] for r in ranks))
                for i, regime in enumerate(r0["regime"])]
     print(f"  gloo takes {dev.type} tensors for {', '.join(r0['takes'])}: "
           f"staged through host buffers: none", flush=True)
-    print(f"  4 ranks spawned, run and joined in {wall:.1f} s; set-up "
-          f"(canonical init + pack) {max(r['setup_s'] for r in ranks):.1f} s",
-          flush=True)
+    print(f"  4 ranks spawned, run (b) and (c) and joined in {wall:.1f} s; "
+          f"(b)'s set-up (canonical init + pack) "
+          f"{max(r['setup_s'] for r in ranks):.1f} s, (b) "
+          f"{max(r['part_s'] for r in ranks):.1f} s", flush=True)
     for r in ranks:
         err = max(abs(a - b) for a, b in zip(r["loss"], ref_losses))
         print(f"  rank {r['rank']}: max |loss - emulated| {err:.3e}, peak "
@@ -3152,7 +3203,8 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=3):
     del ranks
     print("  (c) the lifecycle over processes, overlap on, NTP-PW, "
           "quarantine, at full width", flush=True)
-    life = lifecycle_part(torch, dev, cfg, seq, b_steps, r0["sync"])
+    life = lifecycle_part(torch, dev, cfg, ref_c, [c for _, c in both],
+                          b_steps, r0["sync"])
     launches = {k: launches[k] + life.get(k, 0) for k in launches}
     if dev.type != "cuda":
         return launches, None
@@ -3254,13 +3306,15 @@ def rank_bucket_rows(torch, dev, cfg, plan):
 
 
 # phase 10 (c): the lifecycle chain on the (2, 2) mesh of processes, every
-# event kind with its inverse, in order within a step. Step 1: replica 1's
-# GPU fails (TP (1, 2): its domain packs into replica 0) and the failed
-# domain's link degrades; 2: an SDC suspicion on replica 1 (domain 0)
-# quarantines it and rolls back to the step-0 snapshot under TP (1, 2);
-# 3: its clear and the link's repair; 4: the repair (TP (2, 2)) and a
-# straggler; 5: the straggler's clear. 6 steps.
-LIFE_STEPS = 5
+# event kind with its inverse, in order within a step. Before step 0, after
+# the snapshot: replica 1's GPU fails (TP (1, 2): its domain packs into
+# replica 0), the failed domain's link degrades and domain 0 straggles; 1:
+# an SDC suspicion on replica 1 (domain 0) quarantines it and rolls back
+# to the step-0 snapshot under TP (1, 2); 2: its clear, the link's repair,
+# the straggler's clear and the repair (TP (2, 2)). 3 steps (a first
+# healthy step and a separate straggler step were cut for the script's
+# time).
+LIFE_STEPS = 3
 
 
 def _life_chain():
@@ -3269,19 +3323,19 @@ def _life_chain():
         SdcClearEvent, SdcSuspectEvent, StragglerClearEvent, StragglerEvent,
     )
 
-    return {1: [FailureEvent(step=1, replica=1),
-                LinkDegradeEvent(step=1, domain=1, bw_frac=0.5)],
-            2: [SdcSuspectEvent(step=2, replica=1)],
-            3: [SdcClearEvent(step=3, replica=1),
-                LinkRepairEvent(step=3, domain=1, bw_frac=0.5),
-                StragglerEvent(step=3, domain=0, slowdown=2.0)],
-            4: [RecoveryEvent(step=4, replica=0),
-                StragglerClearEvent(step=4, domain=0, slowdown=2.0)]}
+    return {0: [FailureEvent(step=0, replica=1),
+                LinkDegradeEvent(step=0, domain=1, bw_frac=0.5),
+                StragglerEvent(step=0, domain=0, slowdown=2.0)],
+            1: [SdcSuspectEvent(step=1, replica=1)],
+            2: [SdcClearEvent(step=2, replica=1),
+                LinkRepairEvent(step=2, domain=1, bw_frac=0.5),
+                StragglerClearEvent(step=2, domain=0, slowdown=2.0),
+                RecoveryEvent(step=2, replica=0)]}
 
 
 # the degraded step after which part (c) measures its (bucketed) sync;
 # part (b) measures its per-leaf one after RANKS_SYNC_AFTER, both at TP (1, 2)
-LIFE_SYNC_AFTER = 3
+LIFE_SYNC_AFTER = 0
 # each rank's share of the card in part (c): 4 x 0.235 of 79.18 GiB, the
 # rest for the four CUDA contexts
 LIFE_MEMORY_SHARE = 0.235
@@ -3383,6 +3437,7 @@ def lifecycle_worker(cfg, seq, steps, directory, device):
     from repro_torch.kernels import mode
     from repro_torch.launch.mesh import make_test_mesh
 
+    t_part = time.perf_counter()
     mesh = make_test_mesh(2, 2, backend="gloo", device=device)
     dev, cuda = mesh.device, mesh.device.type == "cuda"
     if cuda:
@@ -3477,6 +3532,7 @@ def lifecycle_worker(cfg, seq, steps, directory, device):
     stats = getattr(torch.cuda, "host_memory_stats", dict)() if cuda else {}
     out["pinned_bytes"] = stats.get("allocated_bytes.peak")
     out["rank"] = (mesh.replica, mesh.rank)
+    out["part_s"] = time.perf_counter() - t_part
     return out
 
 
@@ -3522,12 +3578,12 @@ def _release_host_cache(torch):
         torch._C._host_emptyCache()
 
 
-def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
-    """Phase 10 (c): the emulated overlap-on (2, 2) session through the
-    lifecycle chain in this process, its canonical params at step 0 and at
-    the end written under `build/`; the card freed; then 4 spawned ranks
-    through the same chain (`lifecycle_worker`). Checks: every rank's loss
-    within 1e-5 of the emulated; every step's local batches and
+def lifecycle_part(torch, dev, cfg, ref, ranks, b_steps, b_sync):
+    """Phase 10 (c)'s checks: the emulated overlap-on (2, 2) session
+    (`lifecycle_reference`, ``ref``, run by `ranks_phase` before the
+    spawn) and the 4 ranks' runs of the same chain (`lifecycle_worker`,
+    ``ranks``, run after part (b) in the same processes). Checks: every
+    rank's loss within 1e-5 of the emulated; every step's local batches and
     `PowerDecision` equal to the emulated; every transition's ledger equal
     to the emulated and its bytes to `expected_transfer`; one rollback, and
     rank 0's canonical params right after it bit-identical to step 0's; at
@@ -3535,38 +3591,11 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
     bucket_unpack launched once a bucket on every step by every rank (2
     unit buckets and 1 rep bucket a chunk), reshard_pack on degraded steps
     only. Returns the ranks' launch counts summed."""
-    import shutil
-
-    from repro_torch.launch.spawn import spawn
-
     t_part = time.perf_counter()
-    steps = LIFE_STEPS
-    tmp = scratch_dir()
-    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    try:
-        t0 = time.perf_counter()
-        ref = lifecycle_reference(torch, dev, cfg, seq, steps, tmp)
-        check(ref["healthy_end"], "the chain does not end pristine")
-        print(f"  emulated (2, 2) session, overlap on: {steps} steps in "
-              f"{time.perf_counter() - t0:.1f} s with its checkpoints",
-              flush=True)
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        t0 = time.perf_counter()
-        ranks = spawn(lifecycle_worker, 4, backend="gloo", device=dev.type,
-                      deadline_s=900,
-                      args=(cfg, seq, steps, tmp, dev.type))
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        if alloc_conf is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     r0 = ranks[0]
     cuda = dev.type == "cuda"
-    print(f"  4 ranks spawned, run and joined in {wall:.1f} s", flush=True)
+    print(f"  (c) over the same 4 ranks: {max(r['part_s'] for r in ranks):.1f}"
+          f" s", flush=True)
     for r in ranks:
         err = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
         print(f"  rank {r['rank']}: max |loss - emulated| {err:.3e}, peak "
@@ -3649,8 +3678,8 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
     check(r0["canonical"]["end"] <= 1e-4, "final canonical params off")
     launches = {k: sum(r["total_launches"][k] for r in ranks)
                 for k in RANKS_KERNELS}
-    print(f"  part (c): {time.perf_counter() - t_part:.1f} s; launches "
-          f"{launches}", flush=True)
+    print(f"  part (c)'s checks: {time.perf_counter() - t_part:.1f} s; "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -3659,7 +3688,7 @@ def lifecycle_part(torch, dev, cfg, seq, b_steps, b_sync):
 # a healthy step; the last replica's stage 1 loses a GPU (TP (1, 2) there,
 # stage 0 untouched) and one step; the repair and one step.
 PP_RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
-PP_RANKS_STEPS = 3
+PP_RANKS_STEPS = 2
 PP_RANKS_MB = 2
 # each process's share of the card by stage (stage 1 holds `head` and the
 # microbatch logits, and packs a degraded layer wider): 4 x (0.10 + 0.125)
@@ -3670,8 +3699,8 @@ PP_RANKS_MEMORY_SHARE = (0.10, 0.125)
 def _pp_ranks_chain(n_data):
     from repro_torch.runtime import FailureEvent, RecoveryEvent
 
-    return {1: FailureEvent(step=1, replica=n_data - 1, stage=1, n_gpus=1),
-            2: RecoveryEvent(step=2, replica=0, stage=1, n_gpus=1)}
+    return {0: FailureEvent(step=0, replica=n_data - 1, stage=1, n_gpus=1),
+            1: RecoveryEvent(step=1, replica=0, stage=1, n_gpus=1)}
 
 
 def _pp_ranks_session(torch, cfg, mesh, dev, canon):
@@ -3978,10 +4007,11 @@ MOE_LR = 1e-2
 # replica 0), repaired before step 4, 6 steps
 MOE_A_EVENTS = {2: ("fail", 1), 4: ("repair", 0)}
 MOE_A_STEPS, MOE_A_LB, MOE_A_SEQ = 6, 2, 256
-# (B): on the (2, 2) mesh, the fail before step 1 and the repair before
-# step 2, 3 steps (at pp=2 on stage 1)
-MOE_B_EVENTS = {1: ("fail", 1), 2: ("repair", 0)}
-MOE_B_STEPS, MOE_B_LB, MOE_B_SEQ, MOE_B_MB = 3, 4, 256, 2
+# (B): on the (2, 2) mesh, the fail before step 0 and the repair before
+# step 1, 2 steps (at pp=2 on stage 1; a first healthy step was cut for the
+# script's time)
+MOE_B_EVENTS = {0: ("fail", 1), 1: ("repair", 0)}
+MOE_B_STEPS, MOE_B_LB, MOE_B_SEQ, MOE_B_MB = 2, 4, 256, 2
 # each process's share of the card: 4 processes at pp=1; at pp=2 by stage
 # (a stage-1 process under the degraded plan holds its layer at 4 x 4
 # expert slots, `head`, and params, accumulated and fresh grads: ~10 GB)
@@ -4290,7 +4320,7 @@ def _moe_b_plans(pp, steps):
 
 def _moe_emulated(torch, dev, cfg, pp):
     """Phase 12 (B), emulated: at pp=1 sessions with overlap on and off
-    through `MOE_B_EVENTS` (3 steps); at pp=2 (one layer a stage,
+    through `MOE_B_EVENTS` (2 steps); at pp=2 (one layer a stage,
     microbatches 2, overlap on) through the same chain on stage 1. The
     dense reference runs first, on the chain's local batches, and keeps its
     losses and final params on the host; then each session runs alone and
@@ -4470,8 +4500,8 @@ def moe_rank_worker(cfg, pp, device):
 
 def _predicted_launches(cfg, pp, stage, degraded):
     """bucket_pack / bucket_unpack / reshard_pack launches of one process's
-    overlapped step: per chunk of its layers (one a layer at pp=1 with 2
-    layers; its stage's one layer at pp=2) two unit buckets and one rep
+    overlapped step: per chunk of its layers (one a layer at pp=1; its
+    stage's one layer at pp=2) two unit buckets and one rep
     bucket packed and unpacked, and each unit bucket resharded pre and
     post when its stage is degraded."""
     from repro_torch.core.overlap import chunk_ranges
@@ -4601,13 +4631,16 @@ def moe_phase(torch, dev):
     row = expert_reshard_row(torch, dev, cfg_a, degraded)
     from repro_torch.core import ntp_train as nt
 
-    cfg = arctic_widths()
-    n_par = sum(t.numel() for t in _leaves(nt.canonical_like(cfg)))
-    print(f"  (B) arctic-480b widths, {cfg.n_experts} experts top-"
-          f"{cfg.top_k}, {cfg.n_layers} layers: {n_par / 1e9:.3f} B canonical"
-          f" params f32 ({4 * n_par / 1e9:.2f} GB)", flush=True)
     t_b = time.perf_counter()
+    # one layer at pp=1 (cut from 2 for the script's time), one a stage at
+    # pp=2
     for pp in (1, 2):
+        cfg = arctic_widths(pp)
+        n_par = sum(t.numel() for t in _leaves(nt.canonical_like(cfg)))
+        print(f"  (B) arctic-480b widths, {cfg.n_experts} experts top-"
+              f"{cfg.top_k}, {cfg.n_layers} layers (pp={pp}): "
+              f"{n_par / 1e9:.3f} B canonical params f32 "
+              f"({4 * n_par / 1e9:.2f} GB)", flush=True)
         want = _moe_emulated(torch, dev, cfg, pp)
         got = moe_ranks_part(torch, dev, cfg, pp, want)
         launches = {k: launches[k] + got[k] for k in MOE_KERNELS}
@@ -4933,7 +4966,8 @@ DENSE_ARCH_CHAIN = {3: ("FailureEvent", dict(domain=0)),
 DENSE_ARCH_KW = dict(replicas=1, n1=4, slots=8, max_len=96, prefill_len=32,
                      policy="ntp_pw")
 DENSE_ARCHS = ("granite-3-2b", "minitron-4b", "chameleon-34b")
-DENSE_ARCH_LAYERS = 2          # (B)'s depth; (A) serves all 42 layers
+DENSE_ARCH_LAYERS = 2          # (B)'s depth
+DENSE_CHAIN_LAYERS = 22        # (A)'s depth, of gemma2-9b's 42 (for time)
 DENSE_REF_LAYERS = 2           # (A)'s layers held against the CPU
 
 
@@ -5298,10 +5332,11 @@ def dense_serve_rows(torch, F, dev, gemma_kinds, granite_counts):
 
 
 def dense_serve_phase(torch, F, dev):
-    """Phase 15: (A) gemma2-9b at full size through the lifecycle chain and
-    the restore check, its decode tick timed and profiled beside the
-    weight-read floor; (B) granite-3-2b, minitron-4b and chameleon-34b at
-    full width, depth 2, through fail -> repair; then this path's
+    """Phase 15: (A) gemma2-9b at full width, depth `DENSE_CHAIN_LAYERS`,
+    through the lifecycle chain and the restore check, its decode tick
+    timed and profiled beside the weight-read floor; (B) granite-3-2b,
+    minitron-4b and chameleon-34b at full width, depth 2, through fail ->
+    repair; then this path's
     flash_attention rows. One model on the card at a time. Checks every
     kernel of the path launched, flash_attention with the sliding and the
     causal mask. Returns (launches summed over (A)'s chain run and (B)'s
@@ -5317,7 +5352,8 @@ def dense_serve_phase(torch, F, dev):
         for k, n in kinds.items():
             variants[k] = variants.get(k, 0) + n
 
-    cfg = get_arch("gemma2-9b")
+    cfg = dataclasses.replace(get_arch("gemma2-9b"),
+                              n_layers=DENSE_CHAIN_LAYERS)
     directory = scratch_dir()
     try:
         (counts, kinds), clean, n_par = dense_chain_part(torch, dev, cfg,
@@ -5874,6 +5910,299 @@ def arch_train_only(torch):
     return 0
 
 
+# phase 18: sharded execution of the uniform arch stack (`make_setup` on a
+# `launch.mesh.RankMesh`): qwen2-7b at full width on a (2, 2) mesh of 4
+# gloo processes on cuda:0, held to the one-device step run first in the
+# parent (phase 17's parity rate); prefill and decode launch these
+ARCH_RANKS_KERNELS = ("rmsnorm", "flash_attention")
+# (arch, depth, batch, sequence, steps, AdamW rate, prefill tokens, decode
+# steps); the mesh is (2, 2)
+ARCH_RANKS = ("qwen2-7b", 2, 4, 256, 2, ARCH_PROBE_LR, 64, 8)
+# a decode step's logits against the one-device decode's: both attend a
+# bf16 cache whose K/V the two runs round from f32 values computed by
+# different matmul shapes, so a few entries round the other way (the
+# bf16-cache tolerance of tests/test_torch_arch_ranks.py)
+ARCH_RANKS_DECODE_TOL = 2e-2
+
+
+def _arch_ranks_setups(torch, cfg, run, mesh, dev):
+    """The train, prefill and decode `Setup`s of phase 18's ``run`` (an
+    `ARCH_RANKS` tuple) on ``mesh`` (None: one device)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import make_setup
+
+    _, _, batch, seq, _, lr, prompt, new = run
+    kw = dict(param_dtype=torch.float32, device=dev)
+    return (make_setup(cfg, ShapeSpec("t", seq, batch, "train"), mesh,
+                       opt_cfg=AdamWConfig(lr=lr),
+                       lr_schedule=const_schedule, **kw),
+            make_setup(cfg, ShapeSpec("p", prompt + new, batch, "prefill"),
+                       mesh, **kw),
+            make_setup(cfg, ShapeSpec("d", prompt + new, batch, "decode"),
+                       mesh, **kw))
+
+
+def _arch_ranks_serve(torch, run, pf, dc, params, dev):
+    """A prefill of seeded prompts and greedy decode steps: (the prefill's
+    last logits, the decoded tokens (batch, new), each decode step's
+    logits (new, batch, vocab) on the host, the kernel launches of the
+    prefill, those of the decode). On a mesh the logits and tokens are
+    this replica's rows, and each step's tokens are gathered over ``data``
+    into the global batch the next step takes."""
+    from repro_torch.core.collectives import all_gather_units
+    from repro_torch.kernels import mode
+
+    mesh = pf.mesh
+
+    def whole(tok):
+        if mesh is None:
+            return tok
+        return all_gather_units(tok, mesh.data).reshape(-1, 1)
+
+    batch, prompt, new = run[2], run[6], run[7]
+    g = torch.Generator(device=dev).manual_seed(1818)
+    prompts = torch.randint(0, pf.cfg.vocab_size, (batch, prompt),
+                            generator=g, device=dev, dtype=torch.int32)
+    mode.reset_launches()
+    last, cache = pf.step_fn(params, {"tokens": prompts})
+    _sync(torch, dev)
+    pre = mode.launches()
+    mode.reset_launches()
+    tok, toks, steps = last.argmax(-1)[:, None], [], []
+    for i in range(new):
+        toks.append(tok)
+        logits, cache = dc.step_fn(params, cache, {
+            "tokens": whole(tok), "pos": torch.tensor(prompt + i)})
+        tok = logits.argmax(-1)[:, None]
+        steps.append(logits)
+    _sync(torch, dev)
+    dec = mode.launches()
+    return last, torch.cat(toks, 1), torch.stack(steps).cpu(), pre, dec
+
+
+def arch_ranks_reference(torch, dev, cfg, run, directory):
+    """Phase 18, the parent: the one-device steps from the seed-0 weights,
+    then the prefill and greedy decode on the trained weights; the trained
+    params go to ``directory`` (one .npy a leaf, flatten order) for the
+    processes to read their slices. Returns what the checks need, on the
+    host."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+
+    batch, seq, steps = run[2:5]
+    su, pf, dc = _arch_ranks_setups(torch, cfg, run, None, dev)
+    params = su.model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = su.init_opt_state(params)
+    out = {"loss": [], "grad_norm": [], "step_ms": []}
+    for i in range(steps):
+        data = _arch_batch(torch, cfg, batch, seq, dev, i)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = su.step_fn(params, opt, data)
+        out["loss"].append(float(m["loss"]))
+        _sync(torch, dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norm"].append(float(m["grad_norm"]))
+    del opt, m, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    last, toks, dec, _, _ = _arch_ranks_serve(torch, run, pf, dc, params,
+                                              dev)
+    out["prefill"], out["tokens"], out["decode"] = last.cpu(), toks.cpu(), dec
+    for i, leaf in enumerate(tr.leaves(params)):
+        np.save(os.path.join(directory, f"{i}.npy"), leaf.cpu().numpy())
+    del params, last
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def arch_rank_worker(cfg, run, directory, device):
+    """Phase 18, one (replica, rank) process: `NTPSession.from_arch` on the
+    mesh from the seed-0 weights (drawn whole on the device, then placed),
+    the steps (host clock after a device sync, collectives counted), every
+    leaf's first moment after step 0 (its clipped gradient), the param
+    shards against the one-device params read from ``directory``, then
+    the sharded prefill and greedy decode."""
+    import numpy as np
+
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime import NTPSession
+    from repro_torch.sharding.specs import local_shard
+
+    batch, seq, steps = run[2:5]
+    mesh = make_test_mesh(2, 2, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    su, pf, dc = _arch_ranks_setups(torch, cfg, run, mesh, dev)
+    s = NTPSession.from_arch(
+        cfg, su.shape, mesh, opt_cfg=su.opt_cfg, lr_schedule=const_schedule,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    if cuda:
+        torch.cuda.empty_cache()
+    _sync(torch, dev)
+    out = {"at": (mesh.replica, mesh.rank),
+           "setup_s": time.perf_counter() - t0, "loss": [], "grad_norm": [],
+           "step_ms": [], "counts": []}
+    mode.reset_launches()
+    for i in range(steps):
+        data = _arch_batch(torch, cfg, batch, seq, dev, i)
+        C.reset_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        m = s.step(data)
+        out["loss"].append(float(m["loss"]))
+        _sync(torch, dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["counts"].append(C.counts())
+        if i == 0:
+            moments = tr.leaves_with_path(s.opt_state["m"])
+            out["no_grad"] = [
+                tr.path_key(p) for p, g in moments
+                if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+            out["leaves"] = len(tr.leaves(s.opt_state["m"]))
+    out["train_launches"] = mode.launches()
+    out["param_err"] = max(
+        float((p - torch.from_numpy(np.array(local_shard(
+            np.load(os.path.join(directory, f"{i}.npy"), mmap_mode="r"),
+            spec, mesh))).to(dev)).abs().max())
+        for i, (p, spec) in enumerate(zip(tr.leaves(s.params),
+                                          tr.leaves(su.param_specs))))
+    del data, m
+    if cuda:
+        torch.cuda.empty_cache()
+    last, toks, logits, pre, dec = _arch_ranks_serve(torch, run, pf, dc,
+                                                     s.params, dev)
+    out.update(prefill=last.cpu().numpy(), tokens=toks.cpu().numpy(),
+               decode=logits.numpy(), prefill_launches=pre,
+               decode_launches=dec,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+               else 0.0)
+    return out
+
+
+def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
+    """Phase 18. Returns the processes' prefill and decode launches,
+    summed. ``cfg`` (default: ``run``'s arch at its depth), ``run`` and a
+    CPU ``dev`` let the phase be rehearsed small on the CPU."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.spawn import spawn
+
+    t_phase = time.perf_counter()
+    arch, depth, batch, seq, steps, lr, prompt, new = run
+    cfg = cfg or dataclasses.replace(get_arch(arch), n_layers=depth)
+    cuda = dev.type == "cuda"
+    tmp = scratch_dir()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        t0 = time.perf_counter()
+        ref = arch_ranks_reference(torch, dev, cfg, run, tmp)
+        free = (f"; card memory free before the spawn "
+                f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB" if cuda
+                else "")
+        print(f"  one device: {cfg.arch_id}, {cfg.n_layers} layers, {steps} "
+              f"steps at {batch} x {seq}, AdamW lr {lr:g}: losses "
+              + ", ".join(f"{x:.6f}" for x in ref["loss"]) + ", grad_norm "
+              + ", ".join(f"{x:.6f}" for x in ref["grad_norm"]) + ", step ms "
+              + ", ".join(f"{x:.1f}" for x in ref["step_ms"])
+              + f"; prefill {batch} x {prompt} and {new} greedy steps; "
+              f"{time.perf_counter() - t0:.1f} s with the params written"
+              + free, flush=True)
+        # four processes share the card (as phase 10's)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ranks = spawn(arch_rank_worker, 4, backend="gloo", device=dev.type,
+                      deadline_s=600, args=(cfg, run, tmp, dev.type))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    print(f"  4 processes on a (2, 2) mesh, gloo on {dev.type}: spawned, run "
+          f"and joined in {wall:.1f} s; set-up (draw, place) "
+          f"{max(r['setup_s'] for r in ranks):.1f} s", flush=True)
+    top = float(ref["prefill"].abs().max())
+    lim = max(1e-4, 5e-6 * top)
+    launches = dict.fromkeys(ARCH_RANKS_KERNELS, 0)
+    for r in ranks:
+        d = r["at"][0]
+        lerr = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
+        gerr = max(abs(a - b) / b for a, b in zip(r["grad_norm"],
+                                                  ref["grad_norm"]))
+        rows = slice(d * batch // 2, (d + 1) * batch // 2)
+        perr = float((torch.from_numpy(r["prefill"])
+                      - ref["prefill"][rows]).abs().max())
+        same = bool((torch.from_numpy(r["tokens"])
+                     == ref["tokens"][rows]).all())
+        derr = float((torch.from_numpy(r["decode"])
+                      - ref["decode"][:, rows]).abs().max())
+        used = {n: c for n, c in r["prefill_launches"].items() if c}
+        dused = {n: c for n, c in r["decode_launches"].items() if c}
+        print(f"  process {r['at']}: |loss - one device| {lerr:.3e} (tol "
+              f"1e-5), grad_norm {gerr:.3e} relative (tol 1e-5), param "
+              f"shards {r['param_err']:.3e} (tol 2e-6), "
+              f"{r['leaves'] - len(r['no_grad'])} of {r['leaves']} leaves "
+              f"with a gradient; prefill logits {perr:.3e} (tol {lim:.3e}, "
+              f"max |logit| {top:.2f}); {new} greedy tokens "
+              f"{'equal' if same else 'DIFFER'}, their logits {derr:.3e} "
+              f"(tol {ARCH_RANKS_DECODE_TOL:g}, bf16 cache); launches: "
+              f"training {sum(r['train_launches'].values())}, prefill "
+              f"{used}, decode "
+              f"{dused}; peak {r['peak_gb']:.2f} GB allocated", flush=True)
+        check(lerr <= 1e-5, f"process {r['at']}: loss off by {lerr}")
+        check(gerr <= 1e-5, f"process {r['at']}: grad_norm off by {gerr}")
+        check(r["param_err"] <= 2e-6,
+              f"process {r['at']}: param shards off by {r['param_err']}")
+        check(not r["no_grad"], f"process {r['at']}: leaves without a "
+              f"gradient {r['no_grad'][:8]}")
+        check(perr <= lim, f"process {r['at']}: prefill logits off by {perr}")
+        check(same, f"process {r['at']}: greedy tokens differ")
+        check(derr <= ARCH_RANKS_DECODE_TOL,
+              f"process {r['at']}: decode logits off by {derr}")
+        check(all(v == 0 for v in r["train_launches"].values()),
+              f"process {r['at']}: training launched {r['train_launches']}")
+        check(not cuda or (all(used.get(n) for n in ARCH_RANKS_KERNELS)
+                           and dused.get("rmsnorm")),
+              f"process {r['at']}: prefill {used}, decode {dused}")
+        for n in launches:
+            launches[n] += (r["prefill_launches"][n]
+                            + r["decode_launches"][n])
+    for i in range(steps):
+        ms = max(r["step_ms"][i] for r in ranks)
+        counts = ", ".join(f"{op}/{g} {c} calls {b:,} B" for (op, g), (c, b)
+                           in sorted(ranks[0]["counts"][i].items()))
+        print(f"  step {i}: {ms:.1f} ms (max over processes; one device "
+              f"{ref['step_ms'][i]:.1f}); process (0, 0): {counts}",
+              flush=True)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def arch_ranks_only(torch):
+    """``--arch-ranks``: build the kernels and run phase 18 alone, then
+    exit (no kernels table and no device line)."""
+    from repro_torch.kernels import build
+
+    print(f"  built in {build.build_all():.1f} s", flush=True)
+    arch_ranks_phase(torch, torch.device("cuda"))
+    return 0
+
+
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
     """Where a step's time goes: torch.profiler over ``ticks`` steps, device
     time per kernel name and the device's idle share of the (profiled)
@@ -6105,6 +6434,8 @@ def main() -> int:
         return allocator_only(torch)
     if sys.argv[1:2] == ["--arch-train"]:
         return arch_train_only(torch)
+    if sys.argv[1:2] == ["--arch-ranks"]:
+        return arch_ranks_only(torch)
     import torch.nn.functional as F
 
     if sys.argv[1:2] == ["--moe-serve"]:
@@ -6206,7 +6537,7 @@ def main() -> int:
           "widths through fail->fail->repair->repair")
     alloc_launches = allocator_phase(torch, dev)
 
-    phase("phase 15: the serving lifecycle at full size: gemma2-9b through "
+    phase("phase 15: the serving lifecycle at full width: gemma2-9b through "
           "failure, straggler, SDC quarantine, save, link and repairs, then "
           "restored under TP (4, 3); granite-3-2b, minitron-4b and "
           "chameleon-34b at full width through fail->repair")
@@ -6222,7 +6553,12 @@ def main() -> int:
           "NTPSession.from_arch")
     arch_launches = arch_train_phase(torch, dev)
 
-    phase("phase 18: kernels table")
+    phase("phase 18: sharded execution of the uniform arch stack: qwen2-7b "
+          "at full width (2 layers) on a (2, 2) mesh of 4 processes, gloo on "
+          "this card, trained, prefilled and decoded")
+    arch_ranks_launches = arch_ranks_phase(torch, dev)
+
+    phase("phase 19: kernels table")
     paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
              (mamba_launches, MAMBA_KERNELS),
              (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
@@ -6233,7 +6569,8 @@ def main() -> int:
              (alloc_launches, ALLOC_KERNELS),
              (dense_serve_launches, SERVE_KERNELS),
              (hybrid_launches, SERVE_KERNELS),
-             (arch_launches, ARCH_TRAIN_KERNELS))
+             (arch_launches, ARCH_TRAIN_KERNELS),
+             (arch_ranks_launches, ARCH_RANKS_KERNELS))
     table = []
     for name, (src, replaces) in SOURCES.items():
         n = sum(counts[name] for counts, kernels in paths if name in kernels)

@@ -2,7 +2,8 @@
 `jax.lax` collectives the reference calls inside shard_map).
 
 * `psum` / `psum_` — ``jax.lax.psum`` over a group: `all_reduce` (sum);
-  `psum_async_` issues it and returns a handle (the overlapped sync's).
+  `psum_async_` issues it and returns a handle (the overlapped sync's);
+  `pmax_` the maximum (the vocab-parallel loss's).
 * the Megatron pair, for per-rank autograd: `copy_to_model` is the identity
   forward and an all-reduce over the model group backward (at a block's
   input); `reduce_from_model` is an all-reduce forward and the identity
@@ -96,6 +97,14 @@ def psum_async_(x: torch.Tensor, group) -> Pending:
     handle's ``wait()``, which returns it summed over ``group``."""
     _count("all_reduce", group, x.numel() * x.element_size())
     return Pending(dist.all_reduce(x, group=group, async_op=True), x)
+
+
+def pmax_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place maximum of ``x`` over ``group`` (``jax.lax.pmax``; a
+    contiguous tensor), counted as ``all_reduce_max``; returns ``x``."""
+    _count("all_reduce_max", group, x.numel() * x.element_size())
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

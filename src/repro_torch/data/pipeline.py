@@ -3,7 +3,8 @@
 
 ``input_specs`` gives every model input's shape and dtype (and, for a mesh
 shape, its spec) for one (arch × input shape), as the reference's
-dry-run stand-ins do, with no allocation.
+dry-run stand-ins do, with no allocation; ``shard_batch`` cuts a global
+batch to one process's rows by those specs.
 
 The synthetic corpus is a seeded affine Markov stream with a small
 uniform-noise fraction, made in numpy exactly as the reference makes it,
@@ -15,7 +16,7 @@ iterating the pipeline yields ``batch(0)``, ``batch(1)``, ...
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.kernels.mode import resolve_device
 from repro_torch.models.common import P, sanitize_spec
+from repro_torch.sharding.specs import local_shard
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +75,16 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
         name = "enc_out" if shape.kind == "decode" else "enc_input"
         out[name] = one((b, cfg.encoder.enc_seq, cfg.d_model), torch.bfloat16)
     return out
+
+
+def shard_batch(batch: Dict[str, Any], specs: Dict[str, InputSpec],
+                mesh) -> Dict[str, Any]:
+    """This process's part of a global ``batch`` on a `launch.mesh.RankMesh`:
+    each input with a spec cut by it (its replica's rows), views where the
+    inputs are tensors; inputs without one (``pos``) as given."""
+    return {k: (v if k not in specs or specs[k].spec is None
+                else local_shard(v, specs[k].spec, mesh))
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,13 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --device cpu --steps 2 --seq-len 16 --ckpt /tmp/arch.npz
 
+  # sharded: a (2, 2) mesh of 4 processes on gloo (CPU tensors here;
+  # --device cuda puts all four on one card); --devices 4 --backend gloo
+  # is the reference's spelling of the same mesh
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --reduced --device cpu --nproc 4 --mesh 2x2 --backend gloo \\
+      --steps 4 --seq-len 16
+
   # on the GPU: 2 emulated replicas x TP 4, fail one GPU before step 3
   PYTHONPATH=src python -m repro_torch.launch.train --ntp --steps 8 \\
       --fail-at 3 --overlap on
@@ -81,13 +88,18 @@ memory. ``--allocator greedy`` (``--pp`` > 1) makes every replan the global
 repack planner's (`repro_torch.cluster`), which is what lets ``--spares``
 work at ``--pp`` > 1; each event prints its verdict.
 
-``--arch`` trains on one device with `make_setup`'s step (AdamW, the
-warmup-cosine schedule, f32 weights drawn from ``--seed``; each batch of
-an enc-dec arch gets zero frame embeddings as its ``enc_input``, as the
-reference's launcher gives it) and writes ``--ckpt`` as {"params",
-"opt"} in the port's layout (one entry per layer). The reference's
-``--dry-run`` (ROADMAP item 8) and its ``--devices`` mesh (ROADMAP
-'sharded arch-stack execution') are not ported and are refused.
+``--arch`` trains with `make_setup`'s step (AdamW, the warmup-cosine
+schedule, f32 weights drawn from ``--seed``; each batch of an enc-dec arch
+gets zero frame embeddings as its ``enc_input``, as the reference's
+launcher gives it) and writes ``--ckpt`` as {"params", "opt"} in the
+port's one-device layout (one entry per layer). On one device by default;
+``--nproc N --mesh DxN1 --backend {gloo,nccl}`` (or the reference's
+``--devices N``, a (2, N/2) mesh, with ``--backend``) shards it over a
+(data, model) mesh of processes (the dense attention archs; every process
+draws the same weights from ``--seed`` and keeps its shards; global rank
+0 prints and writes the gathered checkpoint). The reference's
+``--dry-run`` (ROADMAP Queue 1, item 8, next after this) is not ported
+and is refused.
 """
 import argparse
 import time
@@ -167,12 +179,15 @@ def main(argv=None) -> dict:
                     help="record the run's telemetry stream (spans, "
                          "counters, gauges) as JSONL")
     ap.add_argument("--devices", type=int, default=0,
-                    help="emulated ranks of the (2, n/2) mesh (default 8)")
+                    help="emulated ranks of the (2, n/2) mesh (default 8); "
+                         "with --arch, N processes of a (2, N/2) mesh "
+                         "(needs --backend)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain kernel versions)")
     ap.add_argument("--nproc", type=int, default=0,
-                    help="run the ranks as N processes of one process group "
-                         "(spawned, or joined under torchrun)")
+                    help="run the ranks (with --arch: the shards of a "
+                         "(data, model) mesh) as N processes of one process "
+                         "group (spawned, or joined under torchrun)")
     ap.add_argument("--mesh", default=None, metavar="DxN1",
                     help="the (data, model) mesh of each stage of the "
                          "--nproc processes (default 2x(N/pp/2))")
@@ -285,11 +300,21 @@ def _run_arch(ap, args) -> dict:
     the final params and optimizer state."""
     if args.dry_run:
         ap.error("--dry-run is not ported to repro_torch yet (ROADMAP Queue "
-                 "1, item 8: the dry-run and HLO tools)")
+                 "1, item 8, the next item: the dry-run and HLO tools, "
+                 "lowering make_setup(cfg, shape, mesh) at the production "
+                 "mesh)")
     if args.devices:
-        ap.error("--devices (an arch run on a mesh) is not ported to "
-                 "repro_torch yet (ROADMAP Queue 1: 'sharded arch-stack "
-                 "execution'); --arch trains on one device")
+        if args.nproc or args.mesh:
+            ap.error("--devices N is the reference's spelling of --nproc N "
+                     "--mesh 2x(N/2): give one of them")
+        if args.devices < 2 or args.devices % 2:
+            ap.error(f"--devices {args.devices}: need an even count >= 2")
+        if args.backend is None:
+            ap.error(f"--devices {args.devices} (sharded arch-stack "
+                     f"execution on a (2, {args.devices // 2}) mesh of "
+                     f"{args.devices} processes) needs --backend gloo or "
+                     "--backend nccl")
+        args.nproc, args.mesh = args.devices, f"2x{args.devices // 2}"
     ntp_only = [flag for flag, on in (
         ("--trace", args.trace is not None),
         ("--fail-at", args.fail_at is not None),
@@ -298,13 +323,15 @@ def _run_arch(ap, args) -> dict:
         ("--overlap", args.overlap == "on"),
         ("--quarantine", args.quarantine == "off"),
         ("--allocator", args.allocator != "off"), ("--spares", args.spares),
-        ("--nproc", args.nproc), ("--mesh", args.mesh),
-        ("--backend", args.backend)) if on]
+        ) if on]
     if ntp_only:
         ap.error(f"{', '.join(ntp_only)} "
                  f"{'needs' if len(ntp_only) == 1 else 'need'} --ntp "
-                 "(lifecycle, pipeline and process-group training are "
-                 "NTP-backend-only)")
+                 "(lifecycle and pipeline training are NTP-backend-only)")
+    if args.nproc:
+        return _run_arch_ranks(ap, args)
+    if args.mesh or args.backend:
+        ap.error("--mesh and --backend need --nproc")
     if args.telemetry:
         from repro_torch import telemetry
 
@@ -316,37 +343,112 @@ def _run_arch(ap, args) -> dict:
     return _arch_loop(args)
 
 
-def _arch_loop(args) -> dict:
+def _arch_cfg(args):
+    from repro_torch.configs import get_arch, reduced
+
+    cfg = get_arch(args.arch)
+    return reduced(cfg) if args.reduced else cfg
+
+
+def _run_arch_ranks(ap, args) -> dict:
+    """``--arch --nproc``: check the flags and the config, then run
+    `_arch_rank_main` in every process (spawned, or this one under
+    torchrun); returns rank 0's losses (this process's under torchrun)."""
+    from repro_torch.launch.spawn import spawn
+    from repro_torch.train.steps import check_sharded_arch
+
+    if args.backend is None:
+        ap.error("--nproc needs --backend gloo or --backend nccl")
+    try:
+        d, n1 = (int(x) for x in (args.mesh or f"2x{args.nproc // 2}")
+                 .lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh}: expected DxN1, e.g. 2x2")
+    if d < 1 or n1 < 1 or d * n1 != args.nproc:
+        ap.error(f"--mesh {d}x{n1} is not --nproc {args.nproc} processes")
+    if args.batch % (d * args.microbatches):
+        ap.error(f"--batch {args.batch} does not split over data={d} in "
+                 f"{args.microbatches} microbatches")
+    try:
+        check_sharded_arch(_arch_cfg(args))
+    except NotImplementedError as e:
+        ap.error(f"--arch {args.arch} on a mesh: {e}")
+    args.mesh_shape = (d, n1)
+    device = args.device or "cuda"
+    out = spawn(_arch_rank_main, args.nproc, backend=args.backend,
+                device=device, deadline_s=RANKS_DEADLINE_S,
+                args=(args, device))
+    return out[0]
+
+
+def _arch_rank_main(args, device) -> dict:
+    """One (replica, rank) process of ``--arch --nproc``: global rank 0
+    prints and writes the telemetry stream and the checkpoint."""
+    from repro_torch import telemetry
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(*args.mesh_shape, backend=args.backend,
+                          device=device)
+    rank0 = mesh.global_rank == 0
+    if args.telemetry:
+        if rank0:
+            telemetry.configure(jsonl=args.telemetry)
+        else:
+            telemetry.configure(memory=True)
+    try:
+        out = _arch_loop(args, mesh,
+                         print if rank0 else (lambda *a, **k: None))
+    finally:
+        if args.telemetry:
+            telemetry.shutdown()
+    return {"losses": out["losses"]}
+
+
+def _arch_loop(args, mesh=None, log=print) -> dict:
     import torch
 
     from repro_torch import tree as tr
     from repro_torch.checkpoint import save_checkpoint
-    from repro_torch.configs import get_arch, reduced
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels.mode import resolve_device
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import NTPSession
+    from repro_torch.sharding.specs import gather
 
-    dev = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    cfg = reduced(cfg) if args.reduced else cfg
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    cfg = _arch_cfg(args)
     session = NTPSession.from_arch(
-        cfg, ShapeSpec("cli", args.seq_len, args.batch, "train"),
+        cfg, ShapeSpec("cli", args.seq_len, args.batch, "train"), mesh,
         opt_cfg=AdamWConfig(lr=args.lr), device=dev,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
         microbatches=args.microbatches,
     )
-    n_par = sum(p.numel() for p in tr.leaves(session.params))
-    print(f"arch={cfg.arch_id} params={n_par/1e6:.1f}M device={dev}")
+    su = session.setup
+    if mesh is None:
+        n_par = sum(p.numel() for p in tr.leaves(session.params))
+        log(f"arch={cfg.arch_id} params={n_par/1e6:.1f}M device={dev}")
+    else:
+        n_par = sum(p.numel() for p in tr.leaves(su.model.param_shapes()))
+        log(f"arch={cfg.arch_id} params={n_par/1e6:.1f}M devices="
+            f"{args.nproc} (mesh data={mesh.n_data} model={mesh.n_model}, "
+            f"{mesh.backend}) device={dev}")
 
     pipe = SyntheticLMPipeline(
         DataConfig(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed),
         device=dev)
 
     def save(step):
-        save_checkpoint(args.ckpt, {"params": session.params,
-                                    "opt": session.opt_state}, step=step)
+        tree = {"params": session.params, "opt": session.opt_state}
+        if mesh is not None:     # every process gathers; rank 0 writes
+            opt = session.opt_state
+            tree = {"params": gather(session.params, su.param_specs, mesh),
+                    "opt": dict({k: gather(opt[k], su.opt_specs[k], mesh)
+                                 for k in opt if k != "step"},
+                                step=opt["step"])}
+            if mesh.global_rank:
+                return
+        save_checkpoint(args.ckpt, tree, step=step)
 
     losses = []
     t0 = time.time()
@@ -358,15 +460,15 @@ def _arch_loop(args) -> dict:
         metrics = session.step(batch)
         losses.append(float(metrics["loss"]))
         if i % args.log_every == 0 or i == args.steps - 1:
-            print(f"step {i:5d}  loss {losses[-1]:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"({(time.time()-t0):.1f}s)", flush=True)
+            log(f"step {i:5d}  loss {losses[-1]:.4f}  "
+                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"({(time.time()-t0):.1f}s)", flush=True)
         if args.ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
             save(i + 1)
-            print(f"  saved checkpoint -> {args.ckpt}")
+            log(f"  saved checkpoint -> {args.ckpt}")
     if args.ckpt:
         save(args.steps)
-        print(f"final checkpoint -> {args.ckpt}")
+        log(f"final checkpoint -> {args.ckpt}")
     return {"losses": losses, "params": session.params,
             "opt": session.opt_state}
 

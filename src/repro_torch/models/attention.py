@@ -28,6 +28,24 @@ Cross-attention (enc-dec decoders) attends the encoder output
 bidirectionally and naively, as the reference does: at prefill it
 computes the encoder K/V and banks them (``ek``/``ev``,
 `init_cross_kv_cache`), and decode reads the bank.
+
+On a mesh of processes (``ctx``, `models.common.ShardCtx`) attention is
+rank-local, Megatron's column/row split: ``wq``/``bq`` hold this rank's
+query heads ``[rank·H/n, (rank+1)·H/n)`` and ``wo`` their rows, so the
+output is a partial sum, reduced over ``model`` (`ShardCtx.exit`). The
+replicated ``wk``/``wv`` (and ``bk``/``bv``, ``q_norm``/``k_norm``) enter
+the region through `ShardCtx.enter`, so their gradients are summed over
+``model``: without a cache each rank computes only the KV heads its query
+heads map to (`local_heads`). The cache holds every KV head, as the
+reference lays it out: this replica's batch rows and, where the model
+axis divides its length, this rank's block of its rows (``seq_shard``).
+Prefill then writes the rows of its block and attends its own heads'
+fresh K/V; a decode token's heads are gathered over ``model`` (where they
+are split), attended over the rank's rows and the online-softmax partials
+combined over ``model`` (`_attend_seq_sharded`). Masks and softcaps are
+per head. Where ``n_model`` does not divide H·hd the attention weights
+stay replicated: every rank computes every head, and only a split cache
+is combined over ``model``.
 """
 from __future__ import annotations
 
@@ -37,8 +55,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collectives import all_gather_units, pmax_, psum_
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import P, apply_rope, dense_init, rms_norm, softcap
+from repro_torch.models.common import (
+    NO_SHARD, P, ShardCtx, apply_rope, dense_init, rms_norm, softcap,
+)
 
 NEG_INF = -2.0e38  # fp32-safe mask value
 # the plain route (`attn_apply(plain=True)`, the training forward) attends
@@ -88,6 +109,49 @@ def attn_specs(cfg: ArchConfig, tp: str = "model", *, cross: bool = False) -> di
     if cfg.qk_norm:
         s.update(q_norm=P(None), k_norm=P(None))
     return s
+
+
+def local_heads(cfg: ArchConfig, n_model: int, rank: int):
+    """(query heads, first KV head, KV heads) of ``rank`` when the query
+    heads split ``n_model`` ways: the rank's query heads are a contiguous
+    block and the KV heads they map to (query head h reads KV head
+    h // (H / KVH)) must be too, each read by as many of its heads. Raises
+    ValueError for a layout that splits a head or groups unevenly."""
+    nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if nh % n_model:
+        raise ValueError(
+            f"{cfg.arch_id}: n_heads·head_dim = {nh * hd} divides by "
+            f"n_model = {n_model} but n_heads = {nh} does not: the "
+            "sanitized spec splits a head across ranks (GSPMD splits it; "
+            "rank-local heads cannot; ROADMAP Queue 1, 7g: split heads)")
+    nh_l, g = nh // n_model, nh // kvh
+    if g % nh_l and nh_l % g:
+        raise ValueError(
+            f"{cfg.arch_id}: {nh_l} query heads a rank do not group evenly "
+            f"over KV heads of {g} query heads each")
+    kv0 = rank * nh_l // g
+    return nh_l, kv0, max(1, nh_l // g)
+
+
+def _rank_local(cfg: ArchConfig, p: dict, ctx: ShardCtx, cached: bool):
+    """This rank's view of attention params ``p`` (``wq``/``bq``/``wo``
+    already its shards): the replicated leaves entered into the region and
+    cut to the KV heads computed here — the rank's own, or all of them
+    when they go to a cache (which holds every KV head). Returns (params,
+    query heads, KV heads computed, slice of those attended or None when
+    all are)."""
+    hd, kvh = cfg.head_dim, cfg.n_kv_heads
+    nh_l, kv0, kvh_l = local_heads(cfg, ctx.n_model, ctx.rank)
+    c0, cn = (0, kvh) if cached else (kv0, kvh_l)
+    local = {k: (ctx.enter(v) if k in ("q_norm", "k_norm") else v)
+             for k, v in p.items()}
+    for name in ("wk", "wv"):
+        local[name] = ctx.enter(p[name])[:, c0 * hd:(c0 + cn) * hd]
+    for name in ("bk", "bv"):
+        if name in p:
+            local[name] = ctx.enter(p[name])[c0 * hd:(c0 + cn) * hd]
+    att = None if cn == kvh_l else slice(kv0 - c0, kv0 - c0 + kvh_l)
+    return local, nh_l, cn, att
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +251,8 @@ def attn_apply(
     cross_cache: Optional[dict] = None,  # {'ek','ev'} (B, T_enc, kvh, hd)
     plain: bool = False,  # the training route: plain ops, no cache
     positions=None,       # plain route: (S,) query positions (0..S-1)
+    ctx: ShardCtx = NO_SHARD,
+    seq_shard: bool = False,  # on a mesh: the cache's rows split over model
 ):
     """Returns (out, cache). The cache-less forward and prefill (S > 1)
     run at positions 0..S-1; a one-token step against a cache runs each
@@ -202,11 +268,21 @@ def attn_apply(
     encoder K/V bidirectionally, naively, as the reference does: with
     ``kv_x`` its K/V are computed (and banked into ``cross_cache`` when
     one is given, the prefill); without, they are read from the bank (the
-    decode). Returns (out, cross_cache) then."""
+    decode). Returns (out, cross_cache) then.
+
+    On a mesh (``ctx``) the query heads are this rank's and the output is
+    reduced over ``model`` (see the module docstring); ``seq_shard``: the
+    cache holds this rank's block of its rows (the reference's cache
+    layout splits the sequence over ``model``)."""
     nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
     if kv_x is not None or cross_cache is not None:
         return _cross_apply(cfg, p, x, kv_x, cross_cache)
+    split = ctx.mesh is not None and p["wq"].shape[1] != nh * hd
+    att = None
+    if split:
+        p, nh, kvh, att = _rank_local(cfg, p, ctx, cache is not None)
+        x = ctx.enter(x)
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -230,7 +306,10 @@ def attn_apply(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    ka, va = (k, v) if att is None else (k[:, :, att], v[:, :, att])
     if plain:
+        k, v = ka, va
+        kvh = k.shape[2]
         k_pos = torch.arange(s, device=x.device)
         qg = _group(q, kvh)
         if s > FLASH_SEQ_THRESHOLD:
@@ -244,21 +323,28 @@ def attn_apply(
         out = out.permute(0, 3, 1, 2, 4)                     # (B,S,kvh,g,hd)
     elif not decode:
         if cache is not None:
-            _write_prefill(cache, k, v, cache_pos, kind in RING_KINDS)
+            _write_prefill(cache, k, v, cache_pos, kind in RING_KINDS,
+                           (ctx.rank, ctx.n_model) if seq_shard else None)
         # (B,H,S,hd) / (B,KVH,S,hd): GQA resolved inside the kernel
         out = flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), kind=FLASH_KIND[kind],
+            q.transpose(1, 2).contiguous(), ka.transpose(1, 2).contiguous(),
+            va.transpose(1, 2).contiguous(), kind=FLASH_KIND[kind],
             window=cfg.window, chunk=cfg.chunk_size, softcap=cfg.attn_softcap,
         ).transpose(1, 2)
     else:
         w = cache["k"].shape[1]
+        lo = 0
+        if seq_shard:       # this rank's rows [lo, lo + w) of the ring/cache
+            lo, w = ctx.rank * w, w * ctx.n_model
         ring = kind in RING_KINDS
         rows = torch.arange(b, device=x.device)
         row = cache_pos % w if ring else cache_pos
-        cache["k"][rows, row] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, row] = v[:, 0].to(cache["v"].dtype)
-        slot = torch.arange(w, device=x.device)[None, :]
+        if seq_shard:
+            _write_owned(cache, rows, row - lo, k[:, 0], v[:, 0])
+        else:
+            cache["k"][rows, row] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, row] = v[:, 0].to(cache["v"].dtype)
+        slot = lo + torch.arange(cache["k"].shape[1], device=x.device)[None, :]
         last = cache_pos[:, None]
         if ring:    # row i holds the latest position ≡ i (mod w), if any
             k_pos = last - (last - slot) % w
@@ -266,12 +352,18 @@ def attn_apply(
         else:
             k_posm = torch.where(slot <= last, slot, INT32_MAX)  # (B, T)
         bias = _mask_bias(kind, positions, k_posm, cfg.window, cfg.chunk_size)
-        out = _attend_naive(_group(q, kvh), cache["k"], cache["v"],
-                            bias[:, None, None], cfg.attn_softcap)
-        out = out.permute(0, 3, 1, 2, 4)                     # (B,S,kvh,g,hd)
+        if seq_shard:
+            out = _attend_seq_sharded(cfg, q, cache, bias, ctx, split)
+        else:
+            ck, cv = ((cache["k"], cache["v"]) if att is None
+                      else (cache["k"][:, :, att], cache["v"][:, :, att]))
+            out = _attend_naive(_group(q, ck.shape[2]), ck, cv,
+                                bias[:, None, None], cfg.attn_softcap)
+            out = out.permute(0, 3, 1, 2, 4)                 # (B,S,kvh,g,hd)
 
     out = out.reshape(b, s, nh * hd).to(x.dtype)
-    return out @ p["wo"], cache
+    out = out @ p["wo"]
+    return (ctx.exit(out) if split else out), cache
 
 
 def _cross_apply(cfg: ArchConfig, p: dict, x, kv_x, cross_cache):
@@ -300,19 +392,79 @@ def _cross_apply(cfg: ArchConfig, p: dict, x, kv_x, cross_cache):
     return out @ p["wo"], cross_cache
 
 
-def _write_prefill(cache: dict, k, v, cache_pos: int, ring: bool) -> None:
+def _write_prefill(cache: dict, k, v, cache_pos: int, ring: bool,
+                   part=None) -> None:
     """Write a prefill's K/V (B, S, kvh, hd) from position ``cache_pos``:
     rows ``p % w`` of a ring (only the last ``w`` positions when S > w),
-    the slice ``[cache_pos, cache_pos + S)`` of a full-length cache."""
+    the slice ``[cache_pos, cache_pos + S)`` of a full-length cache.
+    ``part`` = (rank, n): ``cache`` holds block ``rank`` of ``n`` of the
+    rows, and only the rows in it are written."""
     w, s = cache["k"].shape[1], k.shape[1]
+    wl = w                       # the rows this cache holds
+    if part is not None:
+        lo, w = part[0] * wl, wl * part[1]
     if s > w:
         k, v, cache_pos, s = k[:, -w:], v[:, -w:], cache_pos + s - w, w
+    if part is not None:
+        rows = cache_pos + torch.arange(s)
+        rows = rows % w if ring else rows
+        sel = (rows >= lo) & (rows < lo + wl)
+        dst, src = (rows[sel] - lo).to(k.device), sel.to(k.device)
+        cache["k"][:, dst] = k[:, src].to(cache["k"].dtype)
+        cache["v"][:, dst] = v[:, src].to(cache["v"].dtype)
+        return
     if ring:
         rows = (cache_pos + torch.arange(s, device=k.device)) % w
     else:
         rows = slice(cache_pos, cache_pos + s)
     cache["k"][:, rows] = k.to(cache["k"].dtype)
     cache["v"][:, rows] = v.to(cache["v"].dtype)
+
+
+def _write_owned(cache: dict, rows, local, k, v) -> None:
+    """A decode step's K/V (B, kvh, hd) into row ``local`` (B,) of each
+    batch row's block, where that row lies in the block (0 <= local < the
+    block's rows); no host sync."""
+    w = cache["k"].shape[1]
+    own = ((local >= 0) & (local < w))[:, None, None]
+    at = local.clamp(0, w - 1)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[rows, at] = torch.where(own, new.to(c.dtype), c[rows, at])
+
+
+def _attend_seq_sharded(cfg: ArchConfig, q, cache: dict, bias, ctx,
+                        split: bool):
+    """One decode token's attention over a cache whose rows are split over
+    ``model`` (the reference's layout): every head attended over this
+    rank's rows (an online-softmax partial: max, sum and weighted values)
+    and the partials combined over ``model`` (the max, then the rescaled
+    sums). With ``split`` the ranks' query heads are gathered first and
+    this rank's heads kept after; otherwise ``q`` already holds every head.
+    q: (B, 1, H/n or H, hd); bias (B, 1, rows); returns (B, 1, kvh', g',
+    hd) over the heads of ``q``, as `_attend_naive` permuted."""
+    b, s, nh_l, hd = q.shape
+    q_all = q
+    if split:
+        parts = all_gather_units(q, ctx.mesh.model)    # (n, B, 1, H/n, hd)
+        q_all = parts.permute(1, 2, 0, 3, 4).reshape(b, s, -1, hd)
+    qg = _group(q_all, cfg.n_kv_heads)                 # (B, kvh, g, 1, hd)
+    scores = torch.einsum("bkgqh,bskh->bkgqs", qg.float(),
+                          cache["k"].float()) * (hd ** -0.5)
+    scores = softcap(scores, cfg.attn_softcap) + bias[:, None, None]
+    m = scores.amax(-1)
+    e = torch.exp(scores - m[..., None])
+    part = torch.cat([torch.einsum("bkgqs,bskh->bkgqh", e,
+                                   cache["v"].float()),
+                      e.sum(-1)[..., None]], dim=-1)   # (B, kvh, g, 1, hd+1)
+    top = pmax_(m.clone(), ctx.mesh.model)
+    part = psum_((part * torch.exp(m - top)[..., None]).contiguous(),
+                 ctx.mesh.model)
+    out = part[..., :hd] / part[..., hd:]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, -1, hd)  # (B, 1, H, hd)
+    if split:
+        out = out[:, :, ctx.rank * nh_l:(ctx.rank + 1) * nh_l]
+    return out.reshape(b, s, nh_l, 1, hd)
 
 
 def cache_length(cfg: ArchConfig, kind: str, max_len: int) -> int:

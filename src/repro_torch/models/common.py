@@ -1,14 +1,23 @@
-"""Shared model utilities: partition specs, norms, activations, softcap,
-RoPE, initializers (port of `repro/models/common.py`; the sharding context
-has no counterpart here — the port emulates a replica's ranks on one
-device, and its spec trees are layouts for sharded execution to consume).
+"""Shared model utilities: partition specs, the sharding context, norms,
+activations, softcap, RoPE, initializers (port of
+`repro/models/common.py`).
+
+`ShardCtx` is the counterpart of the reference's: where the reference
+names mesh axes for GSPMD to lay activations out by, the port's context
+carries this process's `launch.mesh.RankMesh` (or None) and marks where a
+tensor-parallel region begins and ends (`enter` / `exit`, the Megatron
+pair over the ``model`` group). The reference's activation constraints
+change no value, so they have no counterpart; its sequence-parallel gate
+``sp`` is recorded, not acted on.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.collectives import copy_to_model, reduce_from_model
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +69,43 @@ def sanitize_spec(mesh_shape: dict, shape, spec: P) -> P:
             size *= mesh_shape[n]
         out.append(names if shape[d] % size == 0 else None)
     return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# sharding context
+
+class ShardCtx:
+    """This process's place in a (data, model) mesh of processes, for the
+    model code: ``mesh`` is its `launch.mesh.RankMesh`, or None on one
+    device, where every method is a no-op (the one-device route computes
+    exactly what it computes without a context)."""
+
+    __slots__ = ("mesh",)
+
+    def __init__(self, mesh: Any = None):
+        self.mesh = mesh
+
+    @property
+    def n_model(self) -> int:
+        return 1 if self.mesh is None else self.mesh.n_model
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def enter(self, x):
+        """A tensor-parallel region's input (or a replicated weight used in
+        one): identity forward, its gradient summed over ``model``."""
+        return x if self.mesh is None else copy_to_model(x, self.mesh.model)
+
+    def exit(self, x):
+        """A tensor-parallel region's output, its ranks' partial sums:
+        summed over ``model`` forward, identity backward."""
+        return x if self.mesh is None else reduce_from_model(x,
+                                                             self.mesh.model)
+
+
+NO_SHARD = ShardCtx()
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +181,26 @@ def apply_rope(x, positions, theta: float):
 # initializers (fan-in scaled normal, Megatron-style), drawn from an explicit
 # generator on the generator's device
 
+class ShapesOnly:
+    """A generator stand-in that draws nothing: `dense_init` and
+    `embed_init` (and every init that takes its ``device``) give empty
+    meta tensors, so an init of the dense blocks yields the parameter
+    tree's shapes and dtypes without allocating it."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype):
+    if isinstance(gen, ShapesOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(in_axis_size ** -0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
+    if isinstance(gen, ShapesOnly):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(0.02).to(dtype)

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoESpec
-from repro_torch.models.common import P, act_fn, dense_init
+from repro_torch.models.common import NO_SHARD, P, ShardCtx, act_fn, dense_init
 
 
 # ---------------------------------------------------------------------------
@@ -47,14 +47,22 @@ def mlp_specs(cfg: ArchConfig, tp: str = "model") -> dict:
     return s
 
 
-def mlp_apply(cfg: ArchConfig, p: dict, x):
+def mlp_apply(cfg: ArchConfig, p: dict, x, ctx: ShardCtx = NO_SHARD):
+    """The dense FFN. On a mesh (``ctx``) whose ``model`` axis splits
+    ``d_ff``, ``w_up``/``w_gate`` are this rank's columns and ``w_down``
+    its rows (Megatron's column/row pair): the input enters the region and
+    the partial output is reduced over ``model``."""
+    split = ctx.mesh is not None and p["w_up"].shape[1] != cfg.d_ff
+    if split:
+        x = ctx.enter(x)
     act = act_fn(cfg.ffn_act)
     h = x @ p["w_up"]
     if cfg.ffn_gated:
         h = act(x @ p["w_gate"]) * h
     else:
         h = act(h)
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return ctx.exit(out) if split else out
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,18 @@ backward instead of stored, as the reference checkpoints its scan body.
 `param_specs` and `cache_specs` give the reference's Megatron layouts of
 the parameter and cache trees (`common.P` leaves, mirroring the port's
 trees), for `sharding.specs` to resolve against a mesh shape.
+
+A model built with a `common.ShardCtx` on a mesh of processes runs this
+process's shards (`sharding.specs.place`): attention and the dense FFN are
+rank-local (`attention.attn_apply`, `mlp.mlp_apply`), the embedding and
+the head vocab-parallel — each rank looks up the token ids in its own
+``embed`` rows, zeros for the rest, summed over ``model``; its head (the
+local ``lm_head`` columns, or the local ``embed`` rows transposed for a
+tied head) gives its slice of the vocabulary. `forward` returns those
+local logits (the train step's vocab-parallel loss reads them);
+`prefill` and `decode_step` gather them over ``model``. The batch is this
+replica's rows and the cache its shard (`init_cache` makes the local
+one). Norms and ``pos_embed`` are replicated.
 """
 from __future__ import annotations
 
@@ -59,6 +71,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig
+from repro_torch.core.collectives import all_gather_units
 from repro_torch.kernels import mode
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import attention as attn_mod
@@ -66,8 +79,10 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    P, embed_init, layer_norm, rms_norm, sanitize_spec, softcap,
+    NO_SHARD, P, ShapesOnly, ShardCtx, embed_init, layer_norm, rms_norm,
+    sanitize_spec, softcap,
 )
+from repro_torch.sharding.specs import local_shape
 
 # the block kinds a decoder serves (the reference's serve engine's), and
 # those whose state is cumulative
@@ -170,7 +185,8 @@ def block_specs(cfg: ArchConfig, kind: str, tp: str = "model", *,
 
 def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
                 cache: Optional[dict], cache_pos, slots: bool = False,
-                enc_out=None, plain: bool = False, positions=None):
+                enc_out=None, plain: bool = False, positions=None,
+                ctx: ShardCtx = NO_SHARD, seq_shard: bool = False):
     """Returns (x, cache, aux): ``aux`` is the MoE FFN's load-balance loss
     (0.0 for a block without one). ``slots``: ``x`` is a decode tick of one
     token a serving slot, and an MoE FFN dispatches each slot on its own
@@ -179,7 +195,9 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     before its residual add. An enc-dec block cross-attends after its
     mixer: over ``enc_out`` (banking its K/V into the cache's ``ek``/``ev``
     when there is a cache), or over the bank. ``plain``: the cache-less
-    training route, every op plain PyTorch, attention at ``positions``."""
+    training route, every op plain PyTorch, attention at ``positions``.
+    ``ctx``: this process's mesh (rank-local attention and dense FFN);
+    ``seq_shard``: the cache holds this rank's block of its rows."""
     cross_cache, self_cache = None, cache
     if cache is not None and "ek" in cache:
         cross_cache = {"ek": cache["ek"], "ev": cache["ev"]}
@@ -189,7 +207,8 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     if kind in ATTN_KINDS:
         out, _ = attn_mod.attn_apply(cfg, p["mixer"], h, kind=kind,
                                      cache=self_cache, cache_pos=cache_pos,
-                                     plain=plain, positions=positions)
+                                     plain=plain, positions=positions,
+                                     ctx=ctx, seq_shard=seq_shard)
     elif kind == "ssm":
         out, _ = ssm_mod.ssm_apply(cfg, p["mixer"], h, cache=self_cache,
                                    cache_pos=cache_pos, plain=plain)
@@ -208,7 +227,7 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     if _has_ffn(cfg, kind):
         h2 = norm_apply(cfg, p["ln2"], x, plain)
         if not _moe_ffn(cfg, kind):
-            out = mlp_mod.mlp_apply(cfg, p["ffn"], h2)
+            out = mlp_mod.mlp_apply(cfg, p["ffn"], h2, ctx)
         elif slots:
             out = mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
         else:
@@ -258,14 +277,18 @@ def cache_groups(cfg: ArchConfig) -> List[Tuple[str, str, List[int]]]:
 # model
 
 class Model:
-    """Functional model bundle for one architecture on one device."""
+    """Functional model bundle for one architecture on one device, or for
+    one process of a mesh (``ctx``, on the mesh's device)."""
 
     def __init__(self, cfg: ArchConfig, *, param_dtype=torch.float32,
-                 device=None, remat: bool = True):
+                 device=None, remat: bool = True,
+                 ctx: Optional[ShardCtx] = None):
         validate_model_cfg(cfg)
         self.cfg = cfg
         self.param_dtype = param_dtype
-        self.device = mode.resolve_device(device)
+        self.ctx = ctx or NO_SHARD
+        self.device = (self.ctx.mesh.device if self.ctx.mesh is not None
+                       else mode.resolve_device(device))
         self.remat = remat
         # layer i's cache: (leaf-name suffix, index on the group's axis)
         self._cache_at: List[Optional[Tuple[str, int]]] = [None] * cfg.n_layers
@@ -281,7 +304,18 @@ class Model:
             raise ValueError(
                 f"generator on {generator.device}, model on {self.device}"
             )
-        cfg, dt, dev = self.cfg, self.param_dtype, self.device
+        return self._init(generator)
+
+    def param_shapes(self) -> dict:
+        """`init`'s tree as empty meta tensors: the full (one-device)
+        shapes and dtypes, nothing allocated. Dense blocks only (an SSD
+        or RG-LRU init draws as it builds)."""
+        return self._init(ShapesOnly())
+
+    def _init(self, generator) -> dict:
+        cfg, dt = self.cfg, self.param_dtype
+        dev = (generator.device if isinstance(generator, ShapesOnly)
+               else self.device)
         vp = cfg.padded_vocab()
         cross = cfg.encoder is not None
         params: Dict[str, Any] = {
@@ -330,12 +364,23 @@ class Model:
 
     # ---- caches ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
-                   dtype=torch.bfloat16) -> dict:
+                   dtype=torch.bfloat16, specs: Optional[dict] = None,
+                   device=None) -> dict:
         """Every layer's state, by `cache_groups` (an SSD or RG-LRU state
         does not grow with ``max_len``; a ring attention layer's stops at
         its window or chunk), with an enc-dec config's encoder K/V bank
-        beside each group's own state."""
-        cfg, dev = self.cfg, self.device
+        beside each group's own state. ``batch`` is the global batch; with
+        ``specs`` (`cache_specs` on the model's mesh) each leaf is this
+        process's shard of it. ``device`` overrides the model's (``meta``
+        for shapes only)."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
+        if specs is not None:
+            full = self.init_cache(batch, max_len, dtype, device="meta")
+            return {n: torch.zeros(local_shape(leaf.shape, specs[n],
+                                               self.ctx.mesh),
+                                   dtype=dtype, device=dev)
+                    for n, leaf in full.items()}
         cache = {}
         for sfx, kind, layers in cache_groups(cfg):
             n = len(layers)
@@ -393,6 +438,19 @@ class Model:
         (`decode_slots`)."""
         return self.init_cache(slots, max_len, dtype)
 
+    def _seq_split(self, cache, specs: Optional[dict]) -> frozenset:
+        """The cache groups (leaf-name suffixes) whose K/V rows ``specs``
+        (`cache_specs` on the model's mesh) split over ``model``; none on
+        one device or without a cache."""
+        if self.ctx.mesh is None or cache is None:
+            return frozenset()
+        if specs is None:
+            raise ValueError("on a mesh, prefill and decode take the "
+                             "cache's specs (cache_specs on the mesh)")
+        return frozenset(name[1:] for name, spec in specs.items()
+                         if name.split(".")[0] == "k"
+                         and tuple(spec)[2] is not None)
+
     def layer_cache(self, cache: dict, i: int) -> dict:
         """Layer ``i``'s views into ``cache``, under the bare leaf names."""
         sfx, j = self._cache_at[i]
@@ -407,7 +465,18 @@ class Model:
         """Token embeddings (B, S, d), plus ``pos_embed`` at ``positions``
         (an int for a one-token step, (S,) shared by the batch, or (B, S);
         0..S-1 when None) where the config has it."""
-        x = params["embed"][tokens]
+        emb = params["embed"]
+        rows = emb.shape[0]
+        if self.ctx.mesh is not None and rows != self.cfg.padded_vocab():
+            # vocab-parallel: this rank's rows, zeros for the others' ids
+            ids = tokens - self.ctx.rank * rows
+            own = (ids >= 0) & (ids < rows)
+            x = torch.where(own[..., None], emb[ids.clamp(0, rows - 1)],
+                            torch.zeros((), dtype=emb.dtype,
+                                        device=emb.device))
+            x = self.ctx.exit(x)
+        else:
+            x = emb[tokens]
         if self.cfg.scale_embeddings:
             x = x * self.cfg.d_model ** 0.5
         if "pos_embed" in params:
@@ -440,7 +509,7 @@ class Model:
                 x, _, a = block_apply(
                     self.cfg, layers[i], x, kind=kinds[i % len(kinds)],
                     cache=None, cache_pos=None, enc_out=enc_out, plain=plain,
-                    positions=positions)
+                    positions=positions, ctx=self.ctx)
                 aux = aux + a
             return x, aux
 
@@ -449,20 +518,34 @@ class Model:
         return run(x)
 
     def _trunk(self, params, x, cache, cache_pos, slots: bool = False,
-               enc_out=None):
+               enc_out=None, specs: Optional[dict] = None):
+        split = self._seq_split(cache, specs)
         for i, lp in enumerate(params["layers"]):
             lc = None if cache is None else self.layer_cache(cache, i)
             x, _, _ = block_apply(self.cfg, lp, x,
                                   kind=self.cfg.block_kind(i), cache=lc,
                                   cache_pos=cache_pos, slots=slots,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, ctx=self.ctx,
+                                  seq_shard=self._cache_at[i][0] in split)
         return x
 
     def _logits(self, params, x, plain: bool = False):
+        """Logits (B, S, vp) f32; on a mesh this rank's vocabulary slice
+        (B, S, vp / n_model)."""
         cfg = self.cfg
         x = norm_apply(cfg, params["final_norm"], x, plain)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        if head.shape[1] != cfg.padded_vocab():
+            x = self.ctx.enter(x)
         return softcap((x @ head).float(), cfg.final_softcap)
+
+    def _gathered(self, logits):
+        """Local vocabulary slices gathered over ``model`` (no-op on one
+        device or a replicated head)."""
+        if self.ctx.mesh is None or logits.shape[-1] == self.cfg.padded_vocab():
+            return logits
+        parts = all_gather_units(logits, self.ctx.mesh.model)
+        return torch.cat(list(parts.unbind(0)), dim=-1)
 
     def forward(self, params, tokens, *, enc_input=None, positions=None):
         """Teacher-forced forward on the plain route (differentiable on
@@ -496,10 +579,12 @@ class Model:
             aux = aux + a
         return self._logits(params, x, plain=True), {"moe_aux_loss": aux}
 
-    def prefill(self, params, tokens, cache, *, enc_input=None):
+    def prefill(self, params, tokens, cache, *, enc_input=None,
+                specs: Optional[dict] = None):
         """Forward that also fills the cache from position 0; an enc-dec
         config encodes ``enc_input`` (B, enc_seq, d) once and banks every
-        decoder layer's cross K/V in the cache."""
+        decoder layer's cross K/V in the cache. On a mesh ``specs`` is the
+        cache's layout (`cache_specs`), as `init_cache` placed it."""
         enc_out = None
         if self.cfg.encoder is not None:
             if enc_input is None:
@@ -507,17 +592,18 @@ class Model:
                     f"{self.cfg.arch_id} is enc-dec: prefill needs enc_input")
             enc_out = self._encode(params, enc_input)
         x = self._embed(params, tokens)
-        x = self._trunk(params, x, cache, 0, enc_out=enc_out)
-        return self._logits(params, x), cache
+        x = self._trunk(params, x, cache, 0, enc_out=enc_out, specs=specs)
+        return self._gathered(self._logits(params, x)), cache
 
-    def decode_step(self, params, cache, tokens, pos: int):
+    def decode_step(self, params, cache, tokens, pos: int, *,
+                    specs: Optional[dict] = None):
         """One-token decode of every batch row at write index ``pos``
         (cross-attention reads the encoder bank). tokens: (B, 1). Returns
-        (logits (B, 1, vp), cache)."""
+        (logits (B, 1, vp), cache). ``specs``: as `prefill`'s."""
         pos = int(pos)
         x = self._embed(params, tokens, pos)
-        x = self._trunk(params, x, cache, pos)
-        return self._logits(params, x), cache
+        x = self._trunk(params, x, cache, pos, specs=specs)
+        return self._gathered(self._logits(params, x)), cache
 
     def decode_slots(self, params, cache, tokens, pos):
         """Per-slot one-token decode over an `init_slot_cache` cache:
@@ -538,5 +624,7 @@ def _has_pos_embed(cfg: ArchConfig) -> bool:
 
 
 def build_model(cfg: ArchConfig, *, param_dtype=torch.float32,
-                device=None, remat: bool = True) -> Model:
-    return Model(cfg, param_dtype=param_dtype, device=device, remat=remat)
+                device=None, remat: bool = True,
+                ctx: Optional[ShardCtx] = None) -> Model:
+    return Model(cfg, param_dtype=param_dtype, device=device, remat=remat,
+                 ctx=ctx)

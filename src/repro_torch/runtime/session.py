@@ -304,9 +304,11 @@ class NTPSession:
         leaf keeping its dtype; by default they are drawn from
         ``generator`` (seed 0). The AdamW state starts from `adamw_init`;
         ``microbatches`` > 1 accumulates the gradients of that many equal
-        chunks of each batch. ``mesh`` is refused by `make_setup`
-        (sharded execution is not ported)."""
-        from repro_torch.optim import adamw_init
+        chunks of each batch. ``mesh``: this process's
+        `launch.mesh.RankMesh` (sharded execution of the dense attention
+        archs, `make_setup` on the mesh): the given or drawn params (the
+        same seed on every process) are placed, each process keeping its
+        shards, and the AdamW state is ZeRO-1's."""
         from repro_torch.train.steps import make_setup
 
         kw = {} if lr_schedule is None else {"lr_schedule": lr_schedule}
@@ -323,14 +325,14 @@ class NTPSession:
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self._device).manual_seed(0)
-            self._params = setup.model.init(generator)
+            params = setup.model.init(generator)
+            self._params = params if mesh is None else setup.place(params)
+            del params
         else:
-            self._params = tr.tree_map(
-                lambda a: torch.as_tensor(a).to(self._device, copy=True),
-                params)
-        self._opt = adamw_init(self._params, setup.opt_cfg)
+            self._params = setup.place(params)
+        self._opt = setup.init_opt_state(self._params)
         self._health = self._plan = None
-        self._rank_mesh = None
+        self._rank_mesh = mesh
         self._events = []
         self._policy = self._decision = self._stage_rel = None
         self._spares = 0
@@ -843,7 +845,8 @@ def _require_ntp(method: str, what: str) -> NotImplementedError:
 
 class _ArchSession(NTPSession):
     """`NTPSession.from_arch`'s session: the arch stack's train step on one
-    device, no plan, no health ledger."""
+    device, or this process's shards on a `RankMesh`; no plan, no health
+    ledger."""
 
     @property
     def backend(self) -> str:
@@ -869,9 +872,10 @@ class _ArchSession(NTPSession):
 
     def step(self, batch) -> Dict[str, Any]:
         """One optimizer step on ``batch`` ({"tokens", "targets"} (B, S),
-        and ``enc_input`` for an enc-dec arch); returns the metrics dict
-        (loss, total_loss, grad_norm, lr). Values are device tensors:
-        reading one waits for the step. With telemetry active the step is
+        and ``enc_input`` for an enc-dec arch; on a mesh the global batch,
+        the same on every process); returns the metrics dict (loss,
+        total_loss, grad_norm, lr; on a mesh equal on every process).
+        Values are device tensors: reading one waits for the step. With telemetry active the step is
         a ``session.step`` span (the host's dispatch)."""
         with telemetry.get().span("session.step", backend="arch", pp=1,
                                   overlap="off"):

@@ -187,23 +187,25 @@ def _chip_smoke():
 def test_chip_lifecycle_chain_is_pinned():
     """The hand chain chip_smoke.py's phase 10 (c) drives over 4 processes
     (the sampled `TRACE` needs 8 GPUs in domains of 4): every event kind
-    and its inverse in 5 steps; through an emulated (2, 2) overlap-on
+    and its inverse in 3 steps, the failure, the link and the straggler
+    right after the step-0 snapshot; through an emulated (2, 2) overlap-on
     NTP-PW session it degrades to TP (1, 2), quarantines replica 1 and
-    rolls back once under that plan, and ends pristine."""
+    rolls back once under that plan to the snapshot taken under the
+    healthy one, and ends pristine."""
     smoke = _chip_smoke()
     chain = smoke._life_chain()
-    assert smoke.LIFE_STEPS == 5
+    assert smoke.LIFE_STEPS == 3
     assert {i: [(type(e).__name__, e.replica, e.domain,
                  getattr(e, "slowdown", getattr(e, "bw_frac", None)))
                 for e in evs] for i, evs in chain.items()} == {
-        1: [("FailureEvent", 1, None, None),
-            ("LinkDegradeEvent", None, 1, 0.5)],
-        2: [("SdcSuspectEvent", 1, None, None)],
-        3: [("SdcClearEvent", 1, None, None),
-            ("LinkRepairEvent", None, 1, 0.5),
+        0: [("FailureEvent", 1, None, None),
+            ("LinkDegradeEvent", None, 1, 0.5),
             ("StragglerEvent", None, 0, 2.0)],
-        4: [("RecoveryEvent", 0, None, None),
-            ("StragglerClearEvent", None, 0, 2.0)]}
+        1: [("SdcSuspectEvent", 1, None, None)],
+        2: [("SdcClearEvent", 1, None, None),
+            ("LinkRepairEvent", None, 1, 0.5),
+            ("StragglerClearEvent", None, 0, 2.0),
+            ("RecoveryEvent", 0, None, None)]}
     cfg = nt.NTPModelConfig(n_layers=2, **KW)
     s = NTPSession.create(cfg, (2, 2), local_batch=LB, optimizer=sgd(0.05),
                           params=_canonical(cfg), device="cpu", overlap=True,
@@ -216,10 +218,10 @@ def test_chip_lifecycle_chain_is_pinned():
             seen.append((i, s.plan.replica_tp, s.last_rollback,
                          s.quarantined))
         s.step(_pipe(cfg)._batch_np(i))
-    assert seen == [(1, (1, 2), False, ()), (1, (1, 2), False, ()),
-                    (2, (1, 2), True, (1,)), (3, (1, 2), False, ()),
-                    (3, (1, 2), False, ()), (3, (1, 2), False, ()),
-                    (4, (2, 2), False, ()), (4, (2, 2), False, ())]
+    assert seen == [(0, (1, 2), False, ()), (0, (1, 2), False, ()),
+                    (0, (1, 2), False, ()), (1, (1, 2), True, (1,)),
+                    (2, (1, 2), False, ()), (2, (1, 2), False, ()),
+                    (2, (1, 2), False, ()), (2, (2, 2), False, ())]
     assert s.health.healthy and s.health.degraded is None
 
 
