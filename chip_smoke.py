@@ -175,14 +175,19 @@ Phases (any failure exits non-zero):
    turns with `src[idx]` and `index_select`, and the per-rank
    bucket_pack / bucket_unpack (one rank's MLP bucket under that plan)
    against theirs, `torch.cat` and `split` + `.contiguous()`;
-11. pp=2 ranks as processes: the model at qwen2-7b widths with one layer a
+11. pp=2 ranks as processes, through `launch.profile.measure`: the model
+   at qwen2-7b widths with one layer a
    stage on a pp=2 x (2, 2) staged mesh (`launch.mesh.make_staged_mesh`)
    of 8 processes, gloo, all on cuda:0, each holding its stage's share
    (`embed` on stage 0, `head` and `final_norm` on stage 1), each capped at
    its stage's `PP_RANKS_MEMORY_SHARE` of the card; SGD lr 1e-2, local batch 4,
    microbatches 2, sequence 256, overlap on;
    `FailureEvent(replica=1, stage=1)` (stage 1 to TP (1, 2), stage 0
-   untouched) and one step, the repair and one step. The emulated pp=2
+   untouched) and one step, the repair and one step (the profile's two
+   warm-up steps), then one timed healthy step, each step timed with CUDA
+   events, the timed one under `torch.profiler` (a Chrome trace of the
+   emulated session and one of global rank 0), and each session's
+   `measure_sync`. The emulated pp=2
    session runs first on the same seed, chain and batches and is freed
    before the spawn. Checks: every process's loss within 1e-5 of the
    emulated, local batches equal; each transition's ledger equal to the
@@ -192,9 +197,13 @@ Phases (any failure exits non-zero):
    `handoff_accounting`; each stage's canonical params within 1e-5 of the
    emulated at the end; bucket_pack / bucket_unpack once a bucket a step
    on every process, reshard_pack on stage 1's degraded steps only.
-   Printed: step ms by regime, each transition's ms and bytes by stage,
-   the launches by process, peak device memory and host RSS by process;
-   then the per-rank reshard_pack and bucket rows at this shape;
+   Printed: the profile's lines (step ms, the bubble factor against
+   (m+pp-1)/m, the sync probes, ticks and the hand-off table), the
+   traces' size and the emulated step's top five device ops, step ms by
+   regime, each transition's ms and bytes by stage, the launches by
+   process, peak device memory and host RSS at the end by process (the
+   per-rank reshard_pack and bucket kernels run at phase 10's shape and
+   are held and timed there);
 12. NTP with the expert as the partition unit (MoE), and the MoE FFN:
    (A) the prototype at llama4-scout's widths (d_model 5120, 8 kv-groups
    of 5 query heads, head_dim 128, 16 experts of d_ff 8192, top-1, vocab
@@ -369,7 +378,18 @@ Phases (any failure exits non-zero):
    rmsnorm. Printed: step ms (max over processes) beside the one-device
    step, process (0, 0)'s collective calls and bytes a step by (op,
    group), each process's peak allocated memory, the phase's seconds;
-19. print the kernels table as one JSON line (launches summed over the
+19. the dry-run (`launch.dryrun`, two processes of their own started
+   before the build, each a fake world of the counting-only `fake`
+   process groups on meta tensors): (a) for each process of phase 18's
+   (2, 2) mesh, the predicted (calls, bytes) of every (op, group) equal
+   to what that process executed in each train step, the prefill and the
+   first decode step; (b) phase 17 (A)'s one-device meta FLOPs equal to
+   `FlopCounterMode`'s count of its plain step on the card, and the f32
+   roofline share (compute seconds at 67 TFLOP/s over the measured step);
+   (c) gemma2-9b train_4k's record at the 16 x 16 mesh, ok on 256 chips;
+   (d) a meta call of each kernel launches nothing, returns the kernel's
+   output shape and dtype and counts its cost function's work;
+20. print the kernels table as one JSON line (launches summed over the
    serving, Mamba-2, training, trace, pp=2, process, pp=2 process, MoE, MoE
    serving, allocator, dense serving, hybrid serving, arch-training
    prefill and sharded arch-stack prefill and decode paths, each counted
@@ -396,6 +416,14 @@ import threading
 import time
 
 MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
+# the allocator settings of every rank the script spawns on the card:
+# expandable segments (the ranks share the card, no room for
+# fragmentation), and the pinned host blocks gloo stages CUDA tensors
+# through taken by malloc and registered by 8 threads (a rank's first
+# steps pin GBs of them)
+RANK_ALLOC_CONF = ("expandable_segments:True,"
+                   "pinned_use_cuda_host_register:True,"
+                   "pinned_num_register_threads:8")
 PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s: f32 CUDA cores, bf16 dense tensor cores
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}        # tests/test_kernels.py::_tol
 
@@ -422,16 +450,20 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops, dtype_name):
-    t_bytes = n_bytes / MEM_BW
-    t_ops = n_ops / PEAK[dtype_name]
+def bound_ms(cost, dtype_name):
+    """The least ms the card could take for a kernel call of ``cost`` (the
+    `kernels.mode.Cost` from the cost function beside its wrapper, which
+    the dry-run counts too): its bytes over HBM's rate or its operations
+    over the peak for ``dtype_name``, whichever is larger, and which."""
+    t_bytes = cost.bytes / MEM_BW
+    t_ops = cost.flops / PEAK[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_phase(torch, F, dev):
     """Phase 3. Returns {name: table row at the main path's shape}."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cost
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows = {}
@@ -468,7 +500,7 @@ def kernel_phase(torch, F, dev):
             t = in_turns(torch, lambda: rmsnorm(x, w, plus_one=plus_one),
                          {"F.rms_norm": lambda: F.rms_norm(x, (d,), w1, 1e-6)},
                          reps=200, calls=20)
-            b = bound_ms((2 * n * d + d) * x.element_size(), 4 * n * d, dn)
+            b = bound_ms(rmsnorm_cost(n, d, x.element_size()), dn)
             report_turns("rmsnorm", f"x({n},{d}) {'1+w' if plus_one else 'w'}",
                          dn, err, TOL[dn], t, plain, b)
             if (n, d) == (8, 3584) and dt == torch.float32:
@@ -538,7 +570,8 @@ def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
     cannot apply, against `flex_attention` instead (`flex_yardstick`).
     Returns its table row."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost)
 
     dn = str(dt).split(".")[1]
     b_, h, kvh, s, d = shape
@@ -579,9 +612,11 @@ def flash_row(torch, F, dev, g, dt, shape, kind, window=4096, chunk=8192,
     del want
     t = in_turns(torch, lambda: flash_attention(q, k, v, **kw), libs,
                  reps=50 if short else 5, calls=20 if short else 3)
-    pairs = int(mask.sum().item())
-    n_bytes = (2 * b_ * h * s * d + 2 * b_ * kvh * s * d) * q.element_size()
-    bd = bound_ms(n_bytes, 4 * d * pairs * b_ * h, dn)
+    cost = flash_attention_cost(b_, h, kvh, s, d, q.element_size(), kind,
+                                window, chunk)
+    check(cost.flops == 4 * d * int(mask.sum().item()) * b_ * h,
+          f"flash_attention_cost's pairs differ from the {kind} mask's")
+    bd = bound_ms(cost, dn)
     cap = "" if softcap is None else f" softcap {softcap:g}"
     report_turns("flash_attention", f"{label}q({b_},{h},{s},{d}) kv{kvh} "
                  f"{kind}{cap}", dn, err, TOL[dn], t, plain, bd)
@@ -690,6 +725,8 @@ def reshard_call(torch, dev, name, src, ix, kern, plain_fn, send, pad, ranks,
     bound reads each unit row the ``ranks`` send once (``send``: the
     tables' send_idx, ``pad`` its pad id) and writes the send buffer.
     Returns its table row."""
+    from repro_torch.kernels.reshard_pack import reshard_pack_cost
+
     got = kern(src, ix)
     torch.cuda.synchronize()
     want = plain_fn(src, ix)
@@ -715,8 +752,8 @@ def reshard_call(torch, dev, name, src, ix, kern, plain_fn, send, pad, ranks,
                  reps=10, calls=4)
     n_read = sum(len({int(u) for u in send[r].flatten() if u != pad})
                  for r in ranks)
-    bd = bound_ms((n_read + ix.numel()) * elems * src.element_size()
-                  + ix.numel() * 4, 0, dn)
+    bd = bound_ms(reshard_pack_cost(ix.numel(), elems, src.element_size(),
+                                    n_read), dn)
     report_turns("reshard_pack",
                  f"{name} src{tuple(src.shape)} idx{tuple(ix.shape)}",
                  dn, 0.0, 0.0, t, plain, bd)
@@ -811,7 +848,7 @@ def host_cost(torch, dev, g):
     steps = [
         ("shape checks", checks, checks),
         ("device check", lambda: old_on_cpu(x, w),
-         lambda: mode.on_cpu(x, w, kernel="rmsnorm")),
+         lambda: mode.device_kind(x, w, kernel="rmsnorm")),
         ("empty_like", lambda: torch.empty_like(x), lambda: torch.empty_like(x)),
         ("launch arguments", lambda: (
             x.dtype not in rm._DTYPES, x.data_ptr(), w.data_ptr(),
@@ -999,7 +1036,8 @@ def bucket_rows(torch, dev, g, rows):
     versions, timed in turns with `torch.cat` and `split` + `.contiguous()`
     (call ms and device ms)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
+    from repro_torch.kernels.bucket import (bucket_cost, bucket_pack,
+                                            bucket_unpack)
 
     bucket_host_cost(torch, dev, g)
     attn = (3584 * 896, 3584 * 128, 3584 * 128, 896 * 3584)   # wq wk wv wo
@@ -1025,8 +1063,8 @@ def bucket_rows(torch, dev, g, rows):
                 parts, ref.bucket_unpack_ref(flat, widths))),
                 f"bucket_unpack {label} {dn} is not bit-exact")
             del want, parts
-            n_bytes = 2 * n_rows * sum(widths) * flat.element_size()
-            bd = bound_ms(n_bytes, 0, dn)
+            bd = bound_ms(bucket_cost(n_rows, sum(widths),
+                                      flat.element_size()), dn)
             shape = f"{n_rows}x{sum(widths)} ({len(widths)} leaves)"
             timed = {
                 "bucket_pack": (
@@ -1069,7 +1107,7 @@ def ssd_rows(torch, dev, g, rows, report):
     prefill shape, the CUDA kernels one call issues and each one's device
     ms (torch.profiler over 4 calls)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_cost
     from repro_torch.models.ssm import _ssd_chunked
 
     cases = [(2, 64, 16, 32, 16, 2, 1), (3, 128, 16, 32, 32, 3, 1),
@@ -1111,15 +1149,8 @@ def ssd_rows(torch, dev, g, rows, report):
                                       final_state=True), 10)
         plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, A, B, C,
                                                  final_state=True), 1)
-        # C·Bᵀ once per (B/C row, chunk) over its L(L+1)/2 causal pairs;
-        # per (row, chunk) the causal M·x, the carried term C·h and the
-        # state update
-        L, nc = min(chunk, s), s // min(chunk, s)
-        n_ops = (groups * nc * L * (L + 1) * ds
-                 + bh * nc * (L * (L + 1) * hp + 4 * L * hp * ds))
-        n_bytes = 4 * (2 * bh * s * hp + bh * s + bh + 2 * groups * s * ds
-                       + bh * hp * ds)
-        bd = bound_ms(n_bytes, n_ops, "float32")
+        L = min(chunk, s)
+        bd = bound_ms(ssd_scan_cost(bh, groups, s, L, hp, ds), "float32")
         shape = f"x({bh},{s},{hp}) B/C({groups},{s},{ds}) L={L}"
         report("ssd_scan", shape, "float32", err, ms, plain, None, bd,
                tol=SSD_TOL)
@@ -3135,7 +3166,7 @@ def ranks_phase(torch, dev, cfg=None, seq=256, steps=2):
             print(f"  the parent keeps {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated; card memory free before the spawn "
                   f"{free / 1e9:.2f} of {total / 1e9:.2f} GB", flush=True)
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
         t0 = time.perf_counter()
         # one spawn runs (b), then (c), in the same four processes
         both = spawn(ranks_worker, 4, backend="gloo", device=dev.type,
@@ -3222,7 +3253,8 @@ def rank_reshard_row(torch, dev, cfg, plan):
     advanced indexing and `index_select`, as phase 3's rows."""
     from repro_torch.core import nonuniform as nu
     from repro_torch.kernels import ref
-    from repro_torch.kernels.reshard_pack import reshard_pack
+    from repro_torch.kernels.reshard_pack import reshard_pack, \
+        reshard_pack_cost
 
     tables = nu.weight_plan(cfg.k_ff, plan).pre
     g = torch.Generator(device=dev).manual_seed(7)
@@ -3250,8 +3282,7 @@ def rank_reshard_row(torch, dev, cfg, plan):
         "index_select": lambda: torch.index_select(xp, 0, flat).view(
             *ix.shape, elems)}, reps=10, calls=4)
     n_read = len({int(u) for u in t.send_idx[r].flatten() if u != t.pad})
-    bd = bound_ms((n_read + ix.numel()) * elems * 4 + ix.numel() * 4, 0,
-                  "float32")
+    bd = bound_ms(reshard_pack_cost(ix.numel(), elems, 4, n_read), "float32")
     report_turns("reshard_pack", f"per rank, replica {d} rank {r} "
                  f"src{tuple(xp.shape)} idx{tuple(ix.shape)}", "float32",
                  0.0, 0.0, tm, plain, bd)
@@ -3269,7 +3300,8 @@ def rank_bucket_rows(torch, dev, cfg, plan):
     `.contiguous()`, as phase 3's rows."""
     from repro_torch.core import nonuniform as nu
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
+    from repro_torch.kernels.bucket import (bucket_cost, bucket_pack,
+                                            bucket_unpack)
 
     n_rows = nu.weight_plan(cfg.k_ff, plan).buf
     widths = (cfg.d_model * cfg.unit_rows,) * 2
@@ -3284,7 +3316,7 @@ def rank_bucket_rows(torch, dev, cfg, plan):
             parts, ref.bucket_unpack_ref(flat, widths))),
         "per-rank bucket_pack / bucket_unpack are not bit-exact")
     del parts
-    bd = bound_ms(2 * n_rows * sum(widths) * 4, 0, "float32")
+    bd = bound_ms(bucket_cost(n_rows, sum(widths), 4), "float32")
     rows = {}
     for name, kern, plain_fn, libs in (
             ("bucket_pack", lambda: bucket_pack(leaves),
@@ -3684,11 +3716,14 @@ def lifecycle_part(torch, dev, cfg, ref, ranks, b_steps, b_sync):
 
 
 # phase 11: pp=2 ranks as processes, a staged mesh (`make_staged_mesh`) of
-# pp x D x N1 gloo processes on this card, one layer a stage. The chain:
-# a healthy step; the last replica's stage 1 loses a GPU (TP (1, 2) there,
-# stage 0 untouched) and one step; the repair and one step.
+# pp x D x N1 gloo processes on this card, one layer a stage, driven by
+# `launch.profile.measure` beside the emulated session. The chain, in the
+# profile's two warm-up steps: the last replica's stage 1 loses a GPU
+# before step 0 (TP (1, 2) there, stage 0 untouched), the repair before
+# step 1; then one timed healthy step.
 PP_RANKS_KERNELS = ("reshard_pack", "bucket_pack", "bucket_unpack")
-PP_RANKS_STEPS = 2
+PP_RANKS_STEPS = 2      # the profile's warm-up steps: the chain's
+PP_RANKS_TIMED = 1      # the profile's timed steps
 PP_RANKS_MB = 2
 # each process's share of the card by stage (stage 1 holds `head` and the
 # microbatch logits, and packs a degraded layer wider): 4 x (0.10 + 0.125)
@@ -3703,133 +3738,24 @@ def _pp_ranks_chain(n_data):
             1: RecoveryEvent(step=1, replica=0, stage=1, n_gpus=1)}
 
 
-def _pp_ranks_session(torch, cfg, mesh, dev, canon):
-    from repro_torch.optim import sgd
-    from repro_torch.runtime import NTPSession
-
-    kw = dict(device=dev) if isinstance(mesh, tuple) else {}
-    return NTPSession.create(cfg, mesh, local_batch=RANKS_LB,
-                             optimizer=sgd(RANKS_LR), params=canon, pp=2,
-                             microbatches=PP_RANKS_MB, overlap=True, **kw)
-
-
-def pp_ranks_reference(torch, dev, cfg, seq, mesh, directory):
-    """Phase 11, first: the emulated pp=2 session on the card through the
-    chain (overlap on, microbatches 2); its canonical params at the end go
-    to ``directory`` (one .npy a leaf, flatten order). Returns its losses,
-    step ms and per-event records."""
-    from repro_torch import tree as tr
-    from repro_torch.core import ntp_train as nt
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-
-    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
-                              device=dev)
-    s = _pp_ranks_session(torch, cfg, mesh, dev, canon)
-    del canon
-    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq,
-                                          mesh[0] * RANKS_LB, seed=0))
-    chain = _pp_ranks_chain(mesh[0])
-    out = {"loss": [], "ms": [], "events": [], "local_batches": []}
-    for i in range(PP_RANKS_STEPS):
-        if i in chain:
-            old = s.plan
-            s.apply(chain[i])
-            out["events"].append((i, old, s.plan,
-                                  s.last_transition.as_dict(),
-                                  dict(s.last_transition.per_pair)))
-        _sync(torch, dev)
-        t0 = time.perf_counter()
-        out["loss"].append(float(s.step(pipe._batch_np(i))["loss"]))
-        out["ms"].append((time.perf_counter() - t0) * 1e3)
-        out["local_batches"].append(tuple(s.local_batches))
-    _write_leaves(directory, "end",
-                  [t.cpu() for t in tr.leaves(s.canonical_params(0))])
-    del s
-    return out
-
-
-def pp_rank_worker(cfg, seq, mesh_shape, directory, device):
-    """Phase 11: one (stage, replica, rank) process of the staged gloo mesh
-    on the card: its stage's share drawn from the seed, the chain with
-    overlap on and microbatches 2, each step and apply timed (host clock
-    after a device sync), its collectives and kernel launches counted;
-    replica 0's rank 0 of each stage checks its stage's canonical params
-    at the end against the emulated run's."""
+def pp_rank_finish(session, mesh, cfg, directory):
+    """Phase 11, each process at the end of its profile run: this stage's
+    canonical params gathered over its model groups to the host one leaf
+    at a time (no traffic between stages); replica 0's rank 0 of each
+    stage compares them with the emulated run's in ``directory``. Returns
+    (that error or None, the process's resident GB at the end)."""
     import numpy as np
     import torch
 
     from repro_torch import tree as tr
-    from repro_torch.core import collectives as C
     from repro_torch.core import ntp_train as nt
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-    from repro_torch.kernels import mode
-    from repro_torch.launch.mesh import make_staged_mesh
 
-    d, n1 = mesh_shape
-    mesh = make_staged_mesh(2, d, n1, backend="gloo", device=device)
-    dev, cuda = mesh.device, mesh.device.type == "cuda"
-    if cuda:
-        torch.cuda.set_per_process_memory_fraction(
-            PP_RANKS_MEMORY_SHARE[mesh.stage], dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    canon = nt.init_canonical(cfg, torch.Generator(device=dev).manual_seed(0),
-                              device=dev, pp=2, stage=mesh.stage)
-    s = _pp_ranks_session(torch, cfg, mesh, dev, canon)
-    del canon
-    if cuda:
-        torch.cuda.empty_cache()
-    _sync(torch, dev)
-    out = {"setup_s": time.perf_counter() - t0, "loss": [], "step_ms": [],
-           "regime": [], "counts": [], "launches": [], "events": [],
-           "local_batches": [], "handoff": []}
-    pipe = SyntheticLMPipeline(DataConfig(cfg.vocab, seq, d * RANKS_LB,
-                                          seed=0))
-    chain = _pp_ranks_chain(d)
-
-    host = _HostPeak()
-
-    def timed(fn):
-        _sync(torch, dev)
-        t0 = time.perf_counter()
-        r = fn()
-        _sync(torch, dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        return r, ms
-
-    mode.reset_launches()
-    for i in range(PP_RANKS_STEPS):
-        if i in chain:
-            old = s.plan
-            C.reset_counts()
-            _, ms = timed(lambda: s.apply(chain[i]))
-            out["events"].append((i, old, s.plan, ms,
-                                  s.last_transition.as_dict(),
-                                  dict(s.last_transition.per_pair),
-                                  C.counts()))
-            _release_host_cache(torch)
-        C.reset_counts()
-        before = mode.launches()
-        m, ms = timed(lambda: s.step(pipe._batch_np(i)))
-        out["loss"].append(float(m["loss"]))
-        out["step_ms"].append(ms)
-        out["regime"].append(_regime(s))
-        out["counts"].append(C.counts())
-        out["local_batches"].append(tuple(s.local_batches))
-        out["handoff"].append((m["pipeline_ticks"], m["handoff"]))
-        after = mode.launches()
-        out["launches"].append({k: after[k] - before[k]
-                                for k in PP_RANKS_KERNELS})
-    out["total_launches"] = {k: mode.launches()[k] for k in PP_RANKS_KERNELS}
-    # this stage's canonical params, gathered over its model groups to the
-    # host one leaf at a time (no traffic between stages); replica 0's rank
-    # 0 of each stage compares them with the emulated run's
     index = {p: i for i, (p, _) in enumerate(tr.leaves_with_path(
         nt.canonical_like(cfg)))}
     err = 0.0 if mesh.replica == 0 and mesh.rank == 0 else None
     if mesh.replica == 0:
         for path, leaf in nt.rank_canonical_leaves(
-                cfg, s.params, s.plan, mesh, "cpu"):
+                cfg, session.params, session.plan, mesh, "cpu"):
             if err is not None:
                 want = np.load(os.path.join(directory, "end",
                                             f"{index[path]}.npy"))
@@ -3837,96 +3763,111 @@ def pp_rank_worker(cfg, seq, mesh_shape, directory, device):
                                      .abs_().max()))
             del leaf
     _release_host_cache(torch)
-    out["canonical"] = err
-    out["collectives"] = (s.step_fn.collectives,
-                          s.step_fn.replicated_collectives)
-    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9,
-                      torch.cuda.max_memory_reserved(dev) / 1e9) if cuda \
-        else (0.0, 0.0)
-    out["host_gb"] = host.stop()
-    out["rank"] = (mesh.stage, mesh.replica, mesh.rank)
-    return out
+    return err, _host_rss_gb()
 
 
 def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
-    """Phase 11: pp=2 ranks as processes. The NTP prototype at qwen2-7b
-    widths with one layer a stage on a pp=2 x ``mesh`` staged mesh of gloo
-    processes on this card (`launch.mesh.make_staged_mesh`; each process
-    holds its stage's share: `embed` on stage 0, `head` and `final_norm` on
-    stage 1), overlap on, microbatches 2, through the chain, held to the
-    emulated pp=2 session run first on the same seed, chain and batches.
-    Checks: every process's loss within 1e-5 of the emulated; local
-    batches equal; each transition's ledger equal to the emulated and its
-    bytes to `expected_transfer`, stage 0's processes sending nothing and
-    each of stage 1's one all-to-all; every step's hand-off bytes, summed
-    over the processes, equal to `handoff_accounting`'s table; each
-    stage's canonical params within 1e-5 of the emulated at the end;
-    bucket_pack and bucket_unpack launched once a bucket on every step by
-    every process, reshard_pack by stage 1's on its degraded steps only.
-    Returns the processes' launch counts summed (and, on the card, the
-    per-rank kernel rows at this shape). ``cfg``/``seq``/``mesh`` and a
-    CPU ``dev`` let the phase be rehearsed small on the CPU."""
+    """Phase 11: pp=2 ranks as processes, through `launch.profile.measure`.
+    The NTP prototype at qwen2-7b widths with one layer a stage on a pp=2
+    x ``mesh`` staged mesh of gloo processes on this card
+    (`launch.mesh.make_staged_mesh`; each process holds its stage's share:
+    `embed` on stage 0, `head` and `final_norm` on stage 1), overlap on,
+    microbatches 2, through the chain in the profile's warm-up steps and
+    one timed step, held to the emulated pp=2 session the profile runs
+    first on the same seed, chain and batches. Checks: every process's
+    loss within 1e-5 of the emulated; local batches equal; each
+    transition's ledger equal to the emulated and its bytes to
+    `expected_transfer`, stage 0's processes sending nothing and each of
+    stage 1's one all-to-all; every step's hand-off bytes, summed over the
+    processes, equal to `handoff_accounting`'s table; each stage's
+    canonical params within 1e-5 of the emulated at the end; bucket_pack
+    and bucket_unpack launched once a bucket on every step by every
+    process, reshard_pack by stage 1's on its degraded steps only; on the
+    card a Chrome trace written. Prints the profile's lines (step ms from
+    CUDA events, the bubble factor, the sync probes, ticks and the
+    hand-off table) and the trace's size and top five device ops. Returns
+    the processes' launch counts summed. (The per-rank kernels run at
+    phase 10's shape, held and timed there.) ``cfg``/``seq``/``mesh`` and
+    a CPU ``dev`` let the phase be rehearsed small on the CPU."""
     import shutil
 
-    from repro_torch.core.nonuniform import FailurePlan
-    from repro_torch.launch.spawn import spawn
+    from repro_torch import tree as tr
+    from repro_torch.launch import profile
 
     cfg = cfg or dataclasses.replace(qwen_widths(), n_layers=2)
     cuda = dev.type == "cuda"
-    n = 2 * mesh[0] * mesh[1]
     tmp = scratch_dir()
+    trace = os.path.join(tmp, "trace") if cuda else None
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     t_part = time.perf_counter()
-    try:
-        t0 = time.perf_counter()
-        ref = pp_ranks_reference(torch, dev, cfg, seq, mesh, tmp)
-        print(f"  emulated pp=2 x {mesh} session: {PP_RANKS_STEPS} steps in "
-              f"{time.perf_counter() - t0:.1f} s with its checkpoint, step "
-              f"ms {', '.join(f'{m:.1f}' for m in ref['ms'])}", flush=True)
+
+    def emulated_done(session):
+        _write_leaves(tmp, "end",
+                      [t.cpu() for t in tr.leaves(session.canonical_params(0))])
         if cuda:
             torch.cuda.empty_cache()
             free, total = torch.cuda.mem_get_info(dev)
             print(f"  card memory free before the spawn {free / 1e9:.2f} of "
                   f"{total / 1e9:.2f} GB", flush=True)
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        t0 = time.perf_counter()
-        ranks = spawn(pp_rank_worker, n, backend="gloo", device=dev.type,
-                      deadline_s=900, args=(cfg, seq, mesh, tmp, dev.type))
-        wall = time.perf_counter() - t0
+
+    try:
+        # the processes' allocator: four ranks' transitions need room
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
+        prof = profile.measure(
+            steps=PP_RANKS_TIMED, warmup=PP_RANKS_STEPS, pp=2,
+            microbatches=PP_RANKS_MB, batch=RANKS_LB, seq_len=seq,
+            overlap=True, trace_dir=trace, n_data=mesh[0], n_model=mesh[1],
+            cfg=cfg, device=dev.type, lr=RANKS_LR,
+            events=_pp_ranks_chain(mesh[0]),
+            memory_share=PP_RANKS_MEMORY_SHARE, after_emulated=emulated_done,
+            finish=pp_rank_finish, finish_args=(cfg, tmp),
+            report=lambda line: print(f"  {line}", flush=True))
+        if trace:
+            files = sorted(os.listdir(trace))
+            size = sum(os.path.getsize(os.path.join(trace, f)) for f in files)
+            print(f"  Chrome traces {files}: {size / 1e6:.1f} MB", flush=True)
+            check(files and size > 0, "no profiler trace was written")
+            for name, ms in prof["emulated"].get("top", []):
+                print(f"  top device op (emulated, timed step): {ms:9.3f} ms "
+                      f"{name[:80]}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         if alloc_conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ref, ranks = prof["emulated"], prof["staged"]
     r0 = ranks[0]
-    print(f"  {n} processes spawned, run and joined in {wall:.1f} s; set-up "
-          f"(the stage's share drawn + packed) "
-          f"{max(r['setup_s'] for r in ranks):.1f} s", flush=True)
     for r in ranks:
-        err = max(abs(a - b) for a, b in zip(r["loss"], ref["loss"]))
+        err = max(abs(a["loss"] - b["loss"])
+                  for a, b in zip(r["steps"], ref["steps"]))
         print(f"  process (stage, replica, rank) {r['rank']}: max |loss - "
               f"emulated| {err:.3e}, peak {r['peak_gb'][0]:.2f} GB "
-              f"allocated, {r['peak_gb'][1]:.2f} GB reserved, host peak "
-              f"{r['host_gb']:.2f} GB resident (sampled every "
-              f"{HOST_SAMPLE_S * 1e3:.0f} ms)", flush=True)
+              f"allocated, {r['peak_gb'][1]:.2f} GB reserved, "
+              f"{r['finish'][1]:.2f} GB resident at the end", flush=True)
         check(err <= 1e-5, f"process {r['rank']} loss off the emulated by "
               f"{err}")
-        check(r["local_batches"] == ref["local_batches"],
+        check([st["local_batches"] for st in r["steps"]]
+              == [st["local_batches"] for st in ref["steps"]],
               f"process {r['rank']}: local batches differ from the emulated")
-    print(f"  losses {', '.join(f'{x:.5f}' for x in r0['loss'])}")
+    losses = ", ".join(f"{st['loss']:.5f}" for st in r0["steps"])
+    print(f"  losses {losses}")
     by_regime = {}
-    for i, regime in enumerate(r0["regime"]):
-        step_ms = max(r["step_ms"][i] for r in ranks)
+    for i, st in enumerate(r0["steps"]):
+        regime = ("healthy" if st["plan"].healthy
+                  else f"degraded at TP {_tp(st['plan'])}")
+        step_ms = max(r["steps"][i]["ms"] for r in ranks)
         by_regime.setdefault(regime, []).append(step_ms)
-        ticks, table = r0["handoff"][i]
-        fwd = sum(r["counts"][i].get(("send_next", "stage"), (0, 0))[1]
-                  for r in ranks)
-        bwd = sum(r["counts"][i].get(("send_prev", "stage"), (0, 0))[1]
-                  for r in ranks)
-        launched = [r["launches"][i] for r in ranks]
-        print(f"  step {i} ({regime}): {step_ms:.1f} ms (max over processes;"
-              f" emulated {ref['ms'][i]:.1f}); {ticks} ticks; hand-off "
+        table = st["handoff"]
+        fwd = sum(r["steps"][i]["counts"].get(("send_next", "stage"),
+                                              (0, 0))[1] for r in ranks)
+        bwd = sum(r["steps"][i]["counts"].get(("send_prev", "stage"),
+                                              (0, 0))[1] for r in ranks)
+        launched = [{k: r["steps"][i]["launches"][k]
+                     for k in PP_RANKS_KERNELS} for r in ranks]
+        print(f"  step {i} ({regime}{'' if st['timed'] else ', warm-up'}): "
+              f"{step_ms:.1f} ms (max over processes; emulated "
+              f"{ref['steps'][i]['ms']:.1f}); {st['ticks']} ticks; hand-off "
               f"{fwd} B forward + {bwd} B backward (table "
               f"{table['fwd_bytes']} + {table['bwd_bytes']}); launches "
               f"{launched[0]} (stage 0), {launched[-1]} (stage 1)",
@@ -3942,28 +3883,30 @@ def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
                       == (stage1_degraded and r["rank"][0] == 1),
                       f"step {i}: process {r['rank']} reshard_pack {l} in a "
                       f"{regime} step")
-    for k, (i, old, new, _, st, pairs, _) in enumerate(r0["events"]):
-        ms = max(r["events"][k][3] for r in ranks)
-        _, _, _, ref_st, ref_pairs = ref["events"][k]
+    for k, ev in enumerate(r0["events"]):
+        i, old, new, st, pairs = (ev["step"], ev["old"], ev["new"],
+                                  ev["ledger"], ev["per_pair"])
+        ms = max(r["events"][k]["ms"] for r in ranks)
         want = _expected_bytes(cfg, old, new)
         per_stage = {}
         for key, units in pairs.items():
             per_stage[key[0]] = per_stage.get(key[0], 0) + units
-        sent = {r["rank"]: r["events"][k][6].get(("all_to_all", "model"),
-                                                 (0, 0)) for r in ranks}
+        sent = {r["rank"]: r["events"][k]["counts"].get(
+            ("all_to_all", "model"), (0, 0)) for r in ranks}
         print(f"  step {i}: {_tp(old)} -> {_tp(new)}: apply {ms:.1f} ms (max "
               f"over processes), {st['bytes_moved']} B in {st['messages']} "
               f"messages (expected {want} B), units moved by stage "
               f"{per_stage}; all-to-all (calls, B) by process {sent}",
               flush=True)
-        check(st == ref_st and pairs == ref_pairs,
+        check(st == ref["events"][k]["ledger"]
+              and pairs == ref["events"][k]["per_pair"],
               "the transition ledger differs from the emulated")
         check(st["bytes_moved"] == want, f"transition bytes {st} != {want}")
         check(set(per_stage) == {1}, "the transition is not stage-local")
-        check(all(r["events"][k][4] == st for r in ranks),
+        check(all(r["events"][k]["ledger"] == st for r in ranks),
               "processes disagree on the transition ledger")
         for r in ranks:
-            counts = r["events"][k][6]
+            counts = r["events"][k]["counts"]
             if r["rank"][0] == 0:
                 check(counts == {}, f"stage 0 process {r['rank']} sent "
                       f"{counts} in a stage-1 transition")
@@ -3974,27 +3917,23 @@ def pp_ranks_phase(torch, dev, cfg=None, seq=256, mesh=(2, 2)):
     print("  step ms by regime (max over processes): " + "; ".join(
         f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in by_regime.items()),
         flush=True)
-    errs = {r["rank"][0]: r["canonical"] for r in ranks
-            if r["canonical"] is not None}
+    errs = {r["rank"][0]: r["finish"][0] for r in ranks
+            if r["finish"][0] is not None}
     print(f"  end: canonical params by stage within {errs} of the emulated",
           flush=True)
     check(len(errs) == 2 and max(errs.values()) <= 1e-5,
           "final canonical params off")
-    launches = {k: sum(r["total_launches"][k] for r in ranks)
+    launches = {k: sum(st["launches"][k] for r in ranks for st in r["steps"])
                 for k in PP_RANKS_KERNELS}
-    by_proc = {r["rank"]: r["total_launches"] for r in ranks}
+    by_proc = {r["rank"]: {k: sum(st["launches"][k] for st in r["steps"])
+                           for k in PP_RANKS_KERNELS} for r in ranks}
     print(f"  phase 11: {time.perf_counter() - t_part:.1f} s; launches "
           f"{launches}; by process {by_proc}; unit collectives a step "
           f"(whole mesh) {r0['collectives'][0]}, replicated a process "
           f"{r0['collectives'][1]}", flush=True)
-    if cuda:
-        check(all(launches[k] > 0 for k in PP_RANKS_KERNELS),
-              f"a kernel of the pp=2 process path never launched: {launches}")
-        plan = FailurePlan(2, (1, 2))
-        rows = dict(reshard_pack=rank_reshard_row(torch, dev, cfg, plan),
-                    **rank_bucket_rows(torch, dev, cfg, plan))
-        return launches, rows
-    return launches, None
+    check(not cuda or all(launches[k] > 0 for k in PP_RANKS_KERNELS),
+          f"a kernel of the pp=2 process path never launched: {launches}")
+    return launches
 
 
 # phase 12: NTP with the expert as the partition unit. (A) llama4-scout's
@@ -4266,7 +4205,8 @@ def expert_reshard_row(torch, dev, cfg, plan):
     output is GBs)."""
     from repro_torch.core import nonuniform as nu
     from repro_torch.kernels import ref
-    from repro_torch.kernels.reshard_pack import reshard_pack_ranks
+    from repro_torch.kernels.reshard_pack import reshard_pack_cost, \
+        reshard_pack_ranks
 
     tables = nu.weight_plan(cfg.k_ff, plan).pre
     elems = cfg.d_model * cfg.ffu
@@ -4294,8 +4234,7 @@ def expert_reshard_row(torch, dev, cfg, plan):
         reps=3, calls=1)
     n_read = sum(len({int(u) for u in t.send_idx[r].flatten()
                       if u != t.pad}) for r in range(n))
-    bd = bound_ms((n_read + ix.numel()) * elems * 4 + ix.numel() * 4, 0,
-                  "float32")
+    bd = bound_ms(reshard_pack_cost(ix.numel(), elems, 4, n_read), "float32")
     report_turns("reshard_pack", f"expert unit, all {n} ranks "
                  f"src{tuple(xp.shape)} idx{tuple(ix.shape)}", "float32",
                  0.0, 0.0, tm, plain, bd)
@@ -4524,7 +4463,7 @@ def moe_ranks_part(torch, dev, cfg, pp, want):
 
     n = 4 * pp
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
     t0 = time.perf_counter()
     try:
         ranks = spawn(moe_rank_worker, n, backend="gloo", device=dev.type,
@@ -5776,7 +5715,11 @@ def arch_probes(torch, cfg, batch, seq, dev):
     `ARCH_PROBE_LR`, so a weight whose gradient is rounding noise moves by
     at most ~lr either way): params within 1e-5 and 1e-6, and the first
     moment (the clipped gradients) within 1e-4 and 1e-6 of the plain
-    step's largest."""
+    step's largest. Returns the FLOPs `FlopCounterMode` counts in the
+    plain step on the card (the dry-run's phase holds the meta count of
+    the same step to it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch import tree as tr
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -5798,7 +5741,9 @@ def arch_probes(torch, cfg, batch, seq, dev):
         p, o, _ = su.step_fn(p, adamw_init(p, su.opt_cfg), batch)
         return p, o["m"]
 
-    ref_p, ref_m = probe(plain)
+    with FlopCounterMode(display=False) as counter:
+        ref_p, ref_m = probe(plain)
+    card_flops = counter.get_total_flops()
     top = max(float(m.abs().max()) for m in tr.leaves(ref_m))
     for name, su, ptol, mtol in (("A iv", setup(microbatches=2), 1e-5, 1e-4),
                                  ("A v", setup(remat=False), 1e-6, 1e-6)):
@@ -5815,12 +5760,14 @@ def arch_probes(torch, cfg, batch, seq, dev):
         del p, m
     del p0, ref_p, ref_m
     torch.cuda.empty_cache()
+    return card_flops
 
 
 def arch_train_part(torch, dev, name, arch, depth, batch, seq, steps, tol):
     """One model of phase 17 through `NTPSession.from_arch` (AdamW at
     `ARCH_TRAIN_LR`, remat on); checks (i), (ii), and for (A) (iii)-(vi).
-    Returns the prefill's launches."""
+    Returns the prefill's launches, and for (A) the plain step's FLOPs on
+    the card and the step ms (else None)."""
     from repro_torch import tree as tr
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import ShapeSpec
@@ -5832,8 +5779,9 @@ def arch_train_part(torch, dev, name, arch, depth, batch, seq, steps, tol):
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
     data = [_arch_batch(torch, cfg, batch, seq, dev, i) for i in range(steps)]
+    counted = None
     if name == "A":
-        arch_probes(torch, cfg, data[0], seq, dev)
+        counted = {"flops": arch_probes(torch, cfg, data[0], seq, dev)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = NTPSession.from_arch(cfg, ShapeSpec("t", seq, batch, "train"),
@@ -5878,15 +5826,20 @@ def arch_train_part(torch, dev, name, arch, depth, batch, seq, steps, tol):
                                   data[0], seq, tol, name)
     del s
     torch.cuda.empty_cache()
-    return launches
+    if counted is not None:
+        counted["ms"] = ms
+    return launches, counted
 
 
 def arch_train_phase(torch, dev):
-    """Phase 17. Returns the launch counts of the prefill steps, summed."""
+    """Phase 17. Returns the launch counts of the prefill steps, summed,
+    and (A)'s plain step's FLOPs on the card and step ms."""
     total = dict.fromkeys(ARCH_TRAIN_KERNELS, 0)
     for name, arch, depth, batch, seq, steps, tol in ARCH_TRAIN:
-        launches = arch_train_part(torch, dev, name, arch, depth, batch, seq,
-                                   steps, tol)
+        launches, counted = arch_train_part(torch, dev, name, arch, depth,
+                                            batch, seq, steps, tol)
+        if name == "A":
+            a_step = counted
         want = (("rmsnorm", "ssd_scan") if arch == "mamba2-780m" else
                 ("flash_attention",) if arch == "whisper-small" else
                 ("rmsnorm", "flash_attention"))
@@ -5894,7 +5847,7 @@ def arch_train_phase(torch, dev):
               f"({name}) the prefill did not launch {want}: {launches}")
         for k in total:
             total[k] += launches[k]
-    return total
+    return total, a_step
 
 
 def arch_train_only(torch):
@@ -5904,7 +5857,7 @@ def arch_train_only(torch):
 
     print(f"  built in {build.build_all():.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches = arch_train_phase(torch, torch.device("cuda"))
+    launches, _ = arch_train_phase(torch, torch.device("cuda"))
     print(f"  phase 17: {time.perf_counter() - t0:.1f} s; prefill launches "
           f"{launches}", flush=True)
     return 0
@@ -5947,9 +5900,12 @@ def _arch_ranks_serve(torch, run, pf, dc, params, dev):
     """A prefill of seeded prompts and greedy decode steps: (the prefill's
     last logits, the decoded tokens (batch, new), each decode step's
     logits (new, batch, vocab) on the host, the kernel launches of the
-    prefill, those of the decode). On a mesh the logits and tokens are
-    this replica's rows, and each step's tokens are gathered over ``data``
-    into the global batch the next step takes."""
+    prefill, those of the decode, and the collectives' (calls, bytes) by
+    (op, group) of the prefill and of the first decode step). On a mesh
+    the logits and tokens are this replica's rows, and each step's tokens
+    are gathered over ``data`` into the global batch the next step takes
+    (outside the counted step)."""
+    from repro_torch.core import collectives as C
     from repro_torch.core.collectives import all_gather_units
     from repro_torch.kernels import mode
 
@@ -5965,20 +5921,26 @@ def _arch_ranks_serve(torch, run, pf, dc, params, dev):
     prompts = torch.randint(0, pf.cfg.vocab_size, (batch, prompt),
                             generator=g, device=dev, dtype=torch.int32)
     mode.reset_launches()
+    C.reset_counts()
     last, cache = pf.step_fn(params, {"tokens": prompts})
     _sync(torch, dev)
     pre = mode.launches()
+    counts = {"prefill": C.counts()}
     mode.reset_launches()
     tok, toks, steps = last.argmax(-1)[:, None], [], []
     for i in range(new):
         toks.append(tok)
-        logits, cache = dc.step_fn(params, cache, {
-            "tokens": whole(tok), "pos": torch.tensor(prompt + i)})
+        batch_i = {"tokens": whole(tok), "pos": torch.tensor(prompt + i)}
+        C.reset_counts()
+        logits, cache = dc.step_fn(params, cache, batch_i)
+        if i == 0:
+            counts["decode"] = C.counts()
         tok = logits.argmax(-1)[:, None]
         steps.append(logits)
     _sync(torch, dev)
     dec = mode.launches()
-    return last, torch.cat(toks, 1), torch.stack(steps).cpu(), pre, dec
+    return (last, torch.cat(toks, 1), torch.stack(steps).cpu(), pre, dec,
+            counts)
 
 
 def arch_ranks_reference(torch, dev, cfg, run, directory):
@@ -6008,8 +5970,8 @@ def arch_ranks_reference(torch, dev, cfg, run, directory):
     del opt, m, data
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    last, toks, dec, _, _ = _arch_ranks_serve(torch, run, pf, dc, params,
-                                              dev)
+    last, toks, dec, _, _, _ = _arch_ranks_serve(torch, run, pf, dc,
+                                                 params, dev)
     out["prefill"], out["tokens"], out["decode"] = last.cpu(), toks.cpu(), dec
     for i, leaf in enumerate(tr.leaves(params)):
         np.save(os.path.join(directory, f"{i}.npy"), leaf.cpu().numpy())
@@ -6081,11 +6043,11 @@ def arch_rank_worker(cfg, run, directory, device):
     del data, m
     if cuda:
         torch.cuda.empty_cache()
-    last, toks, logits, pre, dec = _arch_ranks_serve(torch, run, pf, dc,
-                                                     s.params, dev)
+    last, toks, logits, pre, dec, counts = _arch_ranks_serve(
+        torch, run, pf, dc, s.params, dev)
     out.update(prefill=last.cpu().numpy(), tokens=toks.cpu().numpy(),
                decode=logits.numpy(), prefill_launches=pre,
-               decode_launches=dec,
+               decode_launches=dec, serve_counts=counts,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
                else 0.0)
     return out
@@ -6093,7 +6055,9 @@ def arch_rank_worker(cfg, run, directory, device):
 
 def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
     """Phase 18. Returns the processes' prefill and decode launches,
-    summed. ``cfg`` (default: ``run``'s arch at its depth), ``run`` and a
+    summed, and each process's executed collectives by (replica, rank):
+    ``{"train": [each step's], "prefill": ..., "decode": the first
+    step's}``, (calls, bytes) by (op, group). ``cfg`` (default: ``run``'s arch at its depth), ``run`` and a
     CPU ``dev`` let the phase be rehearsed small on the CPU."""
     import shutil
 
@@ -6121,7 +6085,7 @@ def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
               f"{time.perf_counter() - t0:.1f} s with the params written"
               + free, flush=True)
         # four processes share the card (as phase 10's)
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
         t0 = time.perf_counter()
         ranks = spawn(arch_rank_worker, 4, backend="gloo", device=dev.type,
                       deadline_s=600, args=(cfg, run, tmp, dev.type))
@@ -6188,9 +6152,16 @@ def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
         print(f"  step {i}: {ms:.1f} ms (max over processes; one device "
               f"{ref['step_ms'][i]:.1f}); process (0, 0): {counts}",
               flush=True)
+    for what in ("prefill", "decode"):
+        counts = ", ".join(f"{op}/{g} {c} calls {b:,} B" for (op, g), (c, b)
+                           in sorted(ranks[0]["serve_counts"][what].items()))
+        print(f"  {what}{' (one step)' if what == 'decode' else ''}: "
+              f"process (0, 0): {counts}", flush=True)
     print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s; launches "
           f"{launches}", flush=True)
-    return launches
+    executed = {r["at"]: dict(r["serve_counts"], train=r["counts"])
+                for r in ranks}
+    return launches, executed
 
 
 def arch_ranks_only(torch):
@@ -6201,6 +6172,185 @@ def arch_ranks_only(torch):
     print(f"  built in {build.build_all():.1f} s", flush=True)
     arch_ranks_phase(torch, torch.device("cuda"))
     return 0
+
+
+# phase 19: the dry-run (`launch.dryrun`): one process plays each process of
+# phase 18's (2, 2) mesh on meta tensors over the counting-only fake groups,
+# and the one-device step of phase 17 (A); another gives one production
+# record. Both run in processes of their own (the fake world is a default
+# group), started with the script and read after phase 18.
+DRYRUN_PRODUCTION = ("gemma2-9b", "train_4k")
+DRYRUN_TIMEOUT_S = 600
+
+
+def _dryrun_shapes(run=ARCH_RANKS):
+    """The dry-run shapes of phase 18's steps, by kind."""
+    _, _, batch, seq, _, _, prompt, new = run
+    return {"train": f"train:{batch}x{seq}",
+            "prefill": f"prefill:{batch}x{prompt}+{new}",
+            "decode": f"decode:{batch}x{prompt}+{new}"}
+
+
+def start_dryruns(directory):
+    """Start `launch.dryrun` on phase 18's cell (every process of its (2,
+    2) mesh and the one-device step, f32, at its depth) and on
+    `DRYRUN_PRODUCTION` at the 16 x 16 mesh, each writing its records
+    under ``directory`` and its output to a log there. Returns {name:
+    (process, log path, start time on the wall clock)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    arch, depth = ARCH_RANKS[:2]
+    cmds = {
+        "phase18": ["--arch", arch, "--layers", str(depth), "--param-dtype",
+                    "float32", "--mesh", "2x2,one", "--all-ranks",
+                    "--shape", ",".join(_dryrun_shapes().values())],
+        "production": ["--arch", DRYRUN_PRODUCTION[0], "--shape",
+                       DRYRUN_PRODUCTION[1]],
+    }
+    procs = {}
+    for name, args in cmds.items():
+        out = os.path.join(directory, name)
+        log = open(os.path.join(directory, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", out], stdout=log, stderr=subprocess.STDOUT, env=env,
+            cwd=root), log.name, time.time())
+        log.close()
+    return procs
+
+
+def _record(directory, name, arch, shape, mesh, at=(0, 0)):
+    tag = "" if at == (0, 0) else f"__r{at[0]}_{at[1]}"
+    with open(os.path.join(directory, name, f"{arch}__"
+                           f"{shape.replace(':', '-')}__{mesh}{tag}.json")) as f:
+        return json.load(f)
+
+
+def _kernel_meta_calls(torch):
+    """Each kernel's wrapper called on meta tensors at its main shape:
+    nothing launches, the output has the kernel's shape and dtype, and the
+    dry launch's cost is its cost function's."""
+    from repro_torch.kernels import mode
+    from repro_torch.kernels.bucket import (bucket_cost, bucket_pack,
+                                            bucket_unpack)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost)
+    from repro_torch.kernels.reshard_pack import reshard_pack_cost, \
+        reshard_pack_ranks
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cost
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_cost
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    calls = {
+        "rmsnorm": (lambda: rmsnorm(m(8, 3584), m(3584)), (8, 3584),
+                    rmsnorm_cost(8, 3584, 4)),
+        "flash_attention": (lambda: flash_attention(
+            m(1, 28, 32, 128), m(1, 4, 32, 128), m(1, 4, 32, 128)),
+            (1, 28, 32, 128), flash_attention_cost(1, 28, 4, 32, 128, 4)),
+        "reshard_pack": (lambda: reshard_pack_ranks(
+            m(4, 5, 1024), m(4, 4, 1, dtype=torch.int32)), (4, 4, 1, 1024),
+            reshard_pack_cost(16, 1024, 4, 16)),
+        "bucket_pack": (lambda: bucket_pack([m(400, 458752)] * 2),
+                        (400, 917504), bucket_cost(400, 917504, 4)),
+        "bucket_unpack": (lambda: bucket_unpack(m(400, 917504),
+                                                (458752, 458752))[0],
+                          (400, 458752), bucket_cost(400, 917504, 4)),
+        "ssd_scan": (lambda: ssd_scan(m(192, 2048, 64), m(192, 2048), m(192),
+                                      m(4, 2048, 128), m(4, 2048, 128)),
+                     (192, 2048, 64), ssd_scan_cost(192, 4, 2048, 256, 64,
+                                                    128)),
+    }
+    before = mode.launches()
+    for name, (call, shape, cost) in calls.items():
+        mode.reset_dry_launches()
+        out = call()
+        dry = mode.dry_launches()[name]
+        check(out.is_meta and tuple(out.shape) == shape
+              and out.dtype == torch.float32,
+              f"{name}: a meta call gave {out.shape} {out.dtype}")
+        check((dry["calls"], dry["flops"], dry["bytes"])
+              == (1, cost.flops, cost.bytes), f"{name}: dry launch {dry}")
+    check(mode.launches() == before, "a meta call launched a kernel")
+    print(f"  a meta call of each of {', '.join(calls)}: no launch, the "
+          "kernel's output shape and dtype, its cost function's FLOPs and "
+          "bytes counted as a dry launch", flush=True)
+
+
+def dryrun_phase(torch, procs, directory, executed, a_step, smi):
+    """Phase 19. Waits for `start_dryruns`' processes, then: (a) every
+    process of phase 18's mesh, predicted against executed: the dry-run's
+    (calls, bytes) by (op, group) equal to what phase 18's process (at
+    the same (replica, rank)) executed, in each train step, the prefill
+    and the first decode step; (b) the one-device meta FLOPs of phase 17
+    (A)'s step equal to `FlopCounterMode`'s count of it on this card, and
+    its f32 roofline share: the predicted compute seconds at 67 TFLOP/s
+    against the measured step; (c) the production record; (d) a meta call
+    of each kernel launches nothing."""
+    for name, (proc, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log) as f:
+            tail = f.read().strip().splitlines()
+        print(f"  dry-run {name}: rc {rc}, {len(tail)} lines, its last "
+              f"written {os.path.getmtime(log) - t0:.1f} s after its start; "
+              f"{tail[-1] if tail else ''}", flush=True)
+        check(rc == 0, f"dry-run {name} failed:\n" + "\n".join(tail[-20:]))
+    arch = ARCH_RANKS[0]
+    shapes = _dryrun_shapes()
+    for at, ex in sorted(executed.items()):
+        for kind, shape in shapes.items():
+            rec = _record(directory, "phase18", arch, shape, "fake2x2", at)
+            check(rec["ok"], f"dry-run {shape} at {at}: {rec.get('error')}")
+            want = {(c["op"], c["group"]): (c["calls"], c["bytes"])
+                    for c in rec["calls"]}
+            runs = ex["train"] if kind == "train" else [ex[kind]]
+            for i, got in enumerate(runs):
+                keys = sorted(set(want) | set(got))
+                print(f"  process {at} {kind}{f' step {i}' if kind == 'train' else ''}: "
+                      + "; ".join(
+                          f"{op}/{g} predicted {want.get((op, g), (0, 0))[0]} "
+                          f"calls {want.get((op, g), (0, 0))[1]:,} B, "
+                          f"executed {got.get((op, g), (0, 0))[0]} calls "
+                          f"{got.get((op, g), (0, 0))[1]:,} B"
+                          for op, g in keys), flush=True)
+                check(dict(got) == want, f"process {at} {kind} {i}: "
+                      f"predicted {want} != executed {got}")
+    one = _record(directory, "phase18", arch, shapes["train"], "one")
+    meta = one["hlo_flops_per_device"]
+    print(f"  phase 17 (A)'s step, one device: meta FLOPs {meta:,.0f}, "
+          f"FlopCounterMode on this card {a_step['flops']:,}; "
+          f"{'equal' if meta == a_step['flops'] else 'DIFFER'}", flush=True)
+    check(meta == a_step["flops"] and not one["kernels"],
+          f"meta FLOPs {meta} != the card's {a_step['flops']}")
+    compute_ms = one["roofline"]["compute_s"] * 1e3
+    step_ms = statistics.median(a_step["ms"])
+    print(f"  f32 roofline share of that step on {smi}: predicted compute "
+          f"{compute_ms:.1f} ms at 67 TFLOP/s against the measured "
+          f"{step_ms:.1f} ms (the median of phase 17 (A)'s steps): "
+          f"{compute_ms / step_ms:.3f}", flush=True)
+    arch, shape = DRYRUN_PRODUCTION
+    rec = _record(directory, "production", arch, shape, "pod16x16")
+    check(rec["ok"] and rec["chips"] == 256,
+          f"the production record failed: {rec.get('error')}")
+    r, mem = rec["roofline"], rec["memory"]
+    print(f"  production record {arch} {shape} on 16 x 16 (rank (0, 0), "
+          f"bf16): {rec['chips']} chips, {rec['hlo_flops_per_device']:.4e} "
+          f"FLOPs, {rec['hlo_bytes_per_device']:.4e} B (eager, unfused), "
+          f"{rec['collective_bytes_per_device']:.4e} B moved by collectives "
+          f"a device; roofline compute {r['compute_s'] * 1e3:.1f} ms, memory "
+          f"{r['memory_s'] * 1e3:.1f} ms, collective "
+          f"{r['collective_s'] * 1e3:.1f} ms, dominant {r['dominant']}; "
+          f"useful {rec['useful_flops_ratio']:.3f}; arguments "
+          f"{mem['argument_bytes'] / 1e9:.2f} GB, saved for backward "
+          f"{mem['temp_bytes'] / 1e9:.2f} GB; traced in {rec['trace_s']} s",
+          flush=True)
+    _kernel_meta_calls(torch)
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -6341,10 +6491,7 @@ def pp_ranks_only(torch):
     from repro_torch.kernels import build
 
     print(f"  built in {build.build_all():.1f} s", flush=True)
-    launches, rows = pp_ranks_phase(torch, torch.device("cuda"))
-    for name, row in rows.items():
-        print(f"  {name} per rank at pp=2: launches {launches[name]}, "
-              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+    pp_ranks_phase(torch, torch.device("cuda"))
     return 0
 
 
@@ -6470,138 +6617,152 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    phase("phase 2: build kernels")
-    secs = build.build_all()
-    print(f"  built {', '.join(build.SOURCES)} in {secs:.1f} s", flush=True)
-    for name, info in build.ptxas_info.items():
-        for line in info.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    # the dry-run's processes run beside the build and the phases; phase 19
+    # reads them, and they are stopped however the script ends
+    dry_dir = scratch_dir()
+    dryruns = start_dryruns(dry_dir)
+    try:
+        phase("phase 2: build kernels")
+        secs = build.build_all()
+        print(f"  built {', '.join(build.SOURCES)} in {secs:.1f} s", flush=True)
+        for name, info in build.ptxas_info.items():
+            for line in info.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
 
-    phase("phase 3: kernels against their plain versions")
-    rows = kernel_phase(torch, F, dev)
+        phase("phase 3: kernels against their plain versions")
+        rows = kernel_phase(torch, F, dev)
 
-    phase("phase 4: serve full-size qwen2-7b through fail->repair")
-    reference_phase(torch, dev)
-    serve_launches = serve_phase(torch, dev)
-    torch.cuda.empty_cache()
-    print(f"  device memory after freeing the served model "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+        phase("phase 4: serve full-size qwen2-7b through fail->repair")
+        reference_phase(torch, dev)
+        serve_launches = serve_phase(torch, dev)
+        torch.cuda.empty_cache()
+        print(f"  device memory after freeing the served model "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
-    phase("phase 5: full-size mamba2-780m: batched prefill through ssd_scan, "
-          "serving through fail->repair")
-    mamba_launches = mamba_phase(torch, dev)
-    check(all(mamba_launches[k] > 0 for k in MAMBA_KERNELS),
-          f"a kernel of the Mamba-2 path never launched: {mamba_launches}")
-    mamba_launcher_phase()
-    torch.cuda.empty_cache()
+        phase("phase 5: full-size mamba2-780m: batched prefill through ssd_scan, "
+              "serving through fail->repair")
+        mamba_launches = mamba_phase(torch, dev)
+        check(all(mamba_launches[k] > 0 for k in MAMBA_KERNELS),
+              f"a kernel of the Mamba-2 path never launched: {mamba_launches}")
+        mamba_launcher_phase()
+        torch.cuda.empty_cache()
 
-    phase("phase 6: train the NTP prototype at qwen2-7b widths through "
-          "fail->repair")
-    train_launches, pp1_transitions = train_phase(torch, dev)
+        phase("phase 6: train the NTP prototype at qwen2-7b widths through "
+              "fail->repair")
+        train_launches, pp1_transitions = train_phase(torch, dev)
 
-    phase("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
-          "failure, link, SDC quarantine and straggler")
-    trace_launches = trace_phase(torch, dev)
+        phase("phase 7: trace-driven NTP-PW training at qwen2-7b widths through "
+              "failure, link, SDC quarantine and straggler")
+        trace_launches = trace_phase(torch, dev)
 
-    phase("phase 8: pp=2 NTP training at qwen2-7b widths: stage-local "
-          "failures and repairs, microbatches, and a trace under NTP-PW")
-    pp2_launches = pp2_phase(torch, dev, pp1_transitions)
+        phase("phase 8: pp=2 NTP training at qwen2-7b widths: stage-local "
+              "failures and repairs, microbatches, and a trace under NTP-PW")
+        pp2_launches = pp2_phase(torch, dev, pp1_transitions)
 
-    phase("phase 9: the training launcher")
-    launcher_phase()
-    torch.cuda.empty_cache()
+        phase("phase 9: the training launcher")
+        launcher_phase()
+        torch.cuda.empty_cache()
 
-    phase("phase 10: ranks as processes: NTP training at qwen2-7b widths (1 "
-          "layer) on a (2, 2) mesh of 4 processes, gloo on this card, through "
-          "fail->repair, then the lifecycle with overlap on")
-    ranks_launches, rank_rows = ranks_phase(torch, dev, qwen_widths(1))
+        phase("phase 10: ranks as processes: NTP training at qwen2-7b widths (1 "
+              "layer) on a (2, 2) mesh of 4 processes, gloo on this card, through "
+              "fail->repair, then the lifecycle with overlap on")
+        ranks_launches, rank_rows = ranks_phase(torch, dev, qwen_widths(1))
 
-    phase("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
-          "widths, one layer a stage, on a pp=2 x (2, 2) staged mesh of 8 "
-          "processes, gloo on this card, through a stage-1 fail->repair")
-    pp_ranks_launches, pp_rank_rows = pp_ranks_phase(torch, dev)
+        phase("phase 11: pp=2 ranks as processes: NTP training at qwen2-7b "
+              "widths, one layer a stage, on a pp=2 x (2, 2) staged mesh of 8 "
+              "processes, gloo on this card, through a stage-1 fail->repair")
+        pp_ranks_launches = pp_ranks_phase(torch, dev)
 
-    phase("phase 12: NTP-MoE (the expert as the partition unit): (A) "
-          "llama4-scout widths on the emulated mesh through fail->repair, "
-          "(B) arctic-480b widths on every other training route, (C) the "
-          "MoE FFN at llama4-scout's widths")
-    moe_launches, expert_row = moe_phase(torch, dev)
+        phase("phase 12: NTP-MoE (the expert as the partition unit): (A) "
+              "llama4-scout widths on the emulated mesh through fail->repair, "
+              "(B) arctic-480b widths on every other training route, (C) the "
+              "MoE FFN at llama4-scout's widths")
+        moe_launches, expert_row = moe_phase(torch, dev)
 
-    phase("phase 13: MoE serving at full width: llama4-scout (4 layers, "
-          "chunked + global attention) and arctic-480b (1 layer, 128 "
-          "experts) through fail->repair")
-    moe_serve_launches, moe_serve_table = moe_serve_phase(torch, F, dev)
+        phase("phase 13: MoE serving at full width: llama4-scout (4 layers, "
+              "chunked + global attention) and arctic-480b (1 layer, 128 "
+              "experts) through fail->repair")
+        moe_serve_launches, moe_serve_table = moe_serve_phase(torch, F, dev)
 
-    phase("phase 14: the global repack allocator: spares at pp=2 at qwen2-7b "
-          "widths through fail->fail->repair->repair")
-    alloc_launches = allocator_phase(torch, dev)
+        phase("phase 14: the global repack allocator: spares at pp=2 at qwen2-7b "
+              "widths through fail->fail->repair->repair")
+        alloc_launches = allocator_phase(torch, dev)
 
-    phase("phase 15: the serving lifecycle at full width: gemma2-9b through "
-          "failure, straggler, SDC quarantine, save, link and repairs, then "
-          "restored under TP (4, 3); granite-3-2b, minitron-4b and "
-          "chameleon-34b at full width through fail->repair")
-    dense_serve_launches, dense_serve_table = dense_serve_phase(torch, F, dev)
+        phase("phase 15: the serving lifecycle at full width: gemma2-9b through "
+              "failure, straggler, SDC quarantine, save, link and repairs, then "
+              "restored under TP (4, 3); granite-3-2b, minitron-4b and "
+              "chameleon-34b at full width through fail->repair")
+        dense_serve_launches, dense_serve_table = dense_serve_phase(torch, F, dev)
 
-    phase("phase 16: hybrid and encoder-decoder serving at full size: "
-          "recurrentgemma-9b (RG-LRU + sliding MQA) and whisper-small "
-          "(encoder, cross-attention, LayerNorm) through fail->repair")
-    hybrid_launches, hybrid_table = hybrid_serve_phase(torch, F, dev)
+        phase("phase 16: hybrid and encoder-decoder serving at full size: "
+              "recurrentgemma-9b (RG-LRU + sliding MQA) and whisper-small "
+              "(encoder, cross-attention, LayerNorm) through fail->repair")
+        hybrid_launches, hybrid_table = hybrid_serve_phase(torch, F, dev)
 
-    phase("phase 17: train the uniform arch stack: qwen2-7b at full width "
-          "(2 layers), mamba2-780m and whisper-small at full size, through "
-          "NTPSession.from_arch")
-    arch_launches = arch_train_phase(torch, dev)
+        phase("phase 17: train the uniform arch stack: qwen2-7b at full width "
+              "(2 layers), mamba2-780m and whisper-small at full size, through "
+              "NTPSession.from_arch")
+        arch_launches, arch_step = arch_train_phase(torch, dev)
 
-    phase("phase 18: sharded execution of the uniform arch stack: qwen2-7b "
-          "at full width (2 layers) on a (2, 2) mesh of 4 processes, gloo on "
-          "this card, trained, prefilled and decoded")
-    arch_ranks_launches = arch_ranks_phase(torch, dev)
+        phase("phase 18: sharded execution of the uniform arch stack: qwen2-7b "
+              "at full width (2 layers) on a (2, 2) mesh of 4 processes, gloo on "
+              "this card, trained, prefilled and decoded")
+        arch_ranks_launches, executed = arch_ranks_phase(torch, dev)
 
-    phase("phase 19: kernels table")
-    paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
-             (mamba_launches, MAMBA_KERNELS),
-             (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
-             (ranks_launches, RANKS_KERNELS),
-             (pp_ranks_launches, PP_RANKS_KERNELS),
-             (moe_launches, MOE_KERNELS),
-             (moe_serve_launches, SERVE_KERNELS),
-             (alloc_launches, ALLOC_KERNELS),
-             (dense_serve_launches, SERVE_KERNELS),
-             (hybrid_launches, SERVE_KERNELS),
-             (arch_launches, ARCH_TRAIN_KERNELS),
-             (arch_ranks_launches, ARCH_RANKS_KERNELS))
-    table = []
-    for name, (src, replaces) in SOURCES.items():
-        n = sum(counts[name] for counts, kernels in paths if name in kernels)
-        table.append(dict(name=name, route="cuda", source=src,
-                          replaces=replaces, launches=n, **rows[name]))
-    for name, row in rank_rows.items():
-        print(f"  {name} per rank (process path): launches "
-              f"{ranks_launches[name]}, " + ", ".join(
-                  f"{k} {v}" for k, v in row.items()), flush=True)
-    for name, row in pp_rank_rows.items():
-        print(f"  {name} per rank at pp=2 (staged mesh): launches "
-              f"{pp_ranks_launches[name]}, " + ", ".join(
-                  f"{k} {v}" for k, v in row.items()), flush=True)
-    print(f"  reshard_pack at the expert unit (NTP-MoE, emulated): launches "
-          f"{moe_launches['reshard_pack']} on the MoE paths, " + ", ".join(
-              f"{k} {v}" for k, v in expert_row.items()), flush=True)
-    for name, row in moe_serve_table.items():
-        print(f"  {name} (MoE serving): " + ", ".join(
-            f"{k} {v}" for k, v in row.items()), flush=True)
-    for name, row in dense_serve_table.items():
-        print(f"  {name} (dense serving, phase 15): "
-              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
-    for name, row in hybrid_table.items():
-        print(f"  {name} (hybrid and enc-dec serving, phase 16): "
-              + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": table}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        phase("phase 19: the dry-run: phase 18's collectives and phase 17 (A)'s "
+              "FLOPs predicted on meta tensors against the executed ones, and a "
+              "production record")
+        dryrun_phase(torch, dryruns, dry_dir, executed, arch_step, smi)
+
+        phase("phase 20: kernels table")
+        paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
+                 (mamba_launches, MAMBA_KERNELS),
+                 (trace_launches, TRACE_KERNELS), (pp2_launches, PP2_KERNELS),
+                 (ranks_launches, RANKS_KERNELS),
+                 (pp_ranks_launches, PP_RANKS_KERNELS),
+                 (moe_launches, MOE_KERNELS),
+                 (moe_serve_launches, SERVE_KERNELS),
+                 (alloc_launches, ALLOC_KERNELS),
+                 (dense_serve_launches, SERVE_KERNELS),
+                 (hybrid_launches, SERVE_KERNELS),
+                 (arch_launches, ARCH_TRAIN_KERNELS),
+                 (arch_ranks_launches, ARCH_RANKS_KERNELS))
+        table = []
+        for name, (src, replaces) in SOURCES.items():
+            n = sum(counts[name] for counts, kernels in paths if name in kernels)
+            table.append(dict(name=name, route="cuda", source=src,
+                              replaces=replaces, launches=n, **rows[name]))
+        for name, row in rank_rows.items():
+            print(f"  {name} per rank (process path): launches "
+                  f"{ranks_launches[name]}, " + ", ".join(
+                      f"{k} {v}" for k, v in row.items()), flush=True)
+        print(f"  reshard_pack at the expert unit (NTP-MoE, emulated): launches "
+              f"{moe_launches['reshard_pack']} on the MoE paths, " + ", ".join(
+                  f"{k} {v}" for k, v in expert_row.items()), flush=True)
+        for name, row in moe_serve_table.items():
+            print(f"  {name} (MoE serving): " + ", ".join(
+                f"{k} {v}" for k, v in row.items()), flush=True)
+        for name, row in dense_serve_table.items():
+            print(f"  {name} (dense serving, phase 15): "
+                  + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+        for name, row in hybrid_table.items():
+            print(f"  {name} (hybrid and enc-dec serving, phase 16): "
+                  + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": table}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    finally:
+        import shutil
+
+        for proc, _, _ in dryruns.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
 
 
 if __name__ == "__main__":

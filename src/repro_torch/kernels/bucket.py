@@ -30,6 +30,12 @@ _LAUNCH = build.Launcher("bucket", "bucket_copy_launch", _ARGS)
 _max_leaves = 0  # the kernel's kMaxLeaves, read at the first launch
 
 
+def bucket_cost(rows: int, total: int, itemsize: int) -> mode.Cost:
+    """One `bucket_pack` or `bucket_unpack` call on a ``(rows, total)``
+    bucket: every element read once and written once; no arithmetic."""
+    return mode.Cost(0, 2 * rows * total * itemsize)
+
+
 def _launch(pack: bool, leaves: Sequence[torch.Tensor], flat: torch.Tensor,
             kernel: str) -> None:
     """One `bucket_copy_launch` per group of at most `kMaxLeaves` leaves;
@@ -70,12 +76,17 @@ def bucket_pack(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
             )
     if len(leaves) == 1:
         return leaves[0]
-    if mode.on_cpu(*leaves, kernel="bucket_pack"):
+    where = mode.device_kind(*leaves, kernel="bucket_pack")
+    if where == "cpu":
         return ref.bucket_pack_ref(leaves)
-    if not all(x.is_contiguous() for x in leaves):
-        raise ValueError("bucket_pack: leaves must be contiguous")
     total = sum(x.shape[1] for x in leaves)
     out = torch.empty((rows, total), dtype=dtype, device=leaves[0].device)
+    if where == "meta":
+        mode.count_dry("bucket_pack", bucket_cost(rows, total,
+                                                  out.element_size()))
+        return out
+    if not all(x.is_contiguous() for x in leaves):
+        raise ValueError("bucket_pack: leaves must be contiguous")
     _launch(True, leaves, out, "bucket_pack")
     return out
 
@@ -96,11 +107,16 @@ def bucket_unpack(flat: torch.Tensor,
         raise ValueError(f"widths {widths} do not sum to {total}")
     if len(widths) == 1:
         return (flat,)
-    if mode.on_cpu(flat, kernel="bucket_unpack"):
+    where = mode.device_kind(flat, kernel="bucket_unpack")
+    if where == "cpu":
         return ref.bucket_unpack_ref(flat, widths)
-    if not flat.is_contiguous():
-        raise ValueError("bucket_unpack: the bucket must be contiguous")
     outs = tuple(torch.empty((rows, w), dtype=flat.dtype, device=flat.device)
                  for w in widths)
+    if where == "meta":
+        mode.count_dry("bucket_unpack", bucket_cost(rows, total,
+                                                    flat.element_size()))
+        return outs
+    if not flat.is_contiguous():
+        raise ValueError("bucket_unpack: the bucket must be contiguous")
     _launch(False, outs, flat, "bucket_unpack")
     return outs

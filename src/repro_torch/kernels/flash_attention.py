@@ -94,6 +94,35 @@ def live_tiles(kind, window, chunk, q_lo, q_hi, s, bk):
     return kt0, kt1
 
 
+def allowed_pairs(kind: str, s: int, window: int = 4096,
+                  chunk: int = 8192) -> int:
+    """The (query, key) pairs of one head over ``s`` positions that the
+    mask ``kind`` allows: key k <= query q (causal), and also k > q -
+    window (sliding) or k // chunk == q // chunk (chunked); all s² for
+    bidir."""
+    def tri(n):
+        return n * (n + 1) // 2
+
+    if kind == "bidir":
+        return s * s
+    if kind == "sliding" and window < s:
+        return tri(window) + (s - window) * window
+    if kind == "chunked" and chunk < s:
+        return (s // chunk) * tri(chunk) + tri(s % chunk)
+    return tri(s)
+
+
+def flash_attention_cost(b: int, h: int, kvh: int, s: int, d: int,
+                         itemsize: int, kind: str = "causal",
+                         window: int = 4096,
+                         chunk: int = 8192) -> mode.Cost:
+    """One call: q and the output (B, H, S, D) and k/v (B, KVH, S, D)
+    moved once each; 4·D operations (Q·Kᵀ and P·V, a multiply and an add
+    each) for every allowed (query, key) pair of every query head."""
+    return mode.Cost(4 * d * allowed_pairs(kind, s, window, chunk) * b * h,
+                     (2 * b * h * s * d + 2 * b * kvh * s * d) * itemsize)
+
+
 def flash_attention(
     q, k, v, *,
     kind: str = "causal",          # causal | sliding | chunked | bidir
@@ -135,10 +164,10 @@ def flash_attention(
             f"key-block size block_k={bk}; pad the sequence or pass a "
             f"block_k that divides {s}"
         )
-    if mode.on_cpu(q, k, v, kernel="flash_attention"):
+    where = mode.device_kind(q, k, v, kernel="flash_attention")
+    if where == "cpu":
         return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
                                        chunk=chunk, softcap=softcap)
-    mode.check_forward_only(q, k, v, kernel="flash_attention")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention: the CUDA kernel takes f32 or bf16 q/k/v of "
@@ -149,6 +178,11 @@ def flash_attention(
             f"flash_attention: the CUDA kernel takes head_dim in "
             f"{HEAD_DIMS}, got d={d}"
         )
+    if where == "meta":
+        mode.count_dry("flash_attention", flash_attention_cost(
+            b, h, kvh, s, d, q.element_size(), kind, window, chunk))
+        return torch.empty_like(q)
+    mode.check_forward_only(q, k, v, kernel="flash_attention")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     out = torch.empty_like(q)

@@ -1,10 +1,16 @@
 """Device dispatch and launch counters for the hand-written kernels.
 
 The JAX package resolves Pallas interpret-vs-compiled mode here; the port
-has no interpret mode. A kernel wrapper takes its plain PyTorch version
-(`kernels.ref`) only when its tensors lie on the CPU, launches the CUDA
-kernel when they lie on a CUDA device, and raises otherwise: there is no
-override and no fallback.
+has no interpret mode. A kernel wrapper asks `device_kind` where its
+tensors lie: on a CUDA device it launches the CUDA kernel, on the CPU it
+takes its plain PyTorch version (`kernels.ref`), on ``meta`` (the
+dry-run's shapes, `launch.dryrun`) it computes nothing and returns empty
+outputs of the kernel's shapes, and on any other device it raises: there
+is no override and no fallback.
+
+A meta call adds the kernel's cost (`Cost`: FLOPs and bytes, from the
+cost function beside each wrapper, which `chip_smoke.py`'s bound column
+reads too) to `dry_launches`, never to `launches`.
 
 The CUDA kernels are forward-only: `rmsnorm`, `flash_attention` and
 `ssd_scan` call `check_forward_only` before a launch, which raises when
@@ -25,7 +31,7 @@ telemetry off that costs one attribute check of the active recorder.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -36,6 +42,15 @@ KERNELS = ("rmsnorm", "flash_attention", "reshard_pack", "bucket_pack",
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _variants: Dict[str, int] = {}
+_dry: Dict[str, list] = {}
+
+
+class Cost(NamedTuple):
+    """The work of one kernel call: the operations it does and the bytes
+    it must move (each input read once, each output written once)."""
+
+    flops: int
+    bytes: int
 
 
 def count_launch(kernel: str, variant: Optional[str] = None) -> None:
@@ -64,9 +79,29 @@ def reset_launches() -> None:
     _variants.clear()
 
 
-def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
-    """True when every tensor lies on the CPU (run the plain version), False
-    when all lie on one CUDA device (launch the kernel). Raises for mixed
+def count_dry(kernel: str, cost: Cost) -> None:
+    """One meta call of ``kernel``: its cost, no launch."""
+    c = _dry.setdefault(kernel, [0, 0, 0])
+    c[0] += 1
+    c[1] += int(cost.flops)
+    c[2] += int(cost.bytes)
+
+
+def dry_launches() -> Dict[str, Dict[str, int]]:
+    """Meta calls per kernel since the last `reset_dry_launches`: ``calls``
+    and the summed ``flops`` and ``bytes`` of their cost functions."""
+    return {k: dict(calls=c[0], flops=c[1], bytes=c[2])
+            for k, c in _dry.items()}
+
+
+def reset_dry_launches() -> None:
+    _dry.clear()
+
+
+def device_kind(*tensors: torch.Tensor, kernel: str) -> str:
+    """``"cuda"`` when every tensor lies on one CUDA device (launch the
+    kernel), ``"cpu"`` when all lie on the CPU (run the plain version),
+    ``"meta"`` when all are meta tensors (shapes only). Raises for mixed
     devices or any other device type. The common case, every tensor on one
     CUDA device, reads only integer device indices (it runs on every
     launch)."""
@@ -76,7 +111,7 @@ def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
             if t.get_device() != index or not t.is_cuda:
                 break
         else:
-            return False
+            return "cuda"
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: tensors lie on several devices {devices}")
@@ -85,7 +120,9 @@ def on_cpu(*tensors: torch.Tensor, kernel: str) -> bool:
         if telemetry._active.enabled:
             telemetry._active.counter("kernels.dispatch", kernel=kernel,
                                       mode="cpu")
-        return True
+        return "cpu"
+    if device.type == "meta":
+        return "meta"
     raise ValueError(f"{kernel}: no kernel for device {device}")
 
 
@@ -104,14 +141,16 @@ def check_forward_only(*tensors: torch.Tensor, kernel: str) -> None:
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Raises when CUDA is asked for (or defaulted to) and no card is
-    present — the port never falls back to the CPU on its own."""
+    the CPU (or for ``meta``: shapes only, the dry-run's). Raises when CUDA
+    is asked for (or defaulted to) and no card is present — the port never
+    falls back to the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU; pass device='cpu' to "
             "run the plain PyTorch versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda', 'cpu' or "
+                         "'meta'")
     return dev

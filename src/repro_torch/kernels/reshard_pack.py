@@ -24,6 +24,27 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 _LAUNCH = build.Launcher("reshard_pack", "reshard_pack_launch", _ARGS)
 
 
+def reshard_pack_cost(n_idx: int, elems: int, itemsize: int,
+                      n_read: int) -> mode.Cost:
+    """One call writing ``n_idx`` rows of ``elems`` elements: the
+    ``n_read`` distinct unit rows its indices name read once (pad rows are
+    written as zeros without a read), every output row written, and the
+    int32 indices read; no arithmetic."""
+    return mode.Cost(0, (n_read + n_idx) * elems * itemsize + n_idx * 4)
+
+
+def _dry(src, send_idx):
+    """A meta call: the output's shape, and the cost with every index
+    counted as a distinct row read (the values are not known), at most
+    the U rows a rank holds."""
+    up1, elems = src.shape[-2:]
+    ranks = src.shape[0] if src.ndim == 3 else 1
+    n_idx = send_idx.numel()
+    mode.count_dry("reshard_pack", reshard_pack_cost(
+        n_idx, elems, src.element_size(), min(n_idx, ranks * (up1 - 1))))
+    return src.new_empty((*send_idx.shape, elems))
+
+
 def _launch(src, send_idx, n_ranks: int):
     """One launch: ``src`` (U+1, elems), or (n_ranks, U+1, elems), and
     ``send_idx`` (n_ranks, ...) int32 → ``(*send_idx.shape, elems)``."""
@@ -51,8 +72,11 @@ def reshard_pack(src, send_idx):
             f"reshard_pack: expected src (U+1, elems) and send_idx "
             f"(n, s_max), got {tuple(src.shape)} and {tuple(send_idx.shape)}"
         )
-    if mode.on_cpu(src, send_idx, kernel="reshard_pack"):
+    where = mode.device_kind(src, send_idx, kernel="reshard_pack")
+    if where == "cpu":
         return ref.reshard_pack_ref(src, send_idx)
+    if where == "meta":
+        return _dry(src, send_idx)
     return _launch(src, send_idx, 1)
 
 
@@ -67,6 +91,9 @@ def reshard_pack_ranks(xp, send_idx):
             f"(R, n, s_max), got {tuple(xp.shape)} and "
             f"{tuple(send_idx.shape)}"
         )
-    if mode.on_cpu(xp, send_idx, kernel="reshard_pack"):
+    where = mode.device_kind(xp, send_idx, kernel="reshard_pack")
+    if where == "cpu":
         return ref.reshard_pack_ranks_ref(xp, send_idx)
+    if where == "meta":
+        return _dry(xp, send_idx)
     return _launch(xp, send_idx, xp.shape[0])

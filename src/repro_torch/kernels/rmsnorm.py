@@ -66,6 +66,13 @@ class Params(ctypes.Structure):
                 ("words_per_thread", ctypes.c_int)]
 
 
+def rmsnorm_cost(n: int, d: int, itemsize: int) -> mode.Cost:
+    """One call on ``n`` rows of ``d`` elements of ``itemsize`` bytes: x
+    read and y written once, w read once; four operations an element
+    (square, sum, scale, weight)."""
+    return mode.Cost(4 * n * d, (2 * n * d + d) * itemsize)
+
+
 _params: Dict[tuple, Params] = {}
 _addresses: Dict[tuple, int] = {}
 
@@ -104,8 +111,14 @@ def rmsnorm(x, w, *, eps: float = 1e-6, plus_one: bool = False,
                 f"size block_rows={br}; pad the rows or pass a block_rows "
                 f"that divides {n}"
             )
-    if mode.on_cpu(x, w, kernel="rmsnorm"):
+    where = mode.device_kind(x, w, kernel="rmsnorm")
+    if where == "cpu":
         return ref.rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)
+    if where == "meta":
+        if x.dtype not in _DTYPES or w.dtype != x.dtype:
+            _params_address((x.dtype, w.dtype, d, plus_one, eps, True))
+        mode.count_dry("rmsnorm", rmsnorm_cost(n, d, x.element_size()))
+        return torch.empty_like(x)
     mode.check_forward_only(x, w, kernel="rmsnorm")
     xp, wp = x.data_ptr(), w.data_ptr()
     # y comes from the caching allocator, whose blocks are 512-byte aligned

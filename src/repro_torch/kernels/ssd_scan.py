@@ -79,6 +79,19 @@ def out_tile(block: int, nc: int, nt: int) -> Tuple[int, int, int]:
     return rc // nc, rc % nc, nt - 1 - k
 
 
+def ssd_scan_cost(bh: int, groups: int, s: int, L: int, hp: int,
+                  ds: int) -> mode.Cost:
+    """One call, f32: C·Bᵀ once per (B/C row, chunk) over its L(L+1)/2
+    causal pairs; per (row, chunk) the causal M·x, the carried term C·h and
+    the state update. Bytes: x and y, dt, A, B and C read or written once,
+    and the final state written."""
+    nc = s // L
+    flops = (groups * nc * L * (L + 1) * ds
+             + bh * nc * (L * (L + 1) * hp + 4 * L * hp * ds))
+    return mode.Cost(flops, 4 * (2 * bh * s * hp + bh * s + bh
+                                 + 2 * groups * s * ds + bh * hp * ds))
+
+
 def _f32(t):
     """f32, contiguous and 16-byte aligned (the kernels read float4)."""
     t = t.float().contiguous()
@@ -109,10 +122,16 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, final_state: bool = False):
             f"chunk length chunk={L}; pad the sequence or pass a chunk "
             f"that divides {s}"
         )
-    if mode.on_cpu(x, dt, A, B, C, kernel="ssd_scan"):
+    where = mode.device_kind(x, dt, A, B, C, kernel="ssd_scan")
+    if where == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, final_state=final_state)
-    mode.check_forward_only(x, dt, A, B, C, kernel="ssd_scan")
     dev = x.device
+    if where == "meta":
+        mode.count_dry("ssd_scan", ssd_scan_cost(bh, groups, s, L, hp, ds))
+        y = torch.empty((bh, s, hp), dtype=torch.float32, device=dev)
+        h = torch.empty((bh, hp, ds), dtype=torch.float32, device=dev)
+        return (y, h) if final_state else y
+    mode.check_forward_only(x, dt, A, B, C, kernel="ssd_scan")
     if 0 in (bh, hp, ds):                     # nothing to scan: y = 0
         y = torch.zeros((bh, s, hp), dtype=torch.float32, device=dev)
         h = torch.zeros((bh, hp, ds), dtype=torch.float32, device=dev)

@@ -17,6 +17,12 @@ process of a gloo run shares ``cuda:0``. ``backend`` is the caller's choice,
 never inferred: ``"nccl"`` needs one CUDA device per process and raises
 with fewer; ``"gloo"`` takes CPU tensors, or CUDA tensors on a shared card.
 
+`make_production_mesh` (port of `repro/launch/mesh.py::
+make_production_mesh`) is the dry-run's: ONE process plays one (replica,
+rank) of the 16 × 16 production mesh on ``meta`` tensors, in a world of
+256 joined through PyTorch's counting-only ``fake`` backend, whose
+collectives move nothing and return at once (`launch.dryrun`).
+
 `make_staged_mesh` (port of `repro/launch/mesh.py::make_staged_mesh`) lays
 ``pp * n_data * n_model`` processes out as the reference's ``("stage",
 "data", "model")`` mesh, row-major: global rank ``s * (n_data * n_model) +
@@ -128,6 +134,68 @@ def make_test_mesh(n_data: int = 2, n_model: int = 4, *, backend: str,
         [[d * n_model + r for d in range(n_data)] for r in range(n_model)],
         backend=backend, group_desc="data")
     return RankMesh(n_data, n_model, replica, rank, data, model, dev, backend)
+
+
+PRODUCTION_SHAPE = (16, 16)
+
+
+def make_production_mesh(multi_pod: bool = False, *, replica: int = 0,
+                         rank: int = 0, shape=None) -> RankMesh:
+    """This process as ``(replica, rank)`` of the production mesh: 256
+    chips, (data 16, model 16), the ``model`` axis the scale-up domain
+    (the paper's NVL domain). Its groups are the ``fake`` backend's (every
+    collective returns at once, nothing moves; `core.collectives` still
+    counts its calls and bytes) and its device is ``meta``: the dry-run's
+    mesh, shapes only. It makes this process's default group a fake world
+    of ``n_data * n_model`` (replacing an earlier fake one; a real one
+    raises); the caller ends it with `close_fake_mesh`.
+
+    ``multi_pod`` (2 pods, 512 chips) folds the reference's ``pod`` ×
+    ``data`` axes into one ``data`` group of 32: each rank's counts are
+    those of the reference's gradient reduction over ``('pod', 'data')``,
+    one group of 32 rather than a reduction over two axes. ``shape``
+    (``(n_data, n_model)``) sizes a smaller fake mesh for checks against a
+    real run of that size."""
+    n_data, n_model = (shape if shape is not None else
+                       (PRODUCTION_SHAPE[0] * (2 if multi_pod else 1),
+                        PRODUCTION_SHAPE[1]))
+    if not (0 <= replica < n_data and 0 <= rank < n_model):
+        raise ValueError(f"(replica {replica}, rank {rank}) outside the "
+                         f"({n_data}, {n_model}) mesh")
+    # the counting-only backend sits under torch.testing: import it only
+    # where a dry-run asks for it
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} default group exists: the "
+                "dry-run's fake world needs a process of its own")
+        dist.destroy_process_group()
+    n = n_data * n_model
+    dist.init_process_group("fake", store=FakeStore(),
+                            rank=replica * n_model + rank, world_size=n)
+    model, _ = dist.new_subgroups_by_enumeration(
+        [[d * n_model + r for r in range(n_model)] for d in range(n_data)],
+        backend="fake", group_desc="model")
+    data, _ = dist.new_subgroups_by_enumeration(
+        [[d * n_model + r for d in range(n_data)] for r in range(n_model)],
+        backend="fake", group_desc="data")
+    return RankMesh(n_data, n_model, replica, rank, data, model,
+                    torch.device("meta"), "fake")
+
+
+def close_fake_mesh() -> None:
+    """End the fake world of `make_production_mesh` (and its groups)."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+
+
+def dp_axes(mesh) -> tuple:
+    """The mesh's data-parallel axes: every axis but ``model`` and
+    ``stage``, as the reference's `dp_axes` (its ``pod`` axis is folded
+    into ``data`` here)."""
+    return tuple(a for a in mesh.axis_names if a not in ("model", "stage"))
 
 
 def _joined(world: int, what: str, backend: str, device) -> torch.device:

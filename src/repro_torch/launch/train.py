@@ -97,12 +97,15 @@ port's one-device layout (one entry per layer). On one device by default;
 ``--devices N``, a (2, N/2) mesh, with ``--backend``) shards it over a
 (data, model) mesh of processes (the dense attention archs; every process
 draws the same weights from ``--seed`` and keeps its shards; global rank
-0 prints and writes the gathered checkpoint). The reference's
-``--dry-run`` (ROADMAP Queue 1, item 8, next after this) is not ported
-and is refused.
+0 prints and writes the gathered checkpoint). ``--dry-run`` prints
+`launch.dryrun.run_one`'s record of ``--arch`` × ``--shape`` at the
+production mesh (``--multi-pod``: 2 × 16 × 16), one rank's step counted
+on meta tensors, as the reference's prints its compiled record.
 """
 import argparse
 import time
+
+from repro_torch.configs.shapes import SHAPES
 
 
 def main(argv=None) -> dict:
@@ -114,8 +117,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant of the arch family")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and account at the production mesh (not "
-                         "ported: refused)")
+                    help="count one step at the production mesh on meta "
+                         "tensors (launch.dryrun) and print the record")
+    ap.add_argument("--shape", default="train_4k", choices=sorted(SHAPES),
+                    help="with --dry-run: the input shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dry-run: the 2 x 16 x 16 mesh")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages (stage-partitioned layers, "
                          "per-(replica, stage) health; a failure degrades "
@@ -299,10 +306,11 @@ def _run_arch(ap, args) -> dict:
     `NTPSession.from_arch` on one device. Returns the per-step losses and
     the final params and optimizer state."""
     if args.dry_run:
-        ap.error("--dry-run is not ported to repro_torch yet (ROADMAP Queue "
-                 "1, item 8, the next item: the dry-run and HLO tools, "
-                 "lowering make_setup(cfg, shape, mesh) at the production "
-                 "mesh)")
+        from repro_torch.launch.dryrun import run_one
+
+        rec = run_one(args.arch, args.shape, args.multi_pod)
+        print(rec)
+        return rec
     if args.devices:
         if args.nproc or args.mesh:
             ap.error("--devices N is the reference's spelling of --nproc N "

@@ -408,8 +408,10 @@ def _write_prefill(cache: dict, k, v, cache_pos: int, ring: bool,
     if part is not None:
         rows = cache_pos + torch.arange(s)
         rows = rows % w if ring else rows
-        sel = (rows >= lo) & (rows < lo + wl)
-        dst, src = (rows[sel] - lo).to(k.device), sel.to(k.device)
+        # the rows and their positions picked on the host: a device mask
+        # would need its nonzero count read back (and none on meta)
+        src = torch.nonzero((rows >= lo) & (rows < lo + wl))[:, 0]
+        dst, src = (rows[src] - lo).to(k.device), src.to(k.device)
         cache["k"][:, dst] = k[:, src].to(cache["k"].dtype)
         cache["v"][:, dst] = v[:, src].to(cache["v"].dtype)
         return

@@ -390,7 +390,7 @@ def test_launcher_on_a_mesh_matches_one_device(capsys):
     (["--nproc", "4", "--mesh", "2x2"], "--nproc needs --backend"),
     (["--nproc", "4", "--mesh", "2x2", "--backend", "gloo", "--arch",
       "mamba2-780m"], "Mamba-2 and RG-LRU on the mesh"),
-    (["--dry-run"], "item 8, the next item"),
+    (["--dry-run", "--shape", "train_1k"], "invalid choice: 'train_1k'"),
 ])
 def test_launcher_mesh_refusals(argv, msg, capsys):
     argv = (["--arch", "qwen2-7b"] if "--arch" not in argv else []) + argv

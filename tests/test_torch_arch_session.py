@@ -10,7 +10,8 @@ CPU:
 * the launcher's losses equal `from_arch` driven by hand; its ``--ckpt``
   restores into the session's trees; every registered arch trains through
   it at ``reduced`` size (whisper with its zero ``enc_input``); its
-  ``--dry-run`` and ``--devices`` are refused naming their ROADMAP rows;
+  ``--devices`` is refused naming its ROADMAP row, ``--ntp --dry-run``
+  as the reference refuses it;
 * one train step of recurrentgemma-9b and whisper-small against the
   reference's (tests/test_torch_arch_train.py's `step_parity`)."""
 import numpy as np
@@ -174,7 +175,8 @@ def test_launcher_trains_every_arch(aid):
 
 
 @pytest.mark.parametrize("argv,row", [
-    (["--arch", "qwen2-7b", "--dry-run"], "item 8"),
+    (["--arch", "qwen2-7b", "--ntp", "--dry-run"],
+     "--ntp has no --dry-run path"),
     (["--arch", "qwen2-7b", "--devices", "8"], "sharded arch-stack execution"),
     (["--arch", "qwen2-7b", "--fail-at", "2"], "--fail-at needs --ntp"),
     (["--steps", "2"], "--arch is required unless --ntp"),

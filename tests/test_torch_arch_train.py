@@ -247,7 +247,7 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan
 
-    monkeypatch.setattr(mode, "on_cpu", lambda *t, kernel: False)
+    monkeypatch.setattr(mode, "device_kind", lambda *t, kernel: "cuda")
     x = torch.ones(4, 8, requires_grad=True)
     q = torch.ones(1, 2, 16, 32, requires_grad=True)
     xs, dt, a = torch.ones(2, 8, 4), torch.ones(2, 8), -torch.ones(2)

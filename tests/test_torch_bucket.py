@@ -102,10 +102,20 @@ def test_plain_versions_do_not_count_launches():
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
-    x = torch.empty((4, 8), device="meta")
+    """Off the CPU and CUDA only meta is taken (shapes only, no launch);
+    any other device, and leaves on two devices, raise."""
+    from torch_elsewhere import Elsewhere
+
+    x = Elsewhere(4, 8)
     with pytest.raises(ValueError, match="bucket_pack: no kernel for device"):
         bucket_pack([x, x])
     with pytest.raises(ValueError, match="bucket_unpack: no kernel for"):
         bucket_unpack(x, (4, 4))
+    m = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="several devices"):
-        bucket_pack([torch.zeros(4, 8), x])
+        bucket_pack([torch.zeros(4, 8), m])
+    mode.reset_launches()
+    assert bucket_pack([m, m]).shape == (4, 16)
+    assert [t.shape for t in bucket_unpack(m, (3, 5))] == [(4, 3), (4, 5)]
+    assert mode.launches()["bucket_pack"] == mode.launches()[
+        "bucket_unpack"] == 0

@@ -248,6 +248,50 @@ def test_launches_are_counted(dev):
     assert mode.launches() == dict.fromkeys(mode.KERNELS, 1)
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# each kernel's wrapper on meta tensors at its main path's shape (PERF.md's
+# kernel table): (call, output shape, output dtype)
+META_CALLS = {
+    "rmsnorm": (lambda: rmsnorm(_meta(8, 3584), _meta(3584)), (8, 3584),
+                torch.float32),
+    "flash_attention": (lambda: flash_attention(
+        _meta(1, 28, 32, 128, dtype=torch.bfloat16),
+        _meta(1, 4, 32, 128, dtype=torch.bfloat16),
+        _meta(1, 4, 32, 128, dtype=torch.bfloat16)), (1, 28, 32, 128),
+        torch.bfloat16),
+    "reshard_pack": (lambda: reshard_pack_ranks(
+        _meta(4, 5, 4096), _meta(4, 4, 1, dtype=torch.int32)),
+        (4, 4, 1, 4096), torch.float32),
+    "bucket_pack": (lambda: bucket_pack([_meta(400, 4096)] * 2), (400, 8192),
+                    torch.float32),
+    "bucket_unpack": (lambda: bucket_unpack(_meta(400, 8192),
+                                            (4096, 4096))[1], (400, 4096),
+                      torch.float32),
+    "ssd_scan": (lambda: ssd_scan(_meta(192, 2048, 64), _meta(192, 2048),
+                                  _meta(192), _meta(4, 2048, 128),
+                                  _meta(4, 2048, 128)), (192, 2048, 64),
+                 torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(META_CALLS))
+def test_meta_call_launches_nothing(dev, name):
+    """With the kernels built and a card present, a meta call computes
+    nothing: no launch is counted, the output is a meta tensor of the
+    kernel's shape and dtype, and the call is counted as a dry launch."""
+    call, shape, dtype = META_CALLS[name]
+    mode.reset_launches()
+    mode.reset_dry_launches()
+    out = call()
+    torch.cuda.synchronize()
+    assert mode.launches() == dict.fromkeys(mode.KERNELS, 0)
+    assert out.is_meta and tuple(out.shape) == shape and out.dtype == dtype
+    assert mode.dry_launches()[name]["calls"] == 1
+
+
 def test_model_on_card_matches_cpu(dev):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.transformer import build_model

@@ -45,7 +45,11 @@ PORT_MODULES = [
     "repro_torch.kernels.reshard_pack",
     "repro_torch.kernels.rmsnorm",
     "repro_torch.kernels.ssd_scan",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.dryrun_ntp",
     "repro_torch.launch.mesh",
+    "repro_torch.launch.op_analysis",
+    "repro_torch.launch.profile",
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_decode",
     "repro_torch.launch.spawn",
@@ -152,28 +156,37 @@ def test_entry_points_raise_without_card(no_card):
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    """Off the CPU and CUDA only meta is taken (shapes only, counted as a
+    dry launch, never as a launch); any other device, and tensors on two
+    devices, raise."""
+    from repro_torch.kernels import mode
     from repro_torch.kernels.bucket import bucket_pack, bucket_unpack
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.reshard_pack import reshard_pack
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from torch_elsewhere import Elsewhere as E
 
-    x = torch.empty((4, 8), device="meta")
-    with pytest.raises(ValueError, match="rmsnorm: no kernel for device meta"):
-        rmsnorm(x, torch.empty(8, device="meta"))
-    q = torch.empty((1, 2, 16, 32), device="meta")
+    x = E(4, 8)
+    with pytest.raises(ValueError, match="rmsnorm: no kernel for device xpu"):
+        rmsnorm(x, E(8))
+    q = E(1, 2, 16, 32)
     with pytest.raises(ValueError, match="flash_attention: no kernel"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="reshard_pack: no kernel"):
-        reshard_pack(x, torch.zeros((2, 1), dtype=torch.int32, device="meta"))
+        reshard_pack(x, E(2, 1, dtype=torch.int32))
     with pytest.raises(ValueError, match="bucket_pack: no kernel"):
         bucket_pack([x, x])
     with pytest.raises(ValueError, match="bucket_unpack: no kernel"):
         bucket_unpack(x, (4, 4))
     with pytest.raises(ValueError, match="ssd_scan: no kernel"):
-        ssd_scan(x[None], x[:1, :4], x[0, :1], x[None], x[None])
+        ssd_scan(E(1, 4, 8), E(1, 4), E(1), E(1, 4, 8), E(1, 4, 8))
     with pytest.raises(ValueError, match="several devices"):
         rmsnorm(torch.zeros(4, 8), torch.empty(8, device="meta"))
+    before = mode.launches()
+    m = torch.empty((4, 8), device="meta")
+    assert rmsnorm(m, torch.empty(8, device="meta")).is_meta
+    assert mode.launches() == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

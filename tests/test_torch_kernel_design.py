@@ -170,9 +170,12 @@ def test_reshard_pack_ranks_contract():
         reshard_pack_ranks(xp, torch.zeros((2, 3, 1), dtype=torch.int32))
     with pytest.raises(ValueError, match="reshard_pack: expected xp"):
         reshard_pack_ranks(xp[0], torch.zeros((3, 3, 1), dtype=torch.int32))
+    from torch_elsewhere import elsewhere
+
+    idx = torch.zeros((3, 3, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="reshard_pack: no kernel"):
-        reshard_pack_ranks(xp.to("meta"),
-                           torch.zeros((3, 3, 1), dtype=torch.int32,
-                                       device="meta"))
+        reshard_pack_ranks(elsewhere(xp), elsewhere(idx))
+    assert reshard_pack_ranks(xp.to("meta"), idx.to("meta")).shape == \
+        (3, 3, 1, 8)                             # shapes only
     with pytest.raises(IndexError):      # the plain version raises on one
         reshard_pack_ranks(xp, torch.full((3, 3, 1), 5, dtype=torch.int32))

@@ -521,17 +521,16 @@ def test_pp3_handoff_sends_real_microbatches_only():
 def test_chip_pp_ranks_phase_rehearsed_on_cpu():
     """`chip_smoke.py` phase 11's bookkeeping at small widths on the CPU: a
     pp=2 × (1, 2) staged mesh of 4 gloo processes through the phase's
-    chain, against the emulated session; the phase's checks pass and it
-    returns launch counts of the path's kernels (zero here: the CPU runs
-    their plain versions) and no kernel rows."""
+    chain (through `launch.profile.measure`), against the emulated
+    session; the phase's checks pass and it returns launch counts of the
+    path's kernels (zero here: the CPU runs their plain versions)."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
     cfg = _cfg(n_layers=2)
-    launches, rows = chip_smoke.pp_ranks_phase(
+    launches = chip_smoke.pp_ranks_phase(
         torch, torch.device("cpu"), cfg=cfg, seq=SEQ, mesh=(1, 2))
     assert launches == {k: 0 for k in chip_smoke.PP_RANKS_KERNELS}
-    assert rows is None
 
 
 # ------------------------------------------------------------ slow tier

@@ -123,9 +123,13 @@ def test_shape_and_device_contract():
         ssd_scan(x, dt, A, B[:3], C[:3])            # 4 rows over 3 groups
     with pytest.raises(ValueError, match="expected x"):
         ssd_scan(x, dt[:, :5], A, B, C)
-    meta = [t.to("meta") for t in (x, dt, A, B, C)]
-    with pytest.raises(ValueError, match="ssd_scan: no kernel for device meta"):
-        ssd_scan(*meta)
+    from torch_elsewhere import elsewhere
+
+    with pytest.raises(ValueError, match="ssd_scan: no kernel for device xpu"):
+        ssd_scan(*[elsewhere(t) for t in (x, dt, A, B, C)])
+    y, h = ssd_scan(*[t.to("meta") for t in (x, dt, A, B, C)],
+                    final_state=True)            # shapes only
+    assert (y.is_meta, y.shape, h.shape) == (True, x.shape, (4, 8, 16))
     # the plain version counts no launch; S shorter than the chunk is one
     # chunk of S
     mode.reset_launches()
