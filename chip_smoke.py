@@ -5869,8 +5869,8 @@ def arch_train_only(torch):
 # parent (phase 17's parity rate); prefill and decode launch these
 ARCH_RANKS_KERNELS = ("rmsnorm", "flash_attention")
 # (arch, depth, batch, sequence, steps, AdamW rate, prefill tokens, decode
-# steps); the mesh is (2, 2)
-ARCH_RANKS = ("qwen2-7b", 2, 4, 256, 2, ARCH_PROBE_LR, 64, 8)
+# steps); the mesh is (2, 2); one step (was 2, cut for phase 21's time)
+ARCH_RANKS = ("qwen2-7b", 2, 4, 256, 1, ARCH_PROBE_LR, 64, 8)
 # a decode step's logits against the one-device decode's: both attend a
 # bf16 cache whose K/V the two runs round from f32 values computed by
 # different matmul shapes, so a few entries round the other way (the
@@ -5983,8 +5983,9 @@ def arch_ranks_reference(torch, dev, cfg, run, directory):
 
 def arch_rank_worker(cfg, run, directory, device):
     """Phase 18, one (replica, rank) process: `NTPSession.from_arch` on the
-    mesh from the seed-0 weights (drawn whole on the device, then placed),
-    the steps (host clock after a device sync, collectives counted), every
+    mesh from the seed-0 weights (each leaf drawn and cut to its shard,
+    `Setup.init_params`), the steps (host clock after a device sync,
+    collectives counted), every
     leaf's first moment after step 0 (its clipped gradient), the param
     shards against the one-device params read from ``directory``, then
     the sharded prefill and greedy decode."""
@@ -6053,12 +6054,30 @@ def arch_rank_worker(cfg, run, directory, device):
     return out
 
 
-def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
+def arch_rank_worker_then(cfg, run, directory, device, then):
+    """Phase 18's process (`arch_rank_worker`), then in the same process,
+    its memory handed back, ``then`` = (worker, its arguments): phase 21's
+    (`arch_moe_prepare`'s job), which spares a spawn of its own."""
+    import gc
+
+    import torch
+
+    out = arch_rank_worker(cfg, run, directory, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    fn, args = then
+    return out, fn(*args)
+
+
+def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS, then=None):
     """Phase 18. Returns the processes' prefill and decode launches,
     summed, and each process's executed collectives by (replica, rank):
     ``{"train": [each step's], "prefill": ..., "decode": the first
-    step's}``, (calls, bytes) by (op, group). ``cfg`` (default: ``run``'s arch at its depth), ``run`` and a
-    CPU ``dev`` let the phase be rehearsed small on the CPU."""
+    step's}``, (calls, bytes) by (op, group); with ``then`` (a job of
+    `arch_rank_worker_then`), also each process's result of it. ``cfg``
+    (default: ``run``'s arch at its depth), ``run`` and a CPU ``dev`` let
+    the phase be rehearsed small on the CPU."""
     import shutil
 
     from repro_torch.configs import get_arch
@@ -6087,8 +6106,15 @@ def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
         # four processes share the card (as phase 10's)
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
         t0 = time.perf_counter()
-        ranks = spawn(arch_rank_worker, 4, backend="gloo", device=dev.type,
-                      deadline_s=600, args=(cfg, run, tmp, dev.type))
+        if then is None:
+            ranks = spawn(arch_rank_worker, 4, backend="gloo",
+                          device=dev.type, deadline_s=600,
+                          args=(cfg, run, tmp, dev.type))
+        else:
+            both = spawn(arch_rank_worker_then, 4, backend="gloo",
+                         device=dev.type, deadline_s=900,
+                         args=(cfg, run, tmp, dev.type, then))
+            ranks, then_ranks = [b[0] for b in both], [b[1] for b in both]
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6097,7 +6123,8 @@ def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     print(f"  4 processes on a (2, 2) mesh, gloo on {dev.type}: spawned, run "
-          f"and joined in {wall:.1f} s; set-up (draw, place) "
+          f"{'' if then is None else 'with phase 21 after '}and joined in "
+          f"{wall:.1f} s; set-up (the sharded draw) "
           f"{max(r['setup_s'] for r in ranks):.1f} s", flush=True)
     top = float(ref["prefill"].abs().max())
     lim = max(1e-4, 5e-6 * top)
@@ -6161,7 +6188,9 @@ def arch_ranks_phase(torch, dev, cfg=None, run=ARCH_RANKS):
           f"{launches}", flush=True)
     executed = {r["at"]: dict(r["serve_counts"], train=r["counts"])
                 for r in ranks}
-    return launches, executed
+    if then is None:
+        return launches, executed
+    return launches, executed, then_ranks
 
 
 def arch_ranks_only(torch):
@@ -6174,12 +6203,378 @@ def arch_ranks_only(torch):
     return 0
 
 
+# phase 21: MoE on the mesh (`make_setup` on a `launch.mesh.RankMesh` for
+# an MoE arch): llama4-scout at full width, depth cut to 1 (its first
+# layer: chunked attention, chunk 8,192), on a (1, 4) mesh of 4 gloo
+# processes on cuda:0, each holding 4 of the 16 experts, held to the
+# one-device forward and backward the parent runs first; prefill and
+# decode launch these
+ARCH_MOE_KERNELS = ("rmsnorm", "flash_attention")
+# (arch, depth, batch, sequence, steps, AdamW rate, prefill tokens, decode
+# steps), as `ARCH_RANKS`; the mesh is (1, 4)
+ARCH_MOE = ("llama4-scout-17b-a16e", 1, 2, 128, 1, ARCH_PROBE_LR, 64, 8)
+ARCH_MOE_MESH = (1, 4)
+# a shard's gradient against its slice of the one-device gradient, in norm
+# and in its projection on a seeded unit direction, relative to the norm
+ARCH_MOE_GRAD_TOL = 2e-6
+ARCH_MOE_SEED = 7000
+
+
+def arch_moe_cfg(capacity_factor=None, run=ARCH_MOE):
+    """Phase 21's config: ``run``'s arch at its depth, at ``capacity_factor``
+    (default E/k: no slot drops, per call on one device or per (process,
+    expert) on the mesh)."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(run[0]), n_layers=run[1])
+    m = cfg.moe
+    cf = m.n_experts / m.top_k if capacity_factor is None else capacity_factor
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf))
+
+
+def _grad_marks(torch, grad, at, leaf):
+    """(norm, projection on a seeded unit direction) of ``grad``, the
+    gradient shard of process ``at`` = (replica, rank) in leaf ``leaf``
+    (flatten order), summed in f64: the one-device parent and the process
+    draw the same direction."""
+    g = torch.Generator(device=grad.device).manual_seed(
+        ARCH_MOE_SEED + 64 * leaf + 8 * at[0] + at[1])
+    u = torch.randn(grad.shape, generator=g, device=grad.device)
+    u = u.div_(torch.linalg.vector_norm(u))
+    return (float(torch.linalg.vector_norm(grad, dtype=torch.float64)),
+            float(torch.sum(grad * u, dtype=torch.float64)))
+
+
+def arch_moe_reference(torch, dev, cfg, run, mesh_shape):
+    """Phase 21, the parent, on one device from the seed-0 weights: the
+    forward and backward of batch 0 twice (no optimizer: its state would
+    not fit beside the processes' ranks later), the gradient's marks
+    (`_grad_marks`) of every process's shard of every leaf under the
+    mesh's specs, then a prefill and greedy decode; nothing is written,
+    and the card is freed after. Returns what the checks need, on the
+    host."""
+    from repro_torch import tree as tr
+    from repro_torch.sharding.specs import local_shard, param_shardings
+
+    batch, seq = run[2:4]
+    su, pf, dc = _arch_ranks_setups(torch, cfg, run, None, dev)
+    params = su.model.init(torch.Generator(device=dev).manual_seed(0))
+    data = _arch_batch(torch, cfg, batch, seq, dev, 0)
+    out = {"grad_ms": [], "n_params": sum(t.numel() for t in
+                                          tr.leaves(params))}
+    for _ in range(2):
+        grads = None
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        (total, ce), grads = su.grad_fn(params, data)
+        _sync(torch, dev)
+        out["grad_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["loss"] = float(ce)
+    out["grad_norm"] = math.sqrt(sum(
+        float(torch.sum(torch.square(g), dtype=torch.float64))
+        for g in tr.leaves(grads)))
+    shape = dict(data=mesh_shape[0], model=mesh_shape[1])
+    specs = param_shardings(shape, su.model.param_specs(),
+                            su.model.param_shapes())
+    out["marks"] = {}
+    for i, (g, s) in enumerate(zip(tr.leaves(grads), tr.leaves(specs))):
+        for at in ((d, k) for d in range(mesh_shape[0])
+                   for k in range(mesh_shape[1])):
+            where = type("At", (), dict(n_data=mesh_shape[0],
+                                        n_model=mesh_shape[1],
+                                        replica=at[0], rank=at[1]))()
+            out["marks"][at, i] = _grad_marks(torch, local_shard(g, s, where),
+                                              at, i)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    del grads, total, g
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    last, toks, dec, _, _, _ = _arch_ranks_serve(torch, run, pf, dc, params,
+                                                 dev)
+    out["prefill"], out["tokens"], out["decode"] = last.cpu(), toks.cpu(), dec
+    del params, last, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def arch_moe_worker(cfg, run, marks, published_cf, device):
+    """Phase 21, one (replica, rank) process of the (1, 4) mesh: the
+    seed-0 weights drawn leaf by leaf, each cut to its shard as it is
+    drawn (`Setup.init_params`); the gradient of batch 0 against the
+    parent's marks; the sharded prefill and greedy decode from those
+    weights; one AdamW step at the capacity E/k (timed, collectives
+    counted) with every leaf's first moment; then one step at the config's
+    own capacity factor ``published_cf``, its dropped slots counted (each
+    MoE call's)."""
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import mode
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.mlp import record_drops
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import make_setup
+
+    t_worker = time.perf_counter()
+    batch, seq, _, lr = run[2:6]
+    mesh = make_test_mesh(*ARCH_MOE_MESH, backend="gloo", device=device)
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    at = (mesh.replica, mesh.rank)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    su, pf, dc = _arch_ranks_setups(torch, cfg, run, mesh, dev)
+    params = su.init_params(torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    out = {"at": at, "setup_s": time.perf_counter() - t0,
+           "n_params": sum(t.numel() for t in tr.leaves(params))}
+    data = _arch_batch(torch, cfg, batch, seq, dev, 0)
+    t0 = time.perf_counter()
+    (_, ce), grads = su.grad_fn(params, data)
+    _sync(torch, dev)
+    out["grad_ms"] = (time.perf_counter() - t0) * 1e3
+    out["grad_loss"] = float(ce)
+    errs = []
+    for i, (path, g) in enumerate(tr.leaves_with_path(grads)):
+        norm, proj = _grad_marks(torch, g, at, i)
+        want_norm, want_proj = marks[at, i]
+        scale = max(want_norm, 1e-30)
+        errs.append((abs(norm - want_norm) / scale,
+                     abs(proj - want_proj) / scale, tr.path_key(path)))
+    out["grad_err"] = max(errs)
+    out["grad_leaves"] = len(errs)
+    del grads, g
+    if cuda:
+        torch.cuda.empty_cache()
+    last, toks, logits, pre, dec, counts = _arch_ranks_serve(
+        torch, run, pf, dc, params, dev)
+    out.update(prefill=last.cpu().numpy(), tokens=toks.cpu().numpy(),
+               decode=logits.numpy(), prefill_launches=pre,
+               decode_launches=dec, serve_counts=counts)
+    opt = su.init_opt_state(params)
+    mode.reset_launches()
+    C.reset_counts()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    params, opt, m = su.step_fn(params, opt, data)
+    out["loss"] = float(m["loss"])
+    _sync(torch, dev)
+    out["step_ms"] = [(time.perf_counter() - t0) * 1e3]
+    out["grad_norm"] = float(m["grad_norm"])
+    out["counts"] = C.counts()
+    out["no_grad"] = [
+        tr.path_key(p) for p, v in tr.leaves_with_path(opt["m"])
+        if not (bool(torch.isfinite(v).all()) and bool((v != 0).any()))]
+    out["leaves"] = len(tr.leaves(opt["m"]))
+    published = make_setup(dataclasses.replace(cfg, moe=dataclasses.replace(
+                               cfg.moe, capacity_factor=published_cf)),
+                           ShapeSpec("t", seq, batch, "train"), mesh,
+                           opt_cfg=AdamWConfig(lr=lr),
+                           lr_schedule=const_schedule,
+                           param_dtype=torch.float32, device=dev)
+    data = _arch_batch(torch, cfg, batch, seq, dev, 1)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    with record_drops() as drops:
+        params, opt, m = published.step_fn(params, opt, data)
+        out["published_loss"] = float(m["loss"])
+    _sync(torch, dev)
+    out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["drops"] = list(drops)
+    out["train_launches"] = mode.launches()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda \
+        else 0.0
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def arch_moe_prepare(torch, dev, cfg=None, run=ARCH_MOE):
+    """Phase 21's parent part before its processes: the one-device
+    reference (`arch_moe_reference`), printed. Returns what the checks
+    need, with ``job``: the processes' worker and its arguments (run by
+    phase 18's processes after their own work, or by `arch_moe_phase`'s
+    spawn). ``cfg`` (default `arch_moe_cfg`), ``run`` and a CPU ``dev``
+    let the phase be rehearsed small on the CPU."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    _, _, batch, seq, _, _, prompt, new = run
+    cfg = cfg or arch_moe_cfg(run=run)
+    published_cf = get_arch(run[0]).moe.capacity_factor
+    ref = arch_moe_reference(torch, dev, cfg, run, ARCH_MOE_MESH)
+    free = (f"; card memory free after it "
+            f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB, the parent "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated"
+            if dev.type == "cuda" else "")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 21's one device: {cfg.arch_id}, {cfg.n_layers} layer, "
+          f"{ref['n_params']:,} params, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} at capacity factor {cfg.moe.capacity_factor:g}: "
+          f"forward and backward of {batch} x {seq} (no optimizer) loss "
+          f"{ref['loss']:.6f}, grad_norm {ref['grad_norm']:.6f}, "
+          + ", ".join(f"{x:.1f}" for x in ref["grad_ms"]) + " ms; peak "
+          f"{ref['peak_gb']:.2f} GB allocated; prefill {batch} x {prompt} "
+          f"and {new} greedy steps; {seconds:.1f} s" + free, flush=True)
+    return dict(cfg=cfg, run=run, ref=ref, published_cf=published_cf,
+                seconds=seconds,
+                job=(arch_moe_worker, (cfg, run, ref["marks"], published_cf,
+                                       dev.type)))
+
+
+def arch_moe_phase(torch, dev, cfg=None, run=ARCH_MOE):
+    """Phase 21 alone, its processes spawned for it (`arch_moe_only`, and
+    the CPU rehearsal): `arch_moe_prepare`, the spawn, `arch_moe_checks`."""
+    from repro_torch.launch.spawn import spawn
+
+    part = arch_moe_prepare(torch, dev, cfg, run)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        # four processes share the card (as phase 18's)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
+        t0 = time.perf_counter()
+        fn, args = part["job"]
+        ranks = spawn(fn, 4, backend="gloo", device=dev.type,
+                      deadline_s=600, args=args)
+        wall = time.perf_counter() - t0
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    return arch_moe_checks(torch, dev, part, ranks, wall)
+
+
+def arch_moe_checks(torch, dev, part, ranks, wall):
+    """Phase 21's checks of its processes' results ``ranks`` against the
+    one-device reference of ``part`` (`arch_moe_prepare`); ``wall``: the
+    seconds of its own spawn, or None when phase 18's processes ran it.
+    Returns the processes' prefill and decode launches, summed, and each
+    process's executed collectives by (replica, rank): ``{"train": [the
+    E/k step's], "prefill": ..., "decode": the first step's}``, (calls,
+    bytes) by (op, group)."""
+    t_checks = time.perf_counter()
+    cfg, ref, published_cf = part["cfg"], part["ref"], part["published_cf"]
+    new = part["run"][7]
+    cuda = dev.type == "cuda"
+    spawned = "" if wall is None else f", in a spawn of {wall:.1f} s"
+    print(f"  4 processes on a {ARCH_MOE_MESH} mesh, gloo on {dev.type}: "
+          f"the work {max(r['worker_s'] for r in ranks):.1f} s a process "
+          f"(max{spawned}); set-up (the sharded draw) "
+          f"{max(r['setup_s'] for r in ranks):.1f} s; "
+          f"{ranks[0]['n_params']:,} params a process", flush=True)
+    top = float(ref["prefill"].abs().max())
+    lim = max(1e-4, 5e-6 * top)
+    launches = dict.fromkeys(ARCH_MOE_KERNELS, 0)
+    for r in ranks:
+        lerr = max(abs(r["loss"] - ref["loss"]),
+                   abs(r["grad_loss"] - ref["loss"]))
+        gerr = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        nerr, perr_g, leaf = r["grad_err"]
+        perr = float((torch.from_numpy(r["prefill"])
+                      - ref["prefill"]).abs().max())
+        same = bool((torch.from_numpy(r["tokens"]) == ref["tokens"]).all())
+        derr = float((torch.from_numpy(r["decode"])
+                      - ref["decode"]).abs().max())
+        used = {n: c for n, c in r["prefill_launches"].items() if c}
+        dused = {n: c for n, c in r["decode_launches"].items() if c}
+        print(f"  process {r['at']}: |loss - one device| {lerr:.3e} (tol "
+              f"1e-5), grad_norm {gerr:.3e} relative (tol 1e-5); its "
+              f"{r['grad_leaves']} gradient shards against the one-device "
+              f"slices: norm {nerr:.3e}, projection {perr_g:.3e} relative "
+              f"at worst ({leaf}; tol {ARCH_MOE_GRAD_TOL:g}); "
+              f"{r['leaves'] - len(r['no_grad'])} of {r['leaves']} leaves "
+              f"with a first moment; prefill logits {perr:.3e} (tol "
+              f"{lim:.3e}, max |logit| {top:.2f}); {new} greedy tokens "
+              f"{'equal' if same else 'DIFFER'}, their logits {derr:.3e} "
+              f"(tol {ARCH_RANKS_DECODE_TOL:g}, bf16 cache); at capacity "
+              f"factor {published_cf:g}: loss {r['published_loss']:.6f}, "
+              f"dropped slots {r['drops']} (by MoE call); launches: "
+              f"training "
+              f"{sum(r['train_launches'].values())}, prefill {used}, decode "
+              f"{dused}; peak {r['peak_gb']:.2f} GB allocated", flush=True)
+        check(lerr <= 1e-5, f"process {r['at']}: loss off by {lerr}")
+        check(gerr <= 1e-5, f"process {r['at']}: grad_norm off by {gerr}")
+        check(max(nerr, perr_g) <= ARCH_MOE_GRAD_TOL,
+              f"process {r['at']}: gradient shard {leaf} off by "
+              f"{max(nerr, perr_g)}")
+        check(not r["no_grad"], f"process {r['at']}: leaves without a "
+              f"first moment {r['no_grad'][:8]}")
+        check(perr <= lim, f"process {r['at']}: prefill logits off by {perr}")
+        check(same, f"process {r['at']}: greedy tokens differ")
+        check(derr <= ARCH_RANKS_DECODE_TOL,
+              f"process {r['at']}: decode logits off by {derr}")
+        check(math.isfinite(r["published_loss"]),
+              f"process {r['at']}: loss {r['published_loss']} at capacity "
+              f"factor {published_cf}")
+        check(all(v == 0 for v in r["train_launches"].values()),
+              f"process {r['at']}: training launched {r['train_launches']}")
+        check(not cuda or (all(used.get(n) for n in ARCH_MOE_KERNELS)
+                           and dused.get("rmsnorm")),
+              f"process {r['at']}: prefill {used}, decode {dused}")
+        for n in launches:
+            launches[n] += (r["prefill_launches"][n]
+                            + r["decode_launches"][n])
+    for i, label in enumerate((f"E/k = {cfg.moe.capacity_factor:g}",
+                               f"{published_cf:g}")):
+        ms = max(r["step_ms"][i] for r in ranks)
+        print(f"  AdamW step at capacity factor {label}: {ms:.1f} ms (max "
+              f"over processes; the one-device forward and backward "
+              f"{ref['grad_ms'][-1]:.1f}, the processes' "
+              f"{max(r['grad_ms'] for r in ranks):.1f})", flush=True)
+    for what, counts in (("train step", ranks[0]["counts"]),
+                         ("prefill", ranks[0]["serve_counts"]["prefill"]),
+                         ("decode (one step)",
+                          ranks[0]["serve_counts"]["decode"])):
+        print(f"  {what}: process (0, 0): " + ", ".join(
+            f"{op}/{g} {c} calls {b:,} B"
+            for (op, g), (c, b) in sorted(counts.items())), flush=True)
+    worker_s = max(r["worker_s"] for r in ranks)
+    checks_s = time.perf_counter() - t_checks
+    print(f"  phase 21: {part['seconds'] + worker_s + checks_s:.1f} s (its "
+          f"one-device reference {part['seconds']:.1f}, its processes' work "
+          f"{worker_s:.1f}, its checks {checks_s:.1f}); launches "
+          f"{launches}", flush=True)
+    executed = {r["at"]: dict(r["serve_counts"], train=[r["counts"]])
+                for r in ranks}
+    return launches, executed
+
+
+def arch_moe_only(torch):
+    """``--arch-moe``: build the kernels and run phase 21 alone, its
+    dry-run beside it and phase 19 (a)'s check of its collectives, then
+    exit (no kernels table and no device line)."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    dry_dir = scratch_dir()
+    procs = start_dryruns(dry_dir, ("phase21",))
+    try:
+        print(f"  built in {build.build_all():.1f} s", flush=True)
+        _, executed = arch_moe_phase(torch, torch.device("cuda"))
+        _wait_dryruns(procs)
+        _dryrun_against(dry_dir, "phase21", ARCH_MOE,
+                        "fake" + "x".join(map(str, ARCH_MOE_MESH)), executed)
+    finally:
+        _stop_dryruns(procs)
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    return 0
+
+
 # phase 19: the dry-run (`launch.dryrun`): one process plays each process of
 # phase 18's (2, 2) mesh on meta tensors over the counting-only fake groups,
 # and the one-device step of phase 17 (A); another gives one production
 # record. Both run in processes of their own (the fake world is a default
 # group), started with the script and read after phase 18.
 DRYRUN_PRODUCTION = ("gemma2-9b", "train_4k")
+# the production records that split heads (qwen2-7b's 28 over 16) and put
+# MoE on the mesh (llama4-scout) give, read for ``ok`` and FLOPs a device
+DRYRUN_PRODUCTION_MORE = ("qwen2-7b", "llama4-scout-17b-a16e")
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -6191,24 +6586,35 @@ def _dryrun_shapes(run=ARCH_RANKS):
             "decode": f"decode:{batch}x{prompt}+{new}"}
 
 
-def start_dryruns(directory):
+def start_dryruns(directory, names=None):
     """Start `launch.dryrun` on phase 18's cell (every process of its (2,
-    2) mesh and the one-device step, f32, at its depth) and on
-    `DRYRUN_PRODUCTION` at the 16 x 16 mesh, each writing its records
-    under ``directory`` and its output to a log there. Returns {name:
+    2) mesh and the one-device step, f32, at its depth), on phase 21's
+    (every process of its (1, 4) mesh at its depth and capacity factor)
+    and on `DRYRUN_PRODUCTION` and `DRYRUN_PRODUCTION_MORE` at the 16 x 16
+    mesh, each writing its records under ``directory`` and its output to
+    a log there (only ``names`` of them, if given). Returns {name:
     (process, log path, start time on the wall clock)}."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     arch, depth = ARCH_RANKS[:2]
+    moe = arch_moe_cfg()
     cmds = {
         "phase18": ["--arch", arch, "--layers", str(depth), "--param-dtype",
                     "float32", "--mesh", "2x2,one", "--all-ranks",
                     "--shape", ",".join(_dryrun_shapes().values())],
-        "production": ["--arch", DRYRUN_PRODUCTION[0], "--shape",
-                       DRYRUN_PRODUCTION[1]],
+        "phase21": ["--arch", moe.arch_id, "--layers", str(moe.n_layers),
+                    "--capacity-factor", repr(moe.moe.capacity_factor),
+                    "--param-dtype", "float32", "--mesh",
+                    "x".join(map(str, ARCH_MOE_MESH)), "--all-ranks",
+                    "--shape", ",".join(_dryrun_shapes(ARCH_MOE).values())],
+        "production": ["--arch", ",".join((DRYRUN_PRODUCTION[0],)
+                                          + DRYRUN_PRODUCTION_MORE),
+                       "--shape", DRYRUN_PRODUCTION[1]],
     }
     procs = {}
     for name, args in cmds.items():
+        if names is not None and name not in names:
+            continue
         out = os.path.join(directory, name)
         log = open(os.path.join(directory, f"{name}.log"), "w")
         procs[name] = (subprocess.Popen(
@@ -6217,6 +6623,30 @@ def start_dryruns(directory):
             cwd=root), log.name, time.time())
         log.close()
     return procs
+
+
+def _wait_dryruns(procs):
+    """Wait for `start_dryruns`' processes; each must exit 0."""
+    for name, (proc, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log) as f:
+            tail = f.read().strip().splitlines()
+        print(f"  dry-run {name}: rc {rc}, {len(tail)} lines, its last "
+              f"written {os.path.getmtime(log) - t0:.1f} s after its start; "
+              f"{tail[-1] if tail else ''}", flush=True)
+        check(rc == 0, f"dry-run {name} failed:\n" + "\n".join(tail[-20:]))
+
+
+def _stop_dryruns(procs):
+    for proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _record(directory, name, arch, shape, mesh, at=(0, 0)):
@@ -6280,47 +6710,23 @@ def _kernel_meta_calls(torch):
 
 def dryrun_phase(torch, procs, directory, executed, a_step, smi):
     """Phase 19. Waits for `start_dryruns`' processes, then: (a) every
-    process of phase 18's mesh, predicted against executed: the dry-run's
-    (calls, bytes) by (op, group) equal to what phase 18's process (at
-    the same (replica, rank)) executed, in each train step, the prefill
-    and the first decode step; (b) the one-device meta FLOPs of phase 17
+    process of phase 18's mesh and of phase 21's, predicted against
+    executed: the dry-run's (calls, bytes) by (op, group) equal to what
+    the phase's process (at the same (replica, rank)) executed, in each
+    train step, the prefill and the first decode step (``executed``: by
+    phase, then by process); (b) the one-device meta FLOPs of phase 17
     (A)'s step equal to `FlopCounterMode`'s count of it on this card, and
     its f32 roofline share: the predicted compute seconds at 67 TFLOP/s
-    against the measured step; (c) the production record; (d) a meta call
-    of each kernel launches nothing."""
-    for name, (proc, log, t0) in procs.items():
-        try:
-            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        with open(log) as f:
-            tail = f.read().strip().splitlines()
-        print(f"  dry-run {name}: rc {rc}, {len(tail)} lines, its last "
-              f"written {os.path.getmtime(log) - t0:.1f} s after its start; "
-              f"{tail[-1] if tail else ''}", flush=True)
-        check(rc == 0, f"dry-run {name} failed:\n" + "\n".join(tail[-20:]))
-    arch = ARCH_RANKS[0]
-    shapes = _dryrun_shapes()
-    for at, ex in sorted(executed.items()):
-        for kind, shape in shapes.items():
-            rec = _record(directory, "phase18", arch, shape, "fake2x2", at)
-            check(rec["ok"], f"dry-run {shape} at {at}: {rec.get('error')}")
-            want = {(c["op"], c["group"]): (c["calls"], c["bytes"])
-                    for c in rec["calls"]}
-            runs = ex["train"] if kind == "train" else [ex[kind]]
-            for i, got in enumerate(runs):
-                keys = sorted(set(want) | set(got))
-                print(f"  process {at} {kind}{f' step {i}' if kind == 'train' else ''}: "
-                      + "; ".join(
-                          f"{op}/{g} predicted {want.get((op, g), (0, 0))[0]} "
-                          f"calls {want.get((op, g), (0, 0))[1]:,} B, "
-                          f"executed {got.get((op, g), (0, 0))[0]} calls "
-                          f"{got.get((op, g), (0, 0))[1]:,} B"
-                          for op, g in keys), flush=True)
-                check(dict(got) == want, f"process {at} {kind} {i}: "
-                      f"predicted {want} != executed {got}")
+    against the measured step; (c) the production records; (d) a meta
+    call of each kernel launches nothing."""
+    _wait_dryruns(procs)
+    cells = {"phase18": (ARCH_RANKS, "fake2x2"),
+             "phase21": (ARCH_MOE, "fake" + "x".join(map(str,
+                                                        ARCH_MOE_MESH)))}
+    for name, by_process in executed.items():
+        run, mesh = cells[name]
+        _dryrun_against(directory, name, run, mesh, by_process)
+    arch, shapes = ARCH_RANKS[0], _dryrun_shapes()
     one = _record(directory, "phase18", arch, shapes["train"], "one")
     meta = one["hlo_flops_per_device"]
     print(f"  phase 17 (A)'s step, one device: meta FLOPs {meta:,.0f}, "
@@ -6350,7 +6756,44 @@ def dryrun_phase(torch, procs, directory, executed, a_step, smi):
           f"{mem['argument_bytes'] / 1e9:.2f} GB, saved for backward "
           f"{mem['temp_bytes'] / 1e9:.2f} GB; traced in {rec['trace_s']} s",
           flush=True)
+    for arch in DRYRUN_PRODUCTION_MORE:
+        rec = _record(directory, "production", arch, shape, "pod16x16")
+        print(f"  production record {arch} {shape} on 16 x 16: ok "
+              f"{rec['ok']}, {rec.get('chips')} chips, "
+              f"{rec.get('hlo_flops_per_device', 0):.4e} FLOPs a device, "
+              f"{rec.get('collective_bytes_per_device', 0):.4e} B moved by "
+              f"collectives a device; traced in {rec.get('trace_s')} s",
+              flush=True)
+        check(rec["ok"] and rec["chips"] == 256
+              and rec["hlo_flops_per_device"] > 0,
+              f"the production record of {arch} failed: {rec.get('error')}")
     _kernel_meta_calls(torch)
+
+
+def _dryrun_against(directory, name, run, mesh, by_process):
+    """Phase 19 (a) for one phase's cell: each process's predicted (calls,
+    bytes) by (op, group), read from the dry-run's records ``name`` on
+    ``mesh``, against what it executed (``by_process``)."""
+    arch = run[0]
+    for at, ex in sorted(by_process.items()):
+        for kind, shape in _dryrun_shapes(run).items():
+            rec = _record(directory, name, arch, shape, mesh, at)
+            check(rec["ok"], f"dry-run {shape} at {at}: {rec.get('error')}")
+            want = {(c["op"], c["group"]): (c["calls"], c["bytes"])
+                    for c in rec["calls"]}
+            runs = ex["train"] if kind == "train" else [ex[kind]]
+            for i, got in enumerate(runs):
+                keys = sorted(set(want) | set(got))
+                print(f"  {name} process {at} {kind}"
+                      f"{f' step {i}' if kind == 'train' else ''}: "
+                      + "; ".join(
+                          f"{op}/{g} predicted {want.get((op, g), (0, 0))[0]} "
+                          f"calls {want.get((op, g), (0, 0))[1]:,} B, "
+                          f"executed {got.get((op, g), (0, 0))[0]} calls "
+                          f"{got.get((op, g), (0, 0))[1]:,} B"
+                          for op, g in keys), flush=True)
+                check(dict(got) == want, f"{name} process {at} {kind} {i}: "
+                      f"predicted {want} != executed {got}")
 
 
 def profile_steps(torch, step, label, ticks=3, top=6, also=None):
@@ -6583,6 +7026,8 @@ def main() -> int:
         return arch_train_only(torch)
     if sys.argv[1:2] == ["--arch-ranks"]:
         return arch_ranks_only(torch)
+    if sys.argv[1:2] == ["--arch-moe"]:
+        return arch_moe_only(torch)
     import torch.nn.functional as F
 
     if sys.argv[1:2] == ["--moe-serve"]:
@@ -6707,13 +7152,25 @@ def main() -> int:
 
         phase("phase 18: sharded execution of the uniform arch stack: qwen2-7b "
               "at full width (2 layers) on a (2, 2) mesh of 4 processes, gloo on "
-              "this card, trained, prefilled and decoded")
-        arch_ranks_launches, executed = arch_ranks_phase(torch, dev)
+              "this card, trained, prefilled and decoded; then, in the same "
+              "processes, phase 21's work")
+        moe_part = arch_moe_prepare(torch, dev)
+        arch_ranks_launches, executed, moe_ranks = arch_ranks_phase(
+            torch, dev, then=moe_part["job"])
 
-        phase("phase 19: the dry-run: phase 18's collectives and phase 17 (A)'s "
-              "FLOPs predicted on meta tensors against the executed ones, and a "
-              "production record")
-        dryrun_phase(torch, dryruns, dry_dir, executed, arch_step, smi)
+        phase("phase 21: MoE on the mesh: llama4-scout at full width (1 layer) "
+              "on a (1, 4) mesh of 4 processes, gloo on this card, 4 experts a "
+              "process, trained, prefilled and decoded (its reference and its "
+              "processes' work ran in phase 18's block): the checks")
+        arch_moe_launches, executed_moe = arch_moe_checks(torch, dev, moe_part,
+                                                          moe_ranks, None)
+
+        phase("phase 19: the dry-run: phase 18's and phase 21's collectives and "
+              "phase 17 (A)'s FLOPs predicted on meta tensors against the "
+              "executed ones, and production records")
+        dryrun_phase(torch, dryruns, dry_dir,
+                     {"phase18": executed, "phase21": executed_moe},
+                     arch_step, smi)
 
         phase("phase 20: kernels table")
         paths = ((serve_launches, SERVE_KERNELS), (train_launches, TRAIN_KERNELS),
@@ -6727,7 +7184,8 @@ def main() -> int:
                  (dense_serve_launches, SERVE_KERNELS),
                  (hybrid_launches, SERVE_KERNELS),
                  (arch_launches, ARCH_TRAIN_KERNELS),
-                 (arch_ranks_launches, ARCH_RANKS_KERNELS))
+                 (arch_ranks_launches, ARCH_RANKS_KERNELS),
+                 (arch_moe_launches, ARCH_MOE_KERNELS))
         table = []
         for name, (src, replaces) in SOURCES.items():
             n = sum(counts[name] for counts, kernels in paths if name in kernels)
@@ -6758,10 +7216,7 @@ def main() -> int:
     finally:
         import shutil
 
-        for proc, _, _ in dryruns.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        _stop_dryruns(dryruns)
         shutil.rmtree(dry_dir, ignore_errors=True)
 
 

@@ -12,9 +12,21 @@
   reference reaches the same result by seeding ``ct/n1`` on each model rank
   (`repro/core/overlap.py:36-45, :424`); an all-reduce whose backward is
   also an all-reduce counts the gradient n1 times.
+* the expert-parallel MoE's and split heads' autograd collectives:
+  `all_to_all` (its backward the reverse all-to-all, the split sizes
+  swapped); `gather_from_model` (an all-gather over ``model`` whose
+  backward keeps this rank's slice: the cotangent of a replicated
+  activation is whole on every rank, as the Megatron pair leaves it);
+  `gather_into_region` (an all-gather whose result feeds rank-local,
+  partial work, so its backward sums the ranks' cotangents and keeps this
+  rank's slice: a reduce-scatter, `reduce_scatter_units`); `mesh_mean`
+  (the routing statistics averaged over every process, see its
+  docstring for the adjoint).
 * `all_to_all_units` — ``jax.lax.all_to_all`` with per-peer split sizes
   (`all_to_all_single`), the reshard's and the transitions' message route.
 * `all_gather_units` — the canonical gather of a replica's unit buffers.
+* `reduce_scatter_units` — ``jax.lax.psum_scatter``: the peers' tensors
+  summed, this peer's slice kept (one all-to-all of the slices, summed).
 * `StageLink` — the pipeline hand-off of a staged mesh, ``jax.lax.ppermute``
   over ``stage`` and its transpose: `send_next` / `recv_prev` carry a
   boundary activation to the same (replica, rank) of the next stage,
@@ -23,8 +35,8 @@
 Every call adds one to its (op, group) counter and its payload bytes to the
 same counter (`counts`, `reset_counts`): an all-reduce's tensor, an
 all-to-all's send buffer (the part to itself included), an all-gather's
-input. A group is named by its ``group_desc`` (``"model"`` / ``"data"`` for
-`launch.mesh.make_test_mesh`'s groups).
+input, a reduce-scatter's input. A group is named by its ``group_desc``
+(``"model"`` / ``"data"`` for `launch.mesh.make_test_mesh`'s groups).
 
 Every collective takes the tensors where they lie: gloo takes CUDA tensors
 for `all_reduce`, `all_to_all_single` with uneven splits and `all_gather`
@@ -136,6 +148,20 @@ def all_gather_units(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def reduce_scatter_units(x: torch.Tensor, group, dim: int = 0
+                         ) -> torch.Tensor:
+    """``x`` summed over ``group`` and cut into ``n`` equal slices along
+    ``dim``, this peer's slice kept (``jax.lax.psum_scatter(..., tiled=
+    True)``). Carried by one all-to-all of the slices (gloo has it for
+    CUDA tensors), counted as ``reduce_scatter``."""
+    n = dist.get_world_size(group)
+    parts = torch.stack(x.chunk(n, dim=dim)).contiguous()   # (n, ...)
+    _count("reduce_scatter", group, parts.numel() * parts.element_size())
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return out.sum(0)
+
+
 def broadcast_stage_(x: torch.Tensor, src_stage: int, mesh) -> torch.Tensor:
     """In-place broadcast of ``x`` (contiguous) from this (replica, rank)'s
     process of stage ``src_stage`` to its processes of every stage (the
@@ -232,3 +258,102 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduce over ``group`` forward, identity backward: a tensor-
     parallel block's output (its ranks' partial sums)."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send_counts, recv_counts, group):
+        ctx.args = (send_counts, recv_counts, group)
+        return all_to_all_units(x, send_counts, recv_counts, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_counts, recv_counts, group = ctx.args
+        return (all_to_all_units(g, recv_counts, send_counts, group), None,
+                None, None)
+
+
+def all_to_all(x: torch.Tensor, send_counts: Sequence[int],
+               recv_counts: Sequence[int], group) -> torch.Tensor:
+    """`all_to_all_units` with a backward: the cotangent of the rows
+    received goes back to the peers they came from (the reverse
+    all-to-all, the split sizes swapped)."""
+    return _AllToAll.apply(x, tuple(send_counts), tuple(recv_counts), group)
+
+
+def _gathered(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = all_gather_units(x, group)                 # (n, *x.shape)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, dim):
+        ctx.args = (x.shape[dim], rank, dim)
+        return _gathered(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        size, rank, dim = ctx.args
+        return g.narrow(dim, rank * size, size), None, None, None
+
+
+class _GatherIntoRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _gathered(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return reduce_scatter_units(g, group, dim), None, None
+
+
+def gather_from_model(x: torch.Tensor, group, rank: int,
+                      dim: int = 0) -> torch.Tensor:
+    """The peers' ``x`` concatenated along ``dim`` in group order (an
+    all-gather), for a result every rank then uses whole, as a replicated
+    activation: its cotangent is the same, whole, on every rank, so the
+    backward keeps this rank's (``rank``'s) slice and moves nothing."""
+    return _GatherFromModel.apply(x, group, rank, dim)
+
+
+def gather_into_region(x: torch.Tensor, group, dim: int = 0
+                       ) -> torch.Tensor:
+    """The peers' ``x`` concatenated along ``dim`` (an all-gather), for a
+    result each rank computes only its part of the output from (the
+    output leaves through `reduce_from_model`): the ranks' cotangents are
+    partial, so the backward sums them and keeps this rank's slice (a
+    reduce-scatter)."""
+    return _GatherIntoRegion.apply(x, group, dim)
+
+
+class _MeshMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.n_model = mesh.n_model
+        y = psum(x, mesh.model)
+        if mesh.n_data > 1:
+            psum_(y, mesh.data)
+        return y.div_(mesh.n_model * mesh.n_data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n_model, None
+
+
+def mesh_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` averaged over every process of a (data, model) ``mesh`` (an
+    all-reduce over ``model``, then one over ``data`` if there are
+    replicas), with the adjoint that gives the
+    global loss's gradient under the sharded step. A process's ``x`` is
+    ``1/N`` of the mean (N = n_data·n_model). The model ranks of a
+    replica share one loss, so over ``model`` the cotangent is taken
+    once, as `reduce_from_model` takes it; the step then averages every
+    gradient over ``data``, which a replicated term (the MoE aux loss)
+    must survive: each replica's ``x`` reaches the global loss, not only
+    its own. So the cotangent a process takes is ``n_data/N = 1/n_model``
+    of the mean's (the reference's GSPMD gradient of ``pmean`` over
+    ``(model, data)``)."""
+    return _MeshMean.apply(x, mesh)

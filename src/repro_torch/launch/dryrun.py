@@ -195,15 +195,20 @@ def mesh_name(multi_pod: bool, shape=None) -> str:
 def run_one(arch_id: str, shape_name: str, multi_pod: bool = False, *,
             replica: int = 0, rank: int = 0, mesh_shape=None,
             layers: Optional[int] = None,
+            capacity_factor: Optional[float] = None,
             param_dtype=torch.bfloat16) -> Dict:
     """The record of one (arch, shape, mesh) for process (``replica``,
     ``rank``): the production mesh, a ``mesh_shape`` (n_data, n_model)
     fake mesh, or ``mesh_shape="one"``: the one-device step on meta (no
     mesh, no collective); ``layers`` cuts the depth (the arch's own by
-    default)."""
+    default), ``capacity_factor`` replaces an MoE arch's (an expert's
+    slots, and so the all-to-alls' bytes, follow it)."""
     cfg = get_arch(arch_id)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if capacity_factor is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     shape = parse_shape(shape_name)
     rec: Dict = {
         "arch": arch_id, "shape": shape_name,
@@ -242,6 +247,8 @@ def main(argv=None) -> None:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut every arch to this depth")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="replace an MoE arch's capacity factor")
     ap.add_argument("--param-dtype", choices=["bfloat16", "float32"],
                     default="bfloat16")
     ap.add_argument("--all-ranks", action="store_true",
@@ -286,7 +293,9 @@ def main(argv=None) -> None:
                     try:
                         rec = run_one(arch, shape, mp, replica=replica,
                                       rank=rank, mesh_shape=ms,
-                                      layers=args.layers, param_dtype=dtype)
+                                      layers=args.layers,
+                                      capacity_factor=args.capacity_factor,
+                                      param_dtype=dtype)
                     except Exception as e:  # noqa: BLE001 — record, go on
                         rec = {
                             "arch": arch, "shape": shape, "mesh": name,

@@ -47,6 +47,7 @@ from repro_torch.kernels import mode
 HLO_OPS = {
     "all_reduce": "all-reduce", "all_reduce_max": "all-reduce",
     "all_gather": "all-gather", "all_to_all": "all-to-all",
+    "reduce_scatter": "reduce-scatter",
     "send_next": "collective-permute", "send_prev": "collective-permute",
     "recv_prev": None, "recv_next": None, "broadcast": "broadcast",
 }
@@ -78,14 +79,16 @@ def collectives_from_counts(counts: Mapping, group_sizes: Mapping[str, int]
     """`core.collectives.counts()` as the reference's per-opcode table:
     ``count``, ``moved_bytes`` and ``result_bytes`` by HLO opcode. A
     counted all-gather's bytes are its input (one peer's part): its
-    result is ``n`` times that."""
+    result is ``n`` times that; a reduce-scatter's are its input, its
+    result ``1/n`` of that."""
     out: Dict[str, Dict[str, float]] = {}
     for (op, group), (calls, nbytes) in sorted(counts.items()):
         hlo = HLO_OPS[op]
         if hlo is None:
             continue
         n = group_sizes[group]
-        rbytes = nbytes * n if hlo == "all-gather" else nbytes
+        rbytes = (nbytes * n if hlo == "all-gather" else
+                  nbytes / n if hlo == "reduce-scatter" else nbytes)
         d = out.setdefault(hlo, {"count": 0.0, "moved_bytes": 0.0,
                                  "result_bytes": 0.0})
         d["count"] += calls

@@ -31,31 +31,38 @@ computes the encoder K/V and banks them (``ek``/``ev``,
 
 On a mesh of processes (``ctx``, `models.common.ShardCtx`) attention is
 rank-local, Megatron's column/row split: ``wq``/``bq`` hold this rank's
-query heads ``[rank·H/n, (rank+1)·H/n)`` and ``wo`` their rows, so the
-output is a partial sum, reduced over ``model`` (`ShardCtx.exit`). The
-replicated ``wk``/``wv`` (and ``bk``/``bv``, ``q_norm``/``k_norm``) enter
-the region through `ShardCtx.enter`, so their gradients are summed over
-``model``: without a cache each rank computes only the KV heads its query
-heads map to (`local_heads`). The cache holds every KV head, as the
-reference lays it out: this replica's batch rows and, where the model
-axis divides its length, this rank's block of its rows (``seq_shard``).
-Prefill then writes the rows of its block and attends its own heads'
-fresh K/V; a decode token's heads are gathered over ``model`` (where they
-are split), attended over the rank's rows and the online-softmax partials
-combined over ``model`` (`_attend_seq_sharded`). Masks and softcaps are
-per head. Where ``n_model`` does not divide H·hd the attention weights
-stay replicated: every rank computes every head, and only a split cache
-is combined over ``model``.
+columns ``[rank·c, (rank+1)·c)`` of H·hd (c = H·hd/n) and ``wo`` their
+rows, so the output is a partial sum, reduced over ``model``
+(`ShardCtx.exit`). The replicated ``wk``/``wv`` (and ``bk``/``bv``,
+``q_norm``/``k_norm``) enter the region through `ShardCtx.enter`, so
+their gradients are summed over ``model``. Each rank attends the query
+heads its columns touch and computes the KV heads they read
+(`local_heads`; all of them when they go to a cache, which holds every
+KV head). Where ``n_model`` divides H those are its own H/n heads; where
+it does not, the columns split a head between two ranks (the reference's
+sanitized spec, which GSPMD computes): the query's columns are gathered
+over ``model`` (`core.collectives.gather_into_region`, a reduce-scatter
+backward), qk-norm and RoPE applied per whole head, the touching heads
+attended and the rank's own columns kept. The cache holds this
+replica's batch rows and, where the model axis divides its length, this
+rank's block of its rows (``seq_shard``). Prefill then writes the rows
+of its block and attends its own heads' fresh K/V; a decode token's
+query columns are gathered over ``model``, every head attended over the
+rank's rows, the online-softmax partials combined over ``model``
+(`_attend_seq_sharded`) and the rank's columns kept. Masks and softcaps
+are per head. Where ``n_model`` does not divide H·hd the attention
+weights stay replicated: every rank computes every head, and only a
+split cache is combined over ``model``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collectives import all_gather_units, pmax_, psum_
+from repro_torch.core.collectives import gather_into_region, pmax_, psum_
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (
     NO_SHARD, P, ShardCtx, apply_rope, dense_init, rms_norm, softcap,
@@ -111,47 +118,71 @@ def attn_specs(cfg: ArchConfig, tp: str = "model", *, cross: bool = False) -> di
     return s
 
 
-def local_heads(cfg: ArchConfig, n_model: int, rank: int):
-    """(query heads, first KV head, KV heads) of ``rank`` when the query
-    heads split ``n_model`` ways: the rank's query heads are a contiguous
-    block and the KV heads they map to (query head h reads KV head
-    h // (H / KVH)) must be too, each read by as many of its heads. Raises
-    ValueError for a layout that splits a head or groups unevenly."""
+class HeadLayout(NamedTuple):
+    """One rank's part of the attention weights split ``n_model`` ways:
+    its columns ``[c0, c1)`` of the H·hd query (and ``wo`` row) space, the
+    query heads ``[h0, h1)`` those columns touch, and the KV heads
+    ``[k0, k1)`` those heads read (query head h reads KV head h // (H /
+    KVH))."""
+
+    c0: int
+    c1: int
+    h0: int
+    h1: int
+    k0: int
+    k1: int
+
+
+def local_heads(cfg: ArchConfig, n_model: int, rank: int) -> HeadLayout:
+    """``rank``'s `HeadLayout` when ``n_model`` divides H·hd, as the
+    reference's sanitized spec splits ``wq``/``bq`` columns and ``wo``
+    rows. Where ``n_model`` does not divide H the columns split a head:
+    the ranks on either side of the cut touch it both. Raises ValueError
+    for wrong input: H·hd that ``n_model`` does not divide (the weights
+    stay replicated then), or H not a multiple of KVH."""
     nh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if nh % n_model:
-        raise ValueError(
-            f"{cfg.arch_id}: n_heads·head_dim = {nh * hd} divides by "
-            f"n_model = {n_model} but n_heads = {nh} does not: the "
-            "sanitized spec splits a head across ranks (GSPMD splits it; "
-            "rank-local heads cannot; ROADMAP Queue 1, 7g: split heads)")
-    nh_l, g = nh // n_model, nh // kvh
-    if g % nh_l and nh_l % g:
-        raise ValueError(
-            f"{cfg.arch_id}: {nh_l} query heads a rank do not group evenly "
-            f"over KV heads of {g} query heads each")
-    kv0 = rank * nh_l // g
-    return nh_l, kv0, max(1, nh_l // g)
+    if nh % kvh:
+        raise ValueError(f"{cfg.arch_id}: {nh} query heads do not group "
+                         f"over {kvh} KV heads")
+    if (nh * hd) % n_model:
+        raise ValueError(f"{cfg.arch_id}: n_heads·head_dim = {nh * hd} does "
+                         f"not split over n_model = {n_model}")
+    c = nh * hd // n_model
+    c0, c1 = rank * c, (rank + 1) * c
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    g = nh // kvh
+    return HeadLayout(c0, c1, h0, h1, h0 // g, (h1 - 1) // g + 1)
 
 
-def _rank_local(cfg: ArchConfig, p: dict, ctx: ShardCtx, cached: bool):
+def _kv_of(cfg: ArchConfig, h0: int, h1: int, a0: int, an: int):
+    """Which of the computed KV heads ``[a0, a0 + an)`` query heads ``[h0,
+    h1)`` read, in the form `_group` takes: None for all of them, a slice
+    when each KV head read is read by as many of the heads (`_group`'s
+    contiguous groups), else one KV head per query head (an index list,
+    the heads then attended one group each)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    reads = {min(h1, (j + 1) * g) - max(h0, j * g) for j in range(k0, k1)}
+    if len(reads) == 1:
+        return None if (k0, k1) == (a0, a0 + an) else slice(k0 - a0,
+                                                             k1 - a0)
+    return [h // g - a0 for h in range(h0, h1)]
+
+
+def _rank_local(cfg: ArchConfig, p: dict, ctx: ShardCtx, k0: int, k1: int):
     """This rank's view of attention params ``p`` (``wq``/``bq``/``wo``
-    already its shards): the replicated leaves entered into the region and
-    cut to the KV heads computed here — the rank's own, or all of them
-    when they go to a cache (which holds every KV head). Returns (params,
-    query heads, KV heads computed, slice of those attended or None when
-    all are)."""
-    hd, kvh = cfg.head_dim, cfg.n_kv_heads
-    nh_l, kv0, kvh_l = local_heads(cfg, ctx.n_model, ctx.rank)
-    c0, cn = (0, kvh) if cached else (kv0, kvh_l)
+    already its shards): the replicated leaves entered into the region
+    (their gradients summed over ``model``) and ``wk``/``wv``/``bk``/``bv``
+    cut to the KV heads ``[k0, k1)`` computed here."""
+    hd = cfg.head_dim
     local = {k: (ctx.enter(v) if k in ("q_norm", "k_norm") else v)
              for k, v in p.items()}
     for name in ("wk", "wv"):
-        local[name] = ctx.enter(p[name])[:, c0 * hd:(c0 + cn) * hd]
+        local[name] = ctx.enter(p[name])[:, k0 * hd:k1 * hd]
     for name in ("bk", "bv"):
         if name in p:
-            local[name] = ctx.enter(p[name])[c0 * hd:(c0 + cn) * hd]
-    att = None if cn == kvh_l else slice(kv0 - c0, kv0 - c0 + kvh_l)
-    return local, nh_l, cn, att
+            local[name] = ctx.enter(p[name])[k0 * hd:k1 * hd]
+    return local
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +310,16 @@ def attn_apply(
     if kv_x is not None or cross_cache is not None:
         return _cross_apply(cfg, p, x, kv_x, cross_cache)
     split = ctx.mesh is not None and p["wq"].shape[1] != nh * hd
+    decode = cache is not None and s == 1
     att = None
     if split:
-        p, nh, kvh, att = _rank_local(cfg, p, ctx, cache is not None)
+        lay = local_heads(cfg, ctx.n_model, ctx.rank)
+        # a decode over rows split over model attends every head here
+        h0, h1 = (0, nh) if seq_shard and decode else (lay.h0, lay.h1)
+        k0, k1 = (0, kvh) if cache is not None else (lay.k0, lay.k1)
+        p = _rank_local(cfg, p, ctx, k0, k1)
+        att = _kv_of(cfg, h0, h1, k0, k1 - k0)
+        nh, kvh = h1 - h0, k1 - k0
         x = ctx.enter(x)
 
     q = x @ p["wq"]
@@ -290,13 +328,17 @@ def attn_apply(
     if "bq" in p:
         q = q + p["bq"]
         k, v = k + p["bk"], v + p["bv"]
+    if split and (h0 * hd, h1 * hd) != (lay.c0, lay.c1):
+        # the heads attended here reach past this rank's columns: the
+        # query's columns gathered over model (a split head's halves)
+        q = gather_into_region(q, ctx.mesh.model, dim=-1)
+        q = q[..., h0 * hd:h1 * hd]
     q = q.reshape(b, s, nh, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    decode = cache is not None and s == 1
     if decode:
         cache_pos = torch.as_tensor(cache_pos, device=x.device).expand(b)
         positions = cache_pos[:, None]                       # (B, 1)
@@ -353,15 +395,17 @@ def attn_apply(
             k_posm = torch.where(slot <= last, slot, INT32_MAX)  # (B, T)
         bias = _mask_bias(kind, positions, k_posm, cfg.window, cfg.chunk_size)
         if seq_shard:
-            out = _attend_seq_sharded(cfg, q, cache, bias, ctx, split)
+            out = _attend_seq_sharded(cfg, q, cache, bias, ctx)
         else:
             ck, cv = ((cache["k"], cache["v"]) if att is None
                       else (cache["k"][:, :, att], cache["v"][:, :, att]))
             out = _attend_naive(_group(q, ck.shape[2]), ck, cv,
                                 bias[:, None, None], cfg.attn_softcap)
-            out = out.permute(0, 3, 1, 2, 4)                 # (B,S,kvh,g,hd)
+        out = out.permute(0, 3, 1, 2, 4)                     # (B,S,kvh,g,hd)
 
     out = out.reshape(b, s, nh * hd).to(x.dtype)
+    if split:       # this rank's columns, against its rows of wo
+        out = out[..., lay.c0 - h0 * hd:lay.c1 - h0 * hd]
     out = out @ p["wo"]
     return (ctx.exit(out) if split else out), cache
 
@@ -435,22 +479,16 @@ def _write_owned(cache: dict, rows, local, k, v) -> None:
         c[rows, at] = torch.where(own, new.to(c.dtype), c[rows, at])
 
 
-def _attend_seq_sharded(cfg: ArchConfig, q, cache: dict, bias, ctx,
-                        split: bool):
+def _attend_seq_sharded(cfg: ArchConfig, q, cache: dict, bias, ctx):
     """One decode token's attention over a cache whose rows are split over
-    ``model`` (the reference's layout): every head attended over this
-    rank's rows (an online-softmax partial: max, sum and weighted values)
-    and the partials combined over ``model`` (the max, then the rescaled
-    sums). With ``split`` the ranks' query heads are gathered first and
-    this rank's heads kept after; otherwise ``q`` already holds every head.
-    q: (B, 1, H/n or H, hd); bias (B, 1, rows); returns (B, 1, kvh', g',
-    hd) over the heads of ``q``, as `_attend_naive` permuted."""
-    b, s, nh_l, hd = q.shape
-    q_all = q
-    if split:
-        parts = all_gather_units(q, ctx.mesh.model)    # (n, B, 1, H/n, hd)
-        q_all = parts.permute(1, 2, 0, 3, 4).reshape(b, s, -1, hd)
-    qg = _group(q_all, cfg.n_kv_heads)                 # (B, kvh, g, 1, hd)
+    ``model`` (the reference's layout): every head of ``q`` (B, 1, H, hd),
+    all of them (a rank with split weights gathers the query's columns
+    first), attended over this rank's rows (an online-softmax partial:
+    max, sum and weighted values) and the partials combined over
+    ``model`` (the max, then the rescaled sums); bias (B, 1, rows).
+    Returns (B, kvh, g, 1, hd), as `_attend_naive`."""
+    hd = q.shape[-1]
+    qg = _group(q, cfg.n_kv_heads)                     # (B, kvh, g, 1, hd)
     scores = torch.einsum("bkgqh,bskh->bkgqs", qg.float(),
                           cache["k"].float()) * (hd ** -0.5)
     scores = softcap(scores, cfg.attn_softcap) + bias[:, None, None]
@@ -462,11 +500,7 @@ def _attend_seq_sharded(cfg: ArchConfig, q, cache: dict, bias, ctx,
     top = pmax_(m.clone(), ctx.mesh.model)
     part = psum_((part * torch.exp(m - top)[..., None]).contiguous(),
                  ctx.mesh.model)
-    out = part[..., :hd] / part[..., hd:]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, -1, hd)  # (B, 1, H, hd)
-    if split:
-        out = out[:, :, ctx.rank * nh_l:(ctx.rank + 1) * nh_l]
-    return out.reshape(b, s, nh_l, 1, hd)
+    return part[..., :hd] / part[..., hd:]
 
 
 def cache_length(cfg: ArchConfig, kind: str, max_len: int) -> int:

@@ -185,22 +185,40 @@ class ShapesOnly:
     """A generator stand-in that draws nothing: `dense_init` and
     `embed_init` (and every init that takes its ``device``) give empty
     meta tensors, so an init of the dense blocks yields the parameter
-    tree's shapes and dtypes without allocating it."""
+    tree's shapes and dtypes without allocating it. ``drawn`` lists the
+    leaves that a real generator would have drawn, in draw order."""
 
     device = torch.device("meta")
 
+    def __init__(self):
+        self.drawn = []
+
+
+class KeepPart:
+    """A generator stand-in for an init of the dense blocks that holds
+    only part of each drawn leaf: `dense_init` and `embed_init` draw from
+    ``gen`` as they would, then return ``keep(leaf)`` (one leaf's draw in
+    memory at a time)."""
+
+    def __init__(self, gen: torch.Generator, keep):
+        self.gen, self.keep, self.device = gen, keep, gen.device
+
+
+def _draw(gen, shape, scale: float, dtype):
+    if isinstance(gen, ShapesOnly):
+        w = torch.empty(shape, dtype=dtype, device=gen.device)
+        gen.drawn.append(w)
+        return w
+    real = gen.gen if isinstance(gen, KeepPart) else gen
+    w = torch.randn(shape, generator=real, device=real.device,
+                    dtype=torch.float32)
+    w = w.mul_(scale).to(dtype)
+    return gen.keep(w) if isinstance(gen, KeepPart) else w
+
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype):
-    if isinstance(gen, ShapesOnly):
-        return torch.empty(shape, dtype=dtype, device=gen.device)
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_(in_axis_size ** -0.5).to(dtype)
+    return _draw(gen, shape, in_axis_size ** -0.5, dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    if isinstance(gen, ShapesOnly):
-        return torch.empty(shape, dtype=dtype, device=gen.device)
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_(0.02).to(dtype)
+    return _draw(gen, shape, 0.02, dtype)

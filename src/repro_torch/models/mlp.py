@@ -9,14 +9,18 @@ first ``cap`` slots of each expert kept and the rest dropped (the Switch
 rule). The reference's out-of-range scatter index ``E·cap`` with
 ``mode="drop"`` becomes one spare row, sliced off; its clamped gather of
 that index becomes a clamped index whose rows the ``keep`` mask zeroes.
-`moe_apply_expert_parallel` is the reference's expert-parallel form over a
-`launch.mesh.RankMesh`: each process dispatches its share of its
-replica's tokens and one all-to-all over the model group carries each
-expert's slots to the process that owns the expert (and one back).
-`moe_apply_dense_ref` (every expert on every token) is the oracle.
+`moe_apply_expert_parallel` is the reference's expert-parallel form, the
+MoE FFN of a model on a mesh of processes (`models.common.ShardCtx` on a
+`launch.mesh.RankMesh`), trained, prefilled and decoded: each process
+holds ``E/n_model`` experts and dispatches its share of its replica's
+tokens; one all-to-all over the model group carries each expert's slots
+to the process that owns the expert and one brings them back, both with
+a backward (`core.collectives.all_to_all`). `moe_apply_dense_ref` (every
+expert on every token) is the oracle.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -67,9 +71,6 @@ def mlp_apply(cfg: ArchConfig, p: dict, x, ctx: ShardCtx = NO_SHARD):
 
 # ---------------------------------------------------------------------------
 # MoE
-
-EXPERT_KEYS = ("w_up", "w_gate", "w_down")
-
 
 def moe_init(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
     """Router (f32, as the reference), expert-stacked ``w_up``/``w_down``
@@ -184,12 +185,38 @@ def _load(flat_e, e: int, n_slots: int):
         / n_slots
 
 
-def _side_mlps(cfg: ArchConfig, p: dict, x, out):
+def _side_mlps(cfg: ArchConfig, p: dict, x, out, ctx: ShardCtx = NO_SHARD):
     if cfg.moe.shared_expert:
-        out = out + mlp_apply(cfg, p["shared"], x)
+        out = out + mlp_apply(cfg, p["shared"], x, ctx)
     if cfg.moe.dense_residual:
-        out = out + mlp_apply(cfg, p["dense"], x)
+        out = out + mlp_apply(cfg, p["dense"], x, ctx)
     return out
+
+
+# the dropped-slot counts of the MoE calls made while `record_drops` is
+# open (device scalars, read when it closes); None when closed
+_drop_log: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_drops():
+    """Collect the slots each `moe_apply` / `moe_apply_expert_parallel`
+    call drops while open: yields a list that holds, once the block
+    closes, one int per call (this process's own dispatch, on a mesh). The
+    counts stay on the device until then: no host read inside a step."""
+    global _drop_log
+    outer, _drop_log = _drop_log, []
+    log = _drop_log
+    try:
+        yield log
+    finally:
+        _drop_log = outer
+        log[:] = [int(n) for n in log]
+
+
+def _log_drops(keep) -> None:
+    if _drop_log is not None:
+        _drop_log.append((~keep).sum())
 
 
 def _moe(cfg: ArchConfig, p: dict, x, cap: int):
@@ -204,6 +231,7 @@ def _moe(cfg: ArchConfig, p: dict, x, cap: int):
     logits = xf.to(torch.float32) @ p["router"]
     idx, wts, probs = _route(m, logits)
     flat_e, order, tok, keep, dest = _dispatch(m, idx, cap)
+    _log_drops(keep)
     buf = _scatter(xf, tok, dest, e * cap).reshape(e, cap, d)
     y = _experts(cfg, p, buf).reshape(e * cap, d)
     out = _combine(y, keep, dest, wts.reshape(-1)[order], tok, n)
@@ -250,72 +278,80 @@ def dropped_slots(cfg: ArchConfig, p: dict, x) -> int:
     return int((~keep).sum())
 
 
-def moe_apply_expert_parallel(cfg: ArchConfig, p: dict, x, mesh):
-    """The expert-parallel MoE on one process of a (data, model)
-    `launch.mesh.RankMesh` (forward only; the collectives are plain
-    `torch.distributed` calls). ``x`` is the GLOBAL (B, S, d) batch, the
-    same on every process, and ``p`` the whole MoE params (`moe_init`), of
-    which the process computes with its ``E/n_model`` experts (rows
-    ``[rank·E/n, (rank+1)·E/n)`` of the stacked expert weights), as the
-    reference's shard_map slices them. Returns the global output and the
-    aux loss, equal on every process.
+def moe_apply_expert_parallel(cfg: ArchConfig, p: dict, x, ctx: ShardCtx,
+                              aux: bool = True):
+    """The MoE FFN on one process of a (data, model) mesh (``ctx``), with
+    a backward. ``x`` (B/n_data, S, d) is this replica's rows and ``p``
+    this process's shards as `sharding.specs.place` leaves them
+    (`moe_specs`): the whole router, experts ``[rank·E/n, (rank+1)·E/n)``
+    of the stacked expert weights, and its Megatron shards of the shared
+    expert (llama4) and the dense residual FFN (arctic). Returns (out, aux)
+    as `moe_apply`: this replica's rows, and the aux loss, equal on every
+    process.
 
-    The process takes its replica's ``B/n_data`` rows, pads their tokens to
-    a multiple of ``n_model`` and dispatches its share of them locally
-    (capacity per (process, expert), one more slot when padded, as the
-    reference); one all-to-all over the model group carries each expert's
-    slots to its owner and one brings the outputs back; an all-gather over
-    ``model`` rebuilds the replica's rows and one over ``data`` the batch.
-    The load fractions and mean probabilities are averaged over every
-    process. With ``B`` not divisible by ``n_data`` it is `moe_apply` on
-    the whole batch, with no collective, as the reference falls back."""
+    As the reference's shard_map: the replica's tokens are padded to a
+    multiple of ``n_model`` and the process dispatches its share of them
+    (capacity per (process, expert), one more slot when padded: a decode
+    of fewer tokens than ranks); one all-to-all over ``model`` carries
+    each expert's slots to its owner and one brings the outputs back; an
+    all-gather over ``model`` rebuilds the replica's rows. The load
+    fractions and mean probabilities are averaged over every process
+    (`core.collectives.mesh_mean`, whose adjoint gives the global loss's
+    gradient); ``aux=False`` (prefill and decode, which read no aux loss)
+    skips them and their two all-reduces, as the reference's compiled
+    serving step drops the unused ``pmean``s, and gives an aux of 0.
+    ``x`` and the router enter the tensor-parallel region
+    (`ShardCtx.enter`): each rank's gradient of them covers its own
+    tokens, summed over ``model``. The shared expert and the dense
+    residual are `mlp_apply` on the mesh (rank-local, reduced over
+    ``model``)."""
     from repro_torch.core import collectives as C
 
-    m = cfg.moe
+    m, mesh = cfg.moe, ctx.mesh
     b, s, d = x.shape
-    tp, dp = mesh.n_model, mesh.n_data
-    if b % dp:
-        return moe_apply(cfg, p, x)
+    tp = mesh.n_model
     e, k = m.n_experts, m.top_k
-    if e % tp:
-        raise ValueError(f"{e} experts do not split over {tp} model ranks")
-    bl = b // dp
-    n_rep = bl * s
+    el = p["w_up"].shape[0]
+    if el * tp != e:
+        raise ValueError(
+            f"{cfg.arch_id}: {e} experts do not split over {tp} model ranks "
+            f"(this process holds {el}); the reference's shard_map refuses "
+            "the layout too")
+    n_rep = b * s
     n_pad = (-n_rep) % tp
     n_loc = (n_rep + n_pad) // tp
     cap = int(max(1, round(n_loc * k / e * m.capacity_factor)
                   + (1 if n_pad else 0)))
 
-    xf = x[mesh.replica * bl:(mesh.replica + 1) * bl].reshape(n_rep, d)
+    xf = ctx.enter(x).reshape(n_rep, d)
     if n_pad:
         xf = torch.cat([xf, xf.new_zeros((n_pad, d))])
     mine = xf[mesh.rank * n_loc:(mesh.rank + 1) * n_loc]
 
-    logits = mine.to(torch.float32) @ p["router"]
+    logits = mine.to(torch.float32) @ ctx.enter(p["router"])
     idx, wts, probs = _route(m, logits)
     flat_e, order, tok, keep, dest = _dispatch(m, idx, cap)
+    _log_drops(keep)
     buf = _scatter(mine, tok, dest, e * cap)                # (E·cap, d)
-    # out to the owners: peer j gets experts [j·E/tp, (j+1)·E/tp)
-    el = e // tp
-    got = C.all_to_all_units(buf, [el * cap] * tp, [el * cap] * tp,
-                             mesh.model)                   # (tp·el·cap, d)
+    # out to the owners: peer j gets experts [j·el, (j+1)·el)
+    split = [el * cap] * tp
+    got = C.all_to_all(buf, split, split, mesh.model)       # (tp·el·cap, d)
     got = got.reshape(tp, el, cap, d).transpose(0, 1).reshape(el, tp * cap, d)
-    own = slice(mesh.rank * el, (mesh.rank + 1) * el)
-    y = _experts(cfg, {kk: p[kk][own] for kk in EXPERT_KEYS if kk in p}, got)
+    y = _experts(cfg, p, got)
     # and back: peer j's slots return to peer j
     y = y.reshape(el, tp, cap, d).transpose(0, 1).reshape(tp * el * cap, d)
-    y = C.all_to_all_units(y, [el * cap] * tp, [el * cap] * tp, mesh.model)
-    y = y.reshape(tp, el, cap, d).reshape(e * cap, d)
+    y = C.all_to_all(y, split, split, mesh.model).reshape(e * cap, d)
     out = _combine(y, keep, dest, wts.reshape(-1)[order], tok, n_loc)
 
-    rep = C.all_gather_units(out, mesh.model).reshape(-1, d)[:n_rep]
-    full = C.all_gather_units(rep.reshape(bl, s, d), mesh.data)
-    out = _side_mlps(cfg, p, x, full.reshape(b, s, d))
+    full = C.gather_from_model(out, mesh.model, mesh.rank)[:n_rep]
+    out = _side_mlps(cfg, p, x, full.reshape(b, s, d), ctx)
 
-    stats = torch.stack([_load(flat_e, e, n_loc * k), probs.mean(0)])
-    stats = C.psum_(C.psum_(stats, mesh.model), mesh.data) / (tp * dp)
-    aux = e * torch.sum(stats[0] * stats[1]) * m.router_aux_coef
-    return out, {"moe_aux_loss": aux}
+    if not aux:
+        return out, {"moe_aux_loss": 0.0}
+    stats = C.mesh_mean(torch.stack([_load(flat_e, e, n_loc * k),
+                                     probs.mean(0)]), mesh)
+    return out, {"moe_aux_loss": e * torch.sum(stats[0] * stats[1])
+                 * m.router_aux_coef}
 
 
 def moe_apply_dense_ref(cfg: ArchConfig, p: dict, x):

@@ -53,7 +53,10 @@ trees), for `sharding.specs` to resolve against a mesh shape.
 
 A model built with a `common.ShardCtx` on a mesh of processes runs this
 process's shards (`sharding.specs.place`): attention and the dense FFN are
-rank-local (`attention.attn_apply`, `mlp.mlp_apply`), the embedding and
+rank-local (`attention.attn_apply`, `mlp.mlp_apply`), an MoE FFN expert-
+parallel (`mlp.moe_apply_expert_parallel`: this rank's experts, its
+share of the replica's tokens dispatched over ``model`` by all-to-all),
+the embedding and
 the head vocab-parallel — each rank looks up the token ids in its own
 ``embed`` rows, zeros for the rest, summed over ``model``; its head (the
 local ``lm_head`` columns, or the local ``embed`` rows transposed for a
@@ -70,6 +73,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tr
 from repro_torch.configs.base import ATTN_KINDS, ArchConfig
 from repro_torch.core.collectives import all_gather_units
 from repro_torch.kernels import mode
@@ -79,10 +83,10 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
-    NO_SHARD, P, ShapesOnly, ShardCtx, embed_init, layer_norm, rms_norm,
-    sanitize_spec, softcap,
+    NO_SHARD, P, KeepPart, ShapesOnly, ShardCtx, embed_init, layer_norm,
+    rms_norm, sanitize_spec, softcap,
 )
-from repro_torch.sharding.specs import local_shape
+from repro_torch.sharding.specs import local_shape, local_shard
 
 # the block kinds a decoder serves (the reference's serve engine's), and
 # those whose state is cumulative
@@ -196,8 +200,10 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
     mixer: over ``enc_out`` (banking its K/V into the cache's ``ek``/``ev``
     when there is a cache), or over the bank. ``plain``: the cache-less
     training route, every op plain PyTorch, attention at ``positions``.
-    ``ctx``: this process's mesh (rank-local attention and dense FFN);
-    ``seq_shard``: the cache holds this rank's block of its rows."""
+    ``ctx``: this process's mesh (rank-local attention and dense FFN, the
+    expert-parallel MoE FFN, `mlp.moe_apply_expert_parallel`, in every
+    mode); ``seq_shard``: the cache holds this rank's block of its
+    rows."""
     cross_cache, self_cache = None, cache
     if cache is not None and "ek" in cache:
         cross_cache = {"ek": cache["ek"], "ev": cache["ev"]}
@@ -228,6 +234,10 @@ def block_apply(cfg: ArchConfig, p: dict, x, *, kind: str,
         h2 = norm_apply(cfg, p["ln2"], x, plain)
         if not _moe_ffn(cfg, kind):
             out = mlp_mod.mlp_apply(cfg, p["ffn"], h2, ctx)
+        elif ctx.mesh is not None:
+            out, moe_aux = mlp_mod.moe_apply_expert_parallel(
+                cfg, p["ffn"], h2, ctx, aux=plain)
+            aux = moe_aux["moe_aux_loss"]
         elif slots:
             out = mlp_mod.moe_apply_slots(cfg, p["ffn"], h2)
         else:
@@ -305,6 +315,30 @@ class Model:
                 f"generator on {generator.device}, model on {self.device}"
             )
         return self._init(generator)
+
+    def init_shards(self, generator: torch.Generator, specs, mesh) -> dict:
+        """`init`'s parameters from ``generator`` (the same draws), each
+        leaf cut to this process's shard under ``specs`` (sanitized
+        `param_specs`) on ``mesh`` as soon as it is drawn: the process
+        never holds the whole tree, only one leaf's draw at a time (dense
+        blocks only, as `param_shapes`)."""
+        probe = ShapesOnly()
+        shapes = self._init(probe)
+        spec_of = {id(leaf): spec for leaf, spec in
+                   zip(tr.leaves(shapes), tr.leaves(specs))}
+        order = iter([spec_of[id(leaf)] for leaf in probe.drawn])
+        kept = set()
+
+        def cut(leaf, spec):
+            part = local_shard(leaf, spec, mesh)
+            part = part.clone() if part.numel() != leaf.numel() else part
+            kept.add(id(part))
+            return part
+
+        params = self._init(KeepPart(generator,
+                                     lambda w: cut(w, next(order))))
+        return tr.tree_map(lambda x, s: x if id(x) in kept else cut(x, s),
+                           params, specs)
 
     def param_shapes(self) -> dict:
         """`init`'s tree as empty meta tensors: the full (one-device)

@@ -6,7 +6,10 @@ Like the reference's step, which donates its params and optimizer state,
 returns them, so a step holds one copy of the weights, not two. The
 arithmetic is the reference's op for op (f32 bias corrections from the
 int32 step; a pad slot with zero grad, moments and weight stays exactly
-zero: its update is 0/(0+eps) = 0).
+zero: its update is 0/(0+eps) = 0). A leaf is updated in blocks of its
+first dimension of about `BLOCK` elements: the arithmetic is elementwise,
+so the result is the same, and a step's temporaries stay a few blocks,
+not a few copies of its largest leaf.
 """
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree as tr
+
+
+# elements of a leaf updated at a time (see the module docstring)
+BLOCK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -74,16 +81,18 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0,
     lr = cfg.lr * lr_scale
 
     master = state.get("master", params)
-    for g, m, v, p32, p in zip(tr.leaves(grads), tr.leaves(state["m"]),
-                               tr.leaves(state["v"]), tr.leaves(master),
-                               tr.leaves(params)):
-        g = g.to(torch.float32) * clip
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32.sub_(lr * (update + cfg.weight_decay * p32))
-        if p32 is not p:
-            p.copy_(p32)
+    for leaf in zip(tr.leaves(grads), tr.leaves(state["m"]),
+                    tr.leaves(state["v"]), tr.leaves(master),
+                    tr.leaves(params)):
+        for block in _blocks(leaf[3]):
+            g, m, v, p32, p = (x[block] for x in leaf)
+            g = g.to(torch.float32) * clip
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            p32.sub_(lr * (update + cfg.weight_decay * p32))
+            if leaf[3] is not leaf[4]:
+                p.copy_(p32)
 
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     if "master" in state:
@@ -91,3 +100,12 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0,
     metrics = {"grad_norm": gnorm,
                "lr": torch.as_tensor(lr, dtype=torch.float32)}
     return params, new_state, metrics
+
+
+def _blocks(x: torch.Tensor):
+    """Index slices of ``x`` along its first dimension, about `BLOCK`
+    elements each (the whole of a small or 0-d leaf)."""
+    if x.dim() == 0 or x.numel() <= BLOCK:
+        return [...]
+    rows = max(1, BLOCK * x.shape[0] // x.numel())
+    return [slice(i, i + rows) for i in range(0, x.shape[0], rows)]

@@ -306,9 +306,10 @@ class NTPSession:
         ``microbatches`` > 1 accumulates the gradients of that many equal
         chunks of each batch. ``mesh``: this process's
         `launch.mesh.RankMesh` (sharded execution of the dense attention
-        archs, `make_setup` on the mesh): the given or drawn params (the
-        same seed on every process) are placed, each process keeping its
-        shards, and the AdamW state is ZeRO-1's."""
+        archs, `make_setup` on the mesh): the given params are placed,
+        each process keeping its shards, or each process draws the same
+        seed leaf by leaf, keeping its shards (`Setup.init_params`); the
+        AdamW state is ZeRO-1's."""
         from repro_torch.train.steps import make_setup
 
         kw = {} if lr_schedule is None else {"lr_schedule": lr_schedule}
@@ -325,9 +326,7 @@ class NTPSession:
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self._device).manual_seed(0)
-            params = setup.model.init(generator)
-            self._params = params if mesh is None else setup.place(params)
-            del params
+            self._params = setup.init_params(generator)
         else:
             self._params = setup.place(params)
         self._opt = setup.init_opt_state(self._params)

@@ -18,19 +18,23 @@ the served model's `prefill` / `decode_step`, so on the card they launch
 ``mesh=None`` is the one-device step. ``mesh`` = a `launch.mesh.RankMesh`
 (one process per (replica, rank), global rank ``replica·n_model + rank``,
 the reference's row-major ``("data", "model")`` order) gives this process's
-sharded steps, for the dense attention archs (every block ``attn``,
-``attn_sw`` or ``attn_chunked`` with a dense FFN): the `Setup` carries the
+sharded steps, for the attention archs (every block ``attn``, ``attn_sw``
+or ``attn_chunked``, with a dense or an MoE FFN): the `Setup` carries the
 sanitized ``param_specs``, ``opt_specs`` (ZeRO-1 ``m``/``v``/``master``,
 ``step`` replicated) and ``cache_specs``, and the steps take this
 process's shards (`Setup.place`, `Setup.init_opt_state`) and the global
 batch, of which each process takes its replica's rows. The train step:
 
 * runs the model rank-local (`models.common.ShardCtx`: Megatron's
-  column/row pairs, a vocab-parallel embedding and head), so every
-  gradient of a leaf split over ``model`` is its shard's, every
-  replicated leaf outside a region whole on every rank, and the
+  column/row pairs, heads split mid-head where ``n_model`` does not
+  divide H, a vocab-parallel embedding and head, the expert-parallel MoE
+  FFN), so every gradient of a leaf split over ``model`` is its shard's,
+  every replicated leaf outside a region whole on every rank, and the
   replicated leaves inside one (``wk``/``wv``/``bk``/``bv``,
-  ``q_norm``/``k_norm``) summed over ``model`` by `ShardCtx.enter`;
+  ``q_norm``/``k_norm``, the router) summed over ``model`` by
+  `ShardCtx.enter`; the MoE aux loss's statistics are averaged over the
+  mesh with the adjoint that survives the ``data`` mean below
+  (`core.collectives.mesh_mean`);
 * takes the loss vocab-parallel (`vocab_parallel_cross_entropy`);
 * averages every gradient and the losses over ``data``;
 * clips by the global norm (each model-split leaf's shards counted once,
@@ -39,10 +43,13 @@ batch, of which each process takes its replica's rows. The train step:
   all-gathers the params over ``data``.
 
 Prefill and decode return the last position's logits of this replica's
-rows, gathered over ``model``, and this process's cache shard. A config
-outside the slice (MoE, an SSD or RG-LRU block, an encoder) or a batch
-that does not split over ``data`` raises, naming its ROADMAP row; no mesh
-falls back to one device.
+rows, gathered over ``model``, and this process's cache shard. A part
+not ported yet (an SSD or RG-LRU block, an encoder, a batch that does
+not split over ``data`` in prefill or decode) raises
+`NotImplementedError` naming its ROADMAP row; wrong input (a train
+batch that does not split, microbatches with an MoE arch, experts that
+do not split over ``model``) raises `ValueError`. No mesh falls back to
+one device.
 """
 from __future__ import annotations
 
@@ -145,6 +152,15 @@ class Setup:
                 params)
         return place(params, self.param_specs, self.mesh)
 
+    def init_params(self, generator: torch.Generator):
+        """The model's parameters drawn from ``generator`` (`Model.init`);
+        on a mesh, this process's shards of them, each leaf cut as it is
+        drawn (`Model.init_shards`: the same values as `place` of the
+        whole draw, without holding the whole model)."""
+        if self.mesh is None:
+            return self.model.init(generator)
+        return self.model.init_shards(generator, self.param_specs, self.mesh)
+
     def init_opt_state(self, params):
         """`adamw_init` of (this process's) ``params``; on a mesh each
         moment (and the f32 master) is this process's ZeRO-1 slice."""
@@ -168,12 +184,8 @@ class Setup:
 
 def check_sharded_arch(cfg: ArchConfig) -> None:
     """Raise `NotImplementedError`, naming its ROADMAP row, for a config
-    outside sharded execution: MoE, an SSD or RG-LRU block, an encoder."""
+    outside sharded execution: an SSD or RG-LRU block, an encoder."""
     kinds = set(cfg.layer_pattern)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE on a mesh is not ported ({ROADMAP_7G}: "
-            "MoE on the mesh, through moe_apply_expert_parallel)")
     if kinds & {"ssm", "rglru"}:
         raise NotImplementedError(
             f"{cfg.arch_id}: {sorted(kinds & {'ssm', 'rglru'})} blocks on a "
@@ -212,6 +224,11 @@ def _check_mesh(cfg: ArchConfig, shape: ShapeSpec, mesh) -> None:
             "layout)")
     if (cfg.n_heads * cfg.head_dim) % mesh.n_model == 0:
         local_heads(cfg, mesh.n_model, mesh.rank)
+    if cfg.moe is not None and cfg.moe.n_experts % mesh.n_model:
+        raise ValueError(
+            f"{cfg.arch_id}: {cfg.moe.n_experts} experts do not split over "
+            f"model={mesh.n_model} (expert parallelism gives each model "
+            "rank E/n_model experts, as the reference's shard_map)")
 
 
 def make_setup(
@@ -452,6 +469,8 @@ def _sharded_setup(su: Setup, dp_axes, lr_schedule, microbatches: int):
         those of its shards, averaged over ``data``."""
         local = shard_batch(batch, su.batch_specs, mesh)
         (total, ce), grads = local_value_and_grad(params, local)
+        if mesh.n_data == 1:        # one replica: nothing to average
+            return (total, ce), grads
         for g in tr.leaves(grads):
             psum_(g, mesh.data).div_(mesh.n_data)
         tc = psum_(torch.stack([total, ce]), mesh.data).div_(mesh.n_data)

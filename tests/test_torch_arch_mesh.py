@@ -24,9 +24,11 @@ with a sliding window of 8, granite-3-2b, minitron-4b, chameleon-34b):
   the loss, the clipped global norm and the updated first moment of one
   AdamW step; a microbatches=2 sharded step's first moment equals the
   one-device plain step's;
-* each refusal with its message: MoE, an SSD or RG-LRU block, an
-  encoder, a decode batch that takes the context-parallel K/V layout, a
-  head split across ranks, something other than a `RankMesh`;
+* each refusal with its message: an SSD or RG-LRU block, an encoder, a
+  decode batch that takes the context-parallel K/V layout (each a part
+  not ported, `NotImplementedError`), something other than a
+  `RankMesh`; a head split across ranks is accepted, and query heads that
+  do not group over the KV heads are refused as wrong input;
 * ``launch.train --arch --nproc 4 --mesh 2x2 --backend gloo`` prints four
   losses within 3e-5 of the one-device launcher's, and the reference's
   spelling ``--devices 4`` needs ``--backend``.
@@ -336,7 +338,7 @@ def test_sharded_gradients_equal_one_device(rank_checks, aid):
 # refusals
 
 @pytest.mark.parametrize("aid,kind,match", [
-    ("arctic-480b", "train", "MoE on the mesh"),
+    ("recurrentgemma-9b", "train", "Mamba-2 and RG-LRU on the mesh"),
     ("mamba2-780m", "train", "Mamba-2 and RG-LRU on the mesh"),
     ("recurrentgemma-9b", "prefill", "Mamba-2 and RG-LRU on the mesh"),
     ("whisper-small", "train", "whisper's encoder and cross bank"),
@@ -358,13 +360,19 @@ def test_context_parallel_cache_and_split_heads_are_refused():
     with pytest.raises(ValueError, match="does not split over data=2"):
         steps.make_setup(cfg, ShapeSpec("t", S, 3, "train"), _at(0, 0),
                          device="cpu")
-    # 6 heads of 64 over 4 ranks: 384 divides by 4, 6 does not
+    # 6 heads of 64 over 4 ranks: 384 divides by 4, 6 does not, and the
+    # ranks split heads (tests/test_torch_arch_moe_ranks.py runs it);
+    # 6 query heads over 4 KV heads group no way: wrong input
     odd = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2)
     at4 = RankMesh(1, 4, 0, 0, None, None, torch.device("cpu"), "gloo")
-    with pytest.raises(ValueError, match=r"384 divides by n_model = 4 but "
-                                         r"n_heads = 6"):
-        steps.make_setup(odd, ShapeSpec("t", S, B, "train"), at4,
-                         device="cpu")
+    su = steps.make_setup(odd, ShapeSpec("t", S, B, "train"), at4,
+                          device="cpu")
+    assert tuple(su.param_specs["layers"][0]["mixer"]["wq"]) == \
+        (None, "model")
+    with pytest.raises(ValueError, match="6 query heads do not group over "
+                                         "4 KV heads"):
+        steps.make_setup(dataclasses.replace(odd, n_kv_heads=4),
+                         ShapeSpec("t", S, B, "train"), at4, device="cpu")
     with pytest.raises(NotImplementedError, match="RankMesh"):
         steps.make_setup(cfg, ShapeSpec("t", S, B, "train"),
                          {"data": 2, "model": 2}, device="cpu")

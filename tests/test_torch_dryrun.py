@@ -14,10 +14,12 @@ run:
   (its dot instructions, trip counts multiplied) for the same arch, shape
   and (2, 2) mesh on 4 fake JAX devices in a subprocess (the mesh built
   with automatic axes, as tests/test_torch_arch_ranks.py builds it);
-* at the production mesh: gemma2-9b ``train_4k`` is ``ok`` on 256 chips;
-  qwen2-7b (split heads) and llama4-scout (MoE) give ``ok: False``
-  naming their ROADMAP 7g rows; ``long_500k`` is skipped with the arch's
-  ``long_decode_note``; ``launch.train --dry-run`` prints a record.
+* at the production mesh: gemma2-9b ``train_4k`` is ``ok`` on 256 chips,
+  and so is qwen2-7b's, whose 28 heads split over 16 ranks; mamba2-780m
+  gives ``ok: False`` naming its ROADMAP 7g row; ``long_500k`` is skipped
+  with the arch's ``long_decode_note``; ``launch.train --dry-run`` prints
+  a record. (The MoE route's collectives are held to a run in
+  tests/test_torch_arch_moe_ranks.py.)
 
 The spawned processes import this module, so JAX is imported only inside
 the subprocess."""
@@ -199,10 +201,11 @@ def test_production_record_of_gemma2():
 
 def test_sweep_records_refusals_and_skips(tmp_path):
     """The sweep writes every record and exits 1 on a refusal, as the
-    reference's: split heads (qwen2-7b's 28 over 16) and MoE name their
-    7g rows; long_500k is skipped with the arch's note."""
+    reference's: qwen2-7b's train_4k is ok (its 28 heads split over 16
+    ranks), mamba2-780m's names its 7g row as a part not ported;
+    long_500k is skipped with the arch's note."""
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2-7b,llama4-scout-17b-a16e", "--shape",
+        dryrun.main(["--arch", "qwen2-7b,mamba2-780m", "--shape",
                      "train_4k,long_500k", "--out", str(tmp_path)])
     assert e.value.code == 1
 
@@ -210,10 +213,14 @@ def test_sweep_records_refusals_and_skips(tmp_path):
         with open(tmp_path / f"{arch}__{shape}__pod16x16.json") as f:
             return json.load(f)
 
-    for arch, row in (("qwen2-7b", "7g: split heads"),
-                      ("llama4-scout-17b-a16e", "7g: MoE on the mesh")):
-        r = rec(arch, "train_4k")
-        assert r["ok"] is False and row in r["error"], r
+    ok = rec("qwen2-7b", "train_4k")
+    assert ok["ok"] and ok["chips"] == 256 and \
+        ("reduce_scatter", "model") in {(c["op"], c["group"])
+                                        for c in ok["calls"]}
+    r = rec("mamba2-780m", "train_4k")
+    assert r["ok"] is False and r["error"].startswith(
+        "NotImplementedError") and \
+        "7g: Mamba-2 and RG-LRU on the mesh" in r["error"], r
     skipped = rec("qwen2-7b", "long_500k")
     assert skipped["skipped"] and \
         skipped["reason"] == get_arch("qwen2-7b").long_decode_note

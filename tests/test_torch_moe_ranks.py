@@ -12,7 +12,8 @@ Fast tier (4 processes a spawn):
   rank's router gradient holds its own experts' gates only, so a sync
   that did not sum it over ``model`` would fail the router's check. Then,
   on a (1, 4) mesh of the same processes (one expert a process),
-  `models.mlp.moe_apply_expert_parallel` against the JAX package's
+  `models.mlp.moe_apply_expert_parallel` on each process's shards
+  (`moe_specs`) and its replica's rows against the JAX package's
   `moe_apply_dense_ref` (1e-4) and `moe_apply`'s aux loss (1e-6), for
   reduced llama4-scout and arctic-480b at drop-free capacity, as
   tests/dist/moe_expert_parallel.py.
@@ -166,15 +167,23 @@ def test_moe_rank_session_matches_emulated_and_dense_reference():
 
 def _ep_worker(n_data, n_model, cases):
     """One process of an (n_data, n_model) mesh: the expert-parallel FFN of
-    each case's params on its global input."""
+    each case's params, placed by `moe_specs` (its experts, its Megatron
+    shards of the side MLPs), on its replica's rows of the global input.
+    Returns, per case, (its rows of the output, the aux loss, the rows)."""
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.sharding.specs import param_shardings, place
+
     mesh = make_test_mesh(n_data, n_model, backend="gloo", device="cpu")
     out = []
     for arch, p_np, x_np in cases:
         cfg = _ep_cfg(arch)
-        p = tr.tree_map(torch.from_numpy, p_np)
-        y, aux = tmlp.moe_apply_expert_parallel(cfg, p, torch.from_numpy(x_np),
-                                                mesh)
-        out.append((y.numpy(), float(aux["moe_aux_loss"])))
+        specs = param_shardings(mesh.shape, tmlp.moe_specs(cfg), p_np)
+        p = place(p_np, specs, mesh)
+        bl = x_np.shape[0] // n_data
+        rows = (mesh.replica * bl, (mesh.replica + 1) * bl)
+        y, aux = tmlp.moe_apply_expert_parallel(
+            cfg, p, torch.from_numpy(x_np[rows[0]:rows[1]]), ShardCtx(mesh))
+        out.append((y.numpy(), float(aux["moe_aux_loss"]), rows))
     return out
 
 
@@ -215,8 +224,8 @@ def _ep_cases(batch=(8, 16)):
 
 
 def _check_ep(got, wants):
-    for (y, aux), (want, want_aux) in zip(got, wants):
-        assert np.abs(y - want).max() < 1e-4
+    for (y, aux, (lo, hi)), (want, want_aux) in zip(got, wants):
+        assert np.abs(y - want[lo:hi]).max() < 1e-4
         assert abs(aux - want_aux) < 1e-6
 
 
